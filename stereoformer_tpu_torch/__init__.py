@@ -1,7 +1,8 @@
 """stereoformer_tpu_torch: the PyTorch and CUDA port of stereoformer_tpu.
 
 The package mirrors the JAX package's module names (``ops``, ``nn``,
-``models``, ``data``, ``cli``) and keeps its public layouts: images NHWC
+``models``, ``losses``, ``metrics``, ``train``, ``data``, ``cli``) and
+keeps its public layouts: images NHWC
 ``[B, H, W, 3]``, cost volumes ``[B, H, W, D]`` with D innermost, and
 disparities ``[B, H, W, 1]``. The kernels that the JAX package wrote in
 Pallas for the TPU are CUDA kernels written for Hopper (``csrc/``, built by

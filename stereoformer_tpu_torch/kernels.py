@@ -34,6 +34,9 @@ KERNELS = {
                   (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "local_soft_argmin": ("local_soft_argmin.cu", "local_soft_argmin_forward",
                           (_P, _P, _P, _I, _I, _I, _P)),
+    "local_soft_argmin_bwd": ("local_soft_argmin_bwd.cu",
+                              "local_soft_argmin_backward",
+                              (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _functions: dict = {}

@@ -1,4 +1,4 @@
-"""LowCNN with GRU refinement (``LowCNN_gru``), eval forward, float32.
+"""LowCNN with GRU refinement (``LowCNN_gru``), float32.
 
 Counterpart of ``stereoformer_tpu/models/low_cnn.py::LowCNN`` with
 ``refinement="gru"``: a siamese backbone and FPN to 1/8, the 24-bin
@@ -6,6 +6,10 @@ correlation volume, three aggregation ResBlocks, soft-argmin, ``iters`` GRU
 refinement steps and the convex 8x upsample. Submodule names follow the
 reference ``state_dict`` keys (``correlation_aggreagtion`` is the
 reference's spelling), so reference checkpoints load as they are.
+
+``model.train()`` normalises with batch statistics and moves the running
+ones (``nn/norm.py``); gradients flow through every GRU step, the current
+disparity included, as in the JAX model.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Counterparts of ``stereoformer_tpu/nn/blocks.py`` (``ConvLReLU``,
 ``ConvBnRelu``, ``ResBlock``, ``FPNFusion``). Submodule names follow the
-reference ``state_dict`` keys. BatchNorm uses eps 1e-5, as Flax does.
+reference ``state_dict`` keys. BatchNorm is ``norm.BatchNorm2d``, Flax's.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from torch import nn
 
 from ..ops.resize import resize_bilinear
 from .conv import Conv
+from .norm import BatchNorm2d
 
 
 class ConvLReLU(nn.Sequential):
@@ -32,7 +33,7 @@ class ConvBnRelu(nn.Module):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
                          bias=False)
-        self.bn = nn.BatchNorm2d(out_channels)
+        self.bn = BatchNorm2d(out_channels)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -47,14 +48,14 @@ class ResBlock(nn.Module):
                  kernel_size: int = 3, stride: int = 1):
         super().__init__()
         self.conv1 = Conv(in_channels, out_channels, kernel_size, stride)
-        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.bn1 = BatchNorm2d(out_channels)
         self.conv2 = Conv(out_channels, out_channels, 3)
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
         self.shortcut = None
         if stride != 1 or in_channels != out_channels:
             self.shortcut = nn.Sequential(
                 Conv(in_channels, out_channels, 1, stride),
-                nn.BatchNorm2d(out_channels))
+                BatchNorm2d(out_channels))
 
     def forward(self, x):
         residual = x if self.shortcut is None else self.shortcut(x)

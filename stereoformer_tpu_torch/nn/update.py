@@ -19,6 +19,7 @@ from ..ops import (
     uncertainty_volume,
 )
 from .conv import Conv
+from .norm import BatchNorm2d
 from .gru import ConvGRU
 
 
@@ -32,7 +33,7 @@ def _nhwc(x):
 
 def _conv_bn_relu(in_channels, out_channels):
     return nn.Sequential(Conv(in_channels, out_channels, 3, bias=False),
-                         nn.BatchNorm2d(out_channels), nn.ReLU())
+                         BatchNorm2d(out_channels), nn.ReLU())
 
 
 class GuidanceEncoder(nn.Module):

@@ -7,8 +7,9 @@ and of its Pallas kernel ``ops/pallas/corr_band.py::corr_band``:
 
 ``correlation_volume`` takes the plain version for CPU tensors and launches
 the CUDA kernel ``csrc/corr_band.cu`` for CUDA tensors, counting launches in
-``correlation_volume.launches``. Its gradient on the GPU waits for the
-training slice's backward kernel: the backward raises.
+``correlation_volume.launches``. Its gradient on the GPU is the shift form of
+``ops/pallas/corr_band.py::_bwd``, which the JAX package leaves to XLA: D
+shifted products in plain torch ops (``correlation_volume_backward``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,23 @@ def correlation_volume_plain(left: torch.Tensor, right: torch.Tensor,
     for d in range(min(max_disp, W)):
         out[:, :, d:, d] = (left[:, :, d:, :] * right[:, :, : W - d, :]).mean(-1)
     return out
+
+
+def correlation_volume_backward(left: torch.Tensor, right: torch.Tensor,
+                                grad: torch.Tensor):
+    """The gradient of the correlation volume by shifts: with g = grad / C,
+    dleft[w] = sum_d g[w, d] * right[w - d] and
+    dright[v] = sum_d g[v + d, d] * left[v + d], over w >= d.
+    left, right [B, H, W, C], grad [B, H, W, D] -> (dleft, dright)."""
+    W, C = left.shape[2], left.shape[3]
+    g = grad / C
+    dleft = torch.zeros_like(left)
+    dright = torch.zeros_like(right)
+    for d in range(min(grad.shape[-1], W)):
+        gd = g[:, :, d:, d:d + 1]
+        dleft[:, :, d:] += gd * right[:, :, :W - d]
+        dright[:, :, :W - d] += gd * left[:, :, d:]
+    return dleft, dright
 
 
 class _CorrBand(torch.autograd.Function):
@@ -46,12 +64,13 @@ class _CorrBand(torch.autograd.Function):
         kernels.launch("corr_band", left.device, left.data_ptr(),
                        right.data_ptr(), out.data_ptr(), B, H, W, C, max_disp)
         correlation_volume.launches += 1
+        ctx.save_for_backward(left, right)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "backward kernel lands with the training slice")
+        left, right = ctx.saved_tensors
+        return (*correlation_volume_backward(left, right, grad), None)
 
 
 def correlation_volume(left: torch.Tensor, right: torch.Tensor,

@@ -5,10 +5,13 @@ with ``consider_valid=True``, ``resample_volume_hat``, ``local_soft_argmin``)
 and of its Pallas kernel
 ``ops/pallas/local_refine.py::fused_local_soft_argmin``.
 
-``local_soft_argmin`` takes the plain version for CPU tensors and launches
-the CUDA kernel ``csrc/local_soft_argmin.cu`` for CUDA tensors, counting
-launches in ``local_soft_argmin.launches``. Its gradient on the GPU waits for
-the training slice's backward kernel: the backward raises.
+``local_soft_argmin`` takes the plain version for CPU tensors, whose autograd
+gives the same gradient as JAX's (the clip's tie at a bound meets a hat
+derivative of 0 there, so no tie mask is needed). For CUDA tensors it
+launches the CUDA kernel ``csrc/local_soft_argmin.cu`` and, for the gradient,
+``csrc/local_soft_argmin_bwd.cu`` (the Pallas ``_backward``), counting
+launches in ``local_soft_argmin.launches`` and
+``local_soft_argmin.backward_launches``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,36 @@ def local_soft_argmin_plain(volume: torch.Tensor,
     return (score * candidates).sum(-1, keepdim=True)
 
 
+def local_soft_argmin_backward_plain(volume: torch.Tensor,
+                                     candidates: torch.Tensor,
+                                     g: torch.Tensor):
+    """The plain version of the backward, the closed form of the Pallas
+    ``_bwd_kernel``: volume [B, H, W, D], candidates [B, H, W, S], the
+    output's cotangent g [B, H, W, 1] -> (dvolume, dcandidates).
+
+    The clip's derivative is 1 inside (0, D-1), 0 outside and 0.5 at a bound;
+    |delta|'s is sign(delta) (0 at delta = 0); the hat's relu passes nothing
+    at |delta| >= 1."""
+    D = volume.shape[-1]
+    c = candidates.clamp(0, D - 1)
+    d = torch.arange(D, dtype=volume.dtype, device=volume.device)
+    delta = c[..., None] - d                                   # [.., S, D]
+    m = delta.abs()
+    w = torch.relu(1.0 - m)
+    local = torch.einsum("...sd,...d->...s", w, volume)
+    score = torch.softmax(local, dim=-1)
+    out = (score * candidates).sum(-1, keepdim=True)
+    dlocal = g * score * (candidates - out)
+    dvolume = torch.einsum("...s,...sd->...d", dlocal, w)
+    dw = dlocal[..., None] * volume[..., None, :]
+    dc = -(dw * (m < 1.0) * torch.sign(delta)).sum(-1)
+    cg = (torch.where(candidates > 0, 1.0,
+                      torch.where(candidates < 0, 0.0, 0.5))
+          * torch.where(candidates < D - 1, 1.0,
+                        torch.where(candidates > D - 1, 0.0, 0.5)))
+    return dvolume, g * score + dc * cg
+
+
 class _LocalSoftArgmin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, volume, candidates):
@@ -73,23 +106,36 @@ class _LocalSoftArgmin(torch.autograd.Function):
         kernels.launch("local_soft_argmin", volume.device, volume.data_ptr(),
                        candidates.data_ptr(), out.data_ptr(), B * H * W, D, S)
         local_soft_argmin.launches += 1
+        ctx.save_for_backward(volume, candidates)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "backward kernel lands with the training slice")
+        volume, candidates = ctx.saved_tensors
+        g = grad.contiguous()
+        kernels.check_inputs("local_soft_argmin backward", volume,
+                             candidates, g)
+        dvolume = torch.empty_like(volume)
+        dcandidates = torch.empty_like(candidates)
+        B, H, W, D = volume.shape
+        kernels.launch("local_soft_argmin_bwd", volume.device,
+                       volume.data_ptr(), candidates.data_ptr(), g.data_ptr(),
+                       dvolume.data_ptr(), dcandidates.data_ptr(), B * H * W,
+                       D, candidates.shape[-1])
+        local_soft_argmin.backward_launches += 1
+        return dvolume, dcandidates
 
 
 def local_soft_argmin(volume: torch.Tensor,
                       candidates: torch.Tensor) -> torch.Tensor:
     """Re-sample + softmax + expectation over the candidates: volume
     [B, H, W, D], candidates [B, H, W, S] -> disparity [B, H, W, 1]. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (and the
+    backward kernel for the gradient) or raise."""
     if volume.device.type == "cpu" and candidates.device.type == "cpu":
         return local_soft_argmin_plain(volume, candidates)
     return _LocalSoftArgmin.apply(volume, candidates)
 
 
 local_soft_argmin.launches = 0
+local_soft_argmin.backward_launches = 0

@@ -42,3 +42,11 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
     Mw = Mw.to(device=x.device, dtype=x.dtype)
     x = torch.einsum("oh,...hwc->...owc", Mh, x)
     return torch.einsum("ow,...hwc->...hoc", Mw, x)
+
+
+def scale_disp(disp: torch.Tensor, size) -> torch.Tensor:
+    """Resize a disparity map [..., H, W, 1] to (H', W') = size, bilinear
+    with align_corners=False, and scale its values by the width ratio
+    W' / W."""
+    out = resize_bilinear(disp, size, align_corners=False)
+    return out * (size[1] / disp.shape[-2])

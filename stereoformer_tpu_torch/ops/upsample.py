@@ -1,6 +1,8 @@
-"""Learned convex 8x disparity upsampling (NHWC), forward only.
+"""Learned convex 8x disparity upsampling (NHWC).
 
-Counterpart of ``stereoformer_tpu/ops/upsample.py::upsample_convex8``.
+Counterpart of ``stereoformer_tpu/ops/upsample.py::upsample_convex8``. Its
+gradient is torch autograd's, the same VJP as the JAX package's
+hand-written one (``_upsample_convex_bwd``).
 """
 
 from __future__ import annotations

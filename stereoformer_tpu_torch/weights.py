@@ -1,5 +1,5 @@
-"""Weights for the port's LowCNN: the bridge from the JAX parameter tree,
-reference checkpoint files, and a seeded numpy init.
+"""Weights for the port's LowCNN: the bridge from the JAX parameter tree and
+optimizer state, reference checkpoint files, and a seeded numpy init.
 
 The port's ``state_dict`` uses the reference PyTorch key names, the ones
 ``stereoformer_tpu/train/torch_import.py::convert_lowcnn_state_dict`` reads:
@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .train.optim import AmsgradState
+
 # reference prefix -> Flax module name, for the backbone's ResBlocks
 _BACKBONE = (("conv2", "ResBlock_0"), ("conv3", "ResBlock_1"),
              ("downsample1", "ResBlock_2"), ("downsample2", "ResBlock_3"),
@@ -21,7 +23,7 @@ _ALIASES = ("local_cost_volume.gru.conv_zz.0.", "local_cost_volume.gru.conv_bb.0
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
 def _conv(sd, key, node, bias=True):
@@ -30,12 +32,22 @@ def _conv(sd, key, node, bias=True):
         sd[key + ".bias"] = _tensor(node["bias"])
 
 
+def _at(tree, *path):
+    """tree[path[0]][path[1]]...; None where the tree is None."""
+    for k in path:
+        if tree is None:
+            return None
+        tree = tree[k]
+    return tree
+
+
 def _bn(sd, key, params, stats):
     sd[key + ".weight"] = _tensor(params["scale"])
     sd[key + ".bias"] = _tensor(params["bias"])
-    sd[key + ".running_mean"] = _tensor(stats["mean"])
-    sd[key + ".running_var"] = _tensor(stats["var"])
-    sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    if stats is not None:
+        sd[key + ".running_mean"] = _tensor(stats["mean"])
+        sd[key + ".running_var"] = _tensor(stats["var"])
+        sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
 def _resblock(sd, key, params, stats):
@@ -45,44 +57,49 @@ def _resblock(sd, key, params, stats):
     shortcut = "shortcut_conv" in params
     off = 1 if shortcut else 0
     _conv(sd, key + ".conv1", params["Conv_0"])
-    _bn(sd, key + ".bn1", params[f"BatchNorm_{off}"], stats[f"BatchNorm_{off}"])
+    _bn(sd, key + ".bn1", params[f"BatchNorm_{off}"],
+        _at(stats, f"BatchNorm_{off}"))
     _conv(sd, key + ".conv2", params["Conv_1"])
     _bn(sd, key + ".bn2", params[f"BatchNorm_{off + 1}"],
-        stats[f"BatchNorm_{off + 1}"])
+        _at(stats, f"BatchNorm_{off + 1}"))
     if shortcut:
         _conv(sd, key + ".shortcut.0", params["shortcut_conv"])
-        _bn(sd, key + ".shortcut.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+        _bn(sd, key + ".shortcut.1", params["BatchNorm_0"],
+            _at(stats, "BatchNorm_0"))
 
 
 def lowcnn_state_dict_from_jax(variables) -> dict:
     """The JAX ``LowCNN(refinement="gru")`` variables ``{"params",
-    "batch_stats"}`` (numpy leaves) -> the port's ``state_dict``.
+    "batch_stats"}`` (numpy leaves) -> the port's ``state_dict``. Without
+    ``"batch_stats"``, the parameters' entries only.
 
     Kernels map HWIO -> OIHW; the fused GRU gate conv ``conv_zb`` splits
     into ``conv_z`` (first half of its outputs) and ``conv_b``."""
-    p, s = variables["params"], variables["batch_stats"]
+    p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
     _conv(sd, "conv1.0", p["ConvLReLU_0"]["Conv_0"])
     for key, name in _BACKBONE:
-        _resblock(sd, key, p[name], s[name])
+        _resblock(sd, key, p[name], _at(s, name))
     for i in range(2):
-        node, stats = p["FPNFusion_0"][f"ConvBnRelu_{i}"], s["FPNFusion_0"][f"ConvBnRelu_{i}"]
+        node = p["FPNFusion_0"][f"ConvBnRelu_{i}"]
         _conv(sd, f"feature_concated.layer_list.{i}.conv", node["Conv_0"],
               bias=False)
         _bn(sd, f"feature_concated.layer_list.{i}.bn", node["BatchNorm_0"],
-            stats["BatchNorm_0"])
+            _at(s, "FPNFusion_0", f"ConvBnRelu_{i}", "BatchNorm_0"))
     for i in range(3):
-        _resblock(sd, f"correlation_aggreagtion.{i}", p[f"agg{i}"], s[f"agg{i}"])
+        _resblock(sd, f"correlation_aggreagtion.{i}", p[f"agg{i}"],
+                  _at(s, f"agg{i}"))
 
-    g, gs = p["gru_update"], s["gru_update"]
-    enc, encs = g["GuidanceEncoder_0"], gs["GuidanceEncoder_0"]
+    g = p["gru_update"]
+    enc = g["GuidanceEncoder_0"]
+    encs = _at(s, "gru_update", "GuidanceEncoder_0")
     key = "local_cost_volume.encoder"
     _conv(sd, key + ".disparity_error_encoder.0", enc["error_encoder"], bias=False)
     _bn(sd, key + ".disparity_error_encoder.1", enc["error_encoder_bn"],
-        encs["error_encoder_bn"])
+        _at(encs, "error_encoder_bn"))
     _conv(sd, key + ".uncertain_encoder.0", enc["uncertain_encoder"], bias=False)
     _bn(sd, key + ".uncertain_encoder.1", enc["uncertain_encoder_bn"],
-        encs["uncertain_encoder_bn"])
+        _at(encs, "uncertain_encoder_bn"))
     zb = g["ConvGRU_0"]["conv_zb"]
     hidden = np.shape(zb["bias"])[0] // 2
     for part, cut in (("conv_z", slice(0, hidden)), ("conv_b", slice(hidden, None))):
@@ -95,6 +112,37 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
     _conv(sd, "local_cost_volume.mask.0", g["mask_conv1"])
     _conv(sd, "local_cost_volume.mask.2", g["mask_conv2"])
     return sd
+
+
+def amsgrad_state_from_jax(opt_state, model: torch.nn.Module) -> AmsgradState:
+    """optax's AMSGrad state for the JAX ``LowCNN(refinement="gru")``
+    (``optax.amsgrad``'s chain state, or any tuple nesting that holds its
+    ``ScaleByAmsgradState``) -> the port's ``AmsgradState`` for ``model``,
+    on the model's device. ``mu``, ``nu`` and ``nu_max`` map as the
+    parameters do (``lowcnn_state_dict_from_jax``), so a JAX run goes on in
+    the port."""
+    state = _find_amsgrad(opt_state)
+    if state is None:
+        raise ValueError("no AMSGrad state (with nu_max) in opt_state")
+    params = dict(model.named_parameters())
+
+    def moments(tree):
+        sd = lowcnn_state_dict_from_jax({"params": tree})
+        return {k: sd[k].to(p.device) for k, p in params.items()}
+
+    return AmsgradState(count=int(state.count), mu=moments(state.mu),
+                        nu=moments(state.nu), nu_max=moments(state.nu_max))
+
+
+def _find_amsgrad(state):
+    if hasattr(state, "nu_max"):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_amsgrad(s)
+            if found is not None:
+                return found
+    return None
 
 
 def load_state_dict_file(path: str) -> dict:

@@ -21,6 +21,9 @@ pytestmark = pytest.mark.cuda
 CORR_TOL = 1e-5
 # disparities up to ~26 px; exp and division in another order
 LOCAL_TOL = 1e-4
+# gradients of O(1) cotangents times candidates up to ~26 px, summed in
+# another order than the plain version's dense [S, D] contraction
+LOCAL_BWD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -83,17 +86,51 @@ def test_wrappers_count_launches(cuda_device):
     assert ops.local_soft_argmin.launches == n_local + 1
 
 
-def test_cuda_backward_raises(cuda_device):
+def test_backward_counts_its_launches(cuda_device):
+    rng = np.random.default_rng(6)
+    vol = _randn(rng, (1, 4, 40, 24), cuda_device).requires_grad_(True)
+    cands = _edge_candidates(rng, (1, 4, 40, 21), cuda_device)
+    n_fwd = ops.local_soft_argmin.launches
+    n_bwd = ops.local_soft_argmin.backward_launches
+    disp = ops.local_soft_argmin(vol, cands)
+    assert ops.local_soft_argmin.backward_launches == n_bwd
+    disp.sum().backward()
+    assert ops.local_soft_argmin.launches == n_fwd + 1
+    assert ops.local_soft_argmin.backward_launches == n_bwd + 1
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 80), (2, 72, 120), (1, 7, 19)],
+                         ids=["train-width", "eval-width", "ragged-N"])
+def test_local_soft_argmin_backward_matches_plain(cuda_device, shape):
+    """The backward kernel against the closed form, with edge candidates
+    (integers, the clip bounds, values beyond them)."""
     rng = np.random.default_rng(3)
-    left = _randn(rng, (1, 2, 30, 16), cuda_device).requires_grad_(True)
-    vol = ops.correlation_volume(left, left.detach(), 24)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        vol.sum().backward()
-    vol = _randn(rng, (1, 2, 30, 24), cuda_device).requires_grad_(True)
-    disp = ops.local_soft_argmin(
-        vol, _edge_candidates(rng, (1, 2, 30, 21), cuda_device))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        disp.sum().backward()
+    vol = _randn(rng, shape + (24,), cuda_device).requires_grad_(True)
+    cands = _edge_candidates(rng, shape + (21,), cuda_device)
+    cands.requires_grad_(True)
+    g = _randn(rng, shape + (1,), cuda_device)
+    n = ops.local_soft_argmin.backward_launches
+    ops.local_soft_argmin(vol, cands).backward(g)
+    want_v, want_c = ops.local_soft_argmin_backward_plain(
+        vol.detach(), cands.detach(), g)
+    torch.cuda.synchronize()
+    assert ops.local_soft_argmin.backward_launches == n + 1
+    torch.testing.assert_close(vol.grad, want_v, rtol=0, atol=LOCAL_BWD_TOL)
+    torch.testing.assert_close(cands.grad, want_c, rtol=0, atol=LOCAL_BWD_TOL)
+
+
+def test_corr_band_backward_matches_plain_autograd(cuda_device):
+    rng = np.random.default_rng(5)
+    left = _randn(rng, (2, 5, 40, 64), cuda_device).requires_grad_(True)
+    right = _randn(rng, (2, 5, 40, 64), cuda_device).requires_grad_(True)
+    g = _randn(rng, (2, 5, 40, 24), cuda_device)
+    ops.correlation_volume(left, right, 24).backward(g)
+    got = (left.grad, right.grad)
+    left.grad = right.grad = None
+    ops.correlation_volume_plain(left, right, 24).backward(g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], left.grad, rtol=0, atol=CORR_TOL)
+    torch.testing.assert_close(got[1], right.grad, rtol=0, atol=CORR_TOL)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

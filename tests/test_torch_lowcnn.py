@@ -196,7 +196,13 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.nn", "stereoformer_tpu_torch.models",
             "stereoformer_tpu_torch.data", "stereoformer_tpu_torch.weights",
             "stereoformer_tpu_torch.kernels", "stereoformer_tpu_torch.device",
-            "stereoformer_tpu_torch.cli.infer"):
+            "stereoformer_tpu_torch.cli.infer", "stereoformer_tpu_torch.losses",
+            "stereoformer_tpu_torch.metrics", "stereoformer_tpu_torch.train",
+            "stereoformer_tpu_torch.train.optim",
+            "stereoformer_tpu_torch.train.schedule",
+            "stereoformer_tpu_torch.train.state",
+            "stereoformer_tpu_torch.train.steps",
+            "stereoformer_tpu_torch.nn.norm"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left

@@ -2,14 +2,16 @@
 
 Inputs come from numpy seeds and go through both sides. The two kernel
 ops, ``correlation_volume`` and ``local_soft_argmin``, are also held against
-the JAX package's Pallas kernels run in interpret mode. On CPU tensors the
-port's kernel wrappers take their plain versions and launch nothing.
+the JAX package's Pallas kernels run in interpret mode, in value and in
+gradient. On CPU tensors the port's kernel wrappers take their plain
+versions and launch nothing.
 """
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 torch.set_num_threads(1)
@@ -18,6 +20,7 @@ from stereoformer_tpu import ops as jops  # noqa: E402
 from stereoformer_tpu.ops.pallas import (  # noqa: E402
     corr_band,
     fused_local_soft_argmin,
+    local_refine,
 )
 from stereoformer_tpu_torch import ops  # noqa: E402
 
@@ -188,3 +191,117 @@ def test_cpu_tensors_take_the_plain_versions():
     assert left.grad is not None and torch.isfinite(left.grad).all()
     assert (ops.correlation_volume.launches,
             ops.local_soft_argmin.launches) == before
+
+
+# --- gradients (the training slice) --------------------------------------
+
+def _torch_vjp(fn, inputs, g):
+    """Gradients of sum(fn(*inputs) * g) with respect to each input."""
+    ts = [_t(x).requires_grad_(True) for x in inputs]
+    out = fn(*ts)
+    return [t.numpy() for t in torch.autograd.grad(out, ts, _t(g))]
+
+
+def _jax_vjp(fn, inputs, g):
+    out, vjp = jax.vjp(fn, *[jnp.asarray(x) for x in inputs])
+    return [np.asarray(x) for x in vjp(jnp.asarray(g, out.dtype))]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 16), (1, 2, 10, 8)],
+                         ids=["W>D", "W<D"])
+def test_correlation_volume_gradient_matches_jax_and_pallas(shape):
+    """The shift-form backward against jax.grad of the XLA op and of
+    corr_band (interpret mode, whose VJP is the same shift form)."""
+    rng = np.random.default_rng(10)
+    left = rng.standard_normal(shape).astype(np.float32)
+    right = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape[:3] + (24,)).astype(np.float32)
+    got = _torch_vjp(lambda a, b: ops.correlation_volume(a, b, 24),
+                     (left, right), g)
+    want = _jax_vjp(lambda a, b: jops.correlation_volume(a, b, 24),
+                    (left, right), g)
+    pallas = _jax_vjp(lambda a, b: corr_band(a, b, 24, True), (left, right), g)
+    direct = ops.correlation_volume_backward(_t(left), _t(right), _t(g))
+    for a, w, p, d in zip(got, want, pallas, direct):
+        np.testing.assert_allclose(a, w, rtol=0, atol=TOL)
+        np.testing.assert_allclose(a, p, rtol=0, atol=TOL)
+        np.testing.assert_allclose(d.numpy(), w, rtol=0, atol=TOL)
+
+
+# gradients carry candidates up to ~26 px: a few ulps of values up to ~20
+GRAD_TOL = 2e-5
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_local_soft_argmin_gradient_matches_jax(impl):
+    """torch autograd of the plain version against jax.grad, with
+    candidates at integers, at the clip bounds 0 and D-1 and beyond them.
+    No tie mask is needed: where jnp.clip splits its gradient (0.5 at a
+    bound) the hat's derivative is 0 on both sides."""
+    rng = np.random.default_rng(11)
+    vol = rng.standard_normal((2, 4, 30, 24)).astype(np.float32)
+    cands = _edge_candidates(rng, (2, 4, 30, 21))
+    g = rng.standard_normal((2, 4, 30, 1)).astype(np.float32)
+    jfn = (jops.local_soft_argmin if impl == "xla" else
+           lambda v, c: fused_local_soft_argmin(v, c, True))
+    got = _torch_vjp(ops.local_soft_argmin, (vol, cands), g)
+    want = _jax_vjp(jfn, (vol, cands), g)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, rtol=0, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 30), (1, 3, 7)],
+                         ids=["rows", "ragged"])
+def test_local_soft_argmin_backward_plain_matches_pallas(shape):
+    """The closed form the CUDA backward is held to, against the Pallas
+    backward kernel in interpret mode."""
+    rng = np.random.default_rng(12)
+    vol = rng.standard_normal(shape + (24,)).astype(np.float32)
+    cands = _edge_candidates(rng, shape + (21,))
+    g = rng.standard_normal(shape + (1,)).astype(np.float32)
+    dv, dc = ops.local_soft_argmin_backward_plain(_t(vol), _t(cands), _t(g))
+    wv, wc = local_refine._backward(jnp.asarray(vol), jnp.asarray(cands),
+                                    jnp.asarray(g), interpret=True)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(wv), rtol=0,
+                               atol=GRAD_TOL)
+    np.testing.assert_allclose(dc.numpy(), np.asarray(wc), rtol=0,
+                               atol=GRAD_TOL)
+
+
+def test_upsample_convex8_gradient_matches_jax():
+    """torch autograd against the JAX package's hand-written VJP."""
+    rng = np.random.default_rng(13)
+    disp = rng.uniform(0, 23, (2, 3, 5, 1)).astype(np.float32)
+    mask = rng.standard_normal((2, 3, 5, 576)).astype(np.float32)
+    g = rng.standard_normal((2, 24, 40, 1)).astype(np.float32)
+    got = _torch_vjp(ops.upsample_convex8, (disp, mask), g)
+    want = _jax_vjp(jops.upsample_convex8, (disp, mask), g)
+    # gradients up to ~90 (8x disparities, 64 sub-pixels summed): a few
+    # ulps of them
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, rtol=0, atol=1e-4)
+
+
+def test_disp_warp_gradient_matches_jax():
+    """Gradients with respect to the image and the disparity, with sample
+    points inside, at and beyond both borders (where the border clamp
+    passes no gradient to the disparity)."""
+    rng = np.random.default_rng(14)
+    img = rng.standard_normal((2, 6, 20, 3)).astype(np.float32)
+    disp = rng.uniform(-4, 24, (2, 6, 20, 1)).astype(np.float32)
+    disp[0, 0, :5, 0] = [0.0, 1.0, 2.5, 19.0, -0.25]
+    g = rng.standard_normal((2, 6, 20, 3)).astype(np.float32)
+    got = _torch_vjp(lambda i, d: ops.disp_warp(i, d)[0], (img, disp), g)
+    want = _jax_vjp(lambda i, d: jops.disp_warp(i, d)[0], (img, disp), g)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, rtol=0, atol=TOL)
+
+
+def test_scale_disp_matches_jax():
+    rng = np.random.default_rng(15)
+    disp = rng.uniform(0, 50, (2, 16, 40, 1)).astype(np.float32)
+    got = ops.scale_disp(_t(disp), (24, 60)).numpy()
+    want = np.asarray(jops.scale_disp(jnp.asarray(disp), (24, 60)))
+    assert got.shape == (2, 24, 60, 1)
+    # values up to 75 px
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
