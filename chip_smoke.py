@@ -23,12 +23,25 @@ any failure exits nonzero and prints no result:
    launch counts per step (corr_band 1, local_soft_argmin 12, its backward
    12), a finite loss that falls over 5 steps on one batch, ms/step and
    pairs/s, peak memory, a profiler breakdown of one B=4 step;
-6. each kernel's device time beside its bound and its plain version's;
-7. parity of the card against the port on the CPU at 64x256 (TF32 off):
-   the eval forward, and one train step (loss, gradient norm, updated
-   parameters);
-8. one JSON line with each kernel's numbers; the last line says the run
+6. RAFT_Stereo eval through get_model at 576x960, B=2 and B=8, 12 GRU
+   iterations, test_mode, float32, random weights from seed 0: 14 launches
+   of conv2d_fused per forward (7 in each encoder), shapes and finiteness,
+   ms/batch and pairs/s with CUDA events (cuDNN's TF32 on and off), peak
+   memory, a profiler breakdown of one B=2 forward;
+7. each kernel's device time beside its bound and its plain version's;
+   for conv2d_fused also its TF32 bound and cuDNN's time for one F.conv2d
+   with bias at the same shape (TF32 on and off), at the four RAFT shapes;
+8. parity of the card against the port on the CPU (TF32 off): LowCNN_gru
+   at 64x256, the eval forward and one train step (loss, gradient norm,
+   updated parameters); RAFT_Stereo eval at 64x128, 12 iterations;
+9. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
+
+Phase 3 also holds conv2d_fused against its plain version (TF32 off) in
+all four variants (plain, prologue, moments, prologue and moments) and with
+residual and ReLU, at the four shapes RAFT eval at B=2 gives it and at edge
+shapes (H and W tails, odd widths, C=64 and C=96), and the moments of an
+output whose variance is 0 (a prologue that zeroes every input).
 
 With --json, everything measured (and the profiles' top kernels) is also
 written to PATH.
@@ -48,9 +61,17 @@ import torch
 
 H, W, B, ITERS = 576, 960, 8, 12
 TRAIN_H, TRAIN_W, TRAIN_BATCHES, LR = 320, 640, (4, 8), 1e-3
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside tensor cores
+RAFT_BATCHES = (2, 8)
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside tensor
+# cores, TF32 in them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+# conv2d_fused's calls in RAFT eval at B=2, 576x960 (name -> B, H, W, C=Co):
+# the feature net runs on the stacked pair at full and half resolution,
+# the context net on the left image
+RAFT_CONVS = {"fnet layer1": (4, 576, 960, 64), "cnet layer1": (2, 576, 960, 64),
+              "fnet layer2": (4, 288, 480, 96), "cnet layer2": (2, 288, 480, 96)}
 
 # kernel name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -63,23 +84,21 @@ KERNELS = {
     "local_soft_argmin_bwd": (
         "cuda", "stereoformer_tpu_torch/csrc/local_soft_argmin_bwd.cu",
         "stereoformer_tpu/ops/pallas/local_refine.py:129"),
+    "conv2d_fused": (
+        "cuda", "stereoformer_tpu_torch/csrc/conv2d_fused.cu",
+        "stereoformer_tpu/ops/pallas/conv2d.py:218"),
 }
 
 # TPU kernels not yet ported that a model calls: the least time this card
 # could take for one call at its caller's shapes, float32
-# (name -> (call, bytes, operations)). Row 4: a RAFT encoder layer1 3x3
-# conv 64 -> 64 at 1/2 resolution, RAFT eval B=2 at 576x960 as bench.py
-# runs it; row 6: that conv's weight gradient in RAFT training, B=4 at
-# 320x720.
+# (name -> (call, bytes, operations)). Row 6: the weight gradient of RAFT's
+# feature-net layer1 conv (64 -> 64 at full resolution, on the stacked
+# pair) in RAFT training, B=4 at 320x720.
 UNPORTED = {
-    "conv2d.py:218 _forward": (
-        "x [2,288,480,64], w [3,3,64,64] -> [2,288,480,64]",
-        2 * 2 * 288 * 480 * 64 * 4 + 9 * 64 * 64 * 4,
-        2 * 9 * 64 * 64 * 2 * 288 * 480),
     "dw_conv.py:118 conv2d_dw_pallas": (
-        "x, g [4,160,360,64] -> dw [3,3,64,64]",
-        2 * 4 * 160 * 360 * 64 * 4 + 9 * 64 * 64 * 4,
-        2 * 9 * 64 * 64 * 4 * 160 * 360),
+        "x, g [8,320,720,64] -> dw [3,3,64,64]",
+        2 * 8 * 320 * 720 * 64 * 4 + 9 * 64 * 64 * 4,
+        2 * 9 * 64 * 64 * 8 * 320 * 720),
 }
 
 
@@ -173,13 +192,15 @@ def reset_counts(ops) -> None:
     ops.correlation_volume.launches = 0
     ops.local_soft_argmin.launches = 0
     ops.local_soft_argmin.backward_launches = 0
+    ops.conv2d_fused.launches = 0
 
 
 def read_counts(ops) -> dict:
     torch.cuda.synchronize()
     return {"corr_band": ops.correlation_volume.launches,
             "local_soft_argmin": ops.local_soft_argmin.launches,
-            "local_soft_argmin_bwd": ops.local_soft_argmin.backward_launches}
+            "local_soft_argmin_bwd": ops.local_soft_argmin.backward_launches,
+            "conv2d_fused": ops.conv2d_fused.launches}
 
 
 def main() -> int:
@@ -217,6 +238,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     err = check_kernels(ops, rng)
+    err["conv2d_fused"] = check_conv_kernel(ops, rng)
     record["max_abs_err"] = err
 
     launches = {"eval_forward": eval_phase(ops, rng, record)}
@@ -224,12 +246,17 @@ def main() -> int:
         # every batch size must give the same counts per step
         launches["train_step"] = train_phase(
             ops, batch, record, profile_it=batch == TRAIN_BATCHES[0])
+    for batch in RAFT_BATCHES:
+        launches["raft_eval"] = raft_eval_phase(
+            ops, rng, batch, record, profile_it=batch == RAFT_BATCHES[0])
     record["launches"] = launches
 
     rows = kernel_rows(ops, rng, err, launches, record)
+    rows.append(conv_row(ops, rng, err, launches, record))
     record["kernels"] = rows
     record["unported_bounds"] = unported_bounds()
     record["parity_vs_cpu"] = parity_vs_cpu(record)
+    record["raft_parity_vs_cpu"] = raft_parity_vs_cpu()
     record["seconds"] = time.perf_counter() - t_start
 
     if opt.json:
@@ -304,6 +331,92 @@ def check_kernels(ops, rng) -> dict:
     return err
 
 
+def conv_inputs(rng, B, Hc, Wc, C, Co):
+    """x, w, b, s, t, residual for conv2d_fused: weights scaled by
+    1/sqrt(9 C), prologue scales in [0.5, 1.5]."""
+    x = randn(rng, B, Hc, Wc, C)
+    w = randn(rng, 3, 3, C, Co) / np.sqrt(9 * C)
+    b = 0.1 * randn(rng, Co)
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, (B, C)).astype(np.float32))
+    return x, w, b, s.cuda(), 0.5 * randn(rng, B, C), randn(rng, B, Hc, Wc, Co)
+
+
+def conv_calls(ops, x, w, b, s, t, r) -> dict:
+    """variant -> (a call of its entry point, the plain version's keyword
+    arguments)."""
+    return {
+        "plain": (lambda: ops.conv2d_fused(x, w, b, None, False), {}),
+        "residual+relu": (lambda: ops.conv2d_fused(x, w, b, r, True),
+                          {"residual": r, "relu": True}),
+        "prologue": (lambda: ops.conv2d_fused_prologue(x, w, b, s, t),
+                     {"s": s, "t": t}),
+        "stats": (lambda: ops.conv2d_fused_stats(x, w, b),
+                  {"with_stats": True}),
+        "prologue+stats": (
+            lambda: ops.conv2d_fused_prologue_stats(x, w, b, s, t),
+            {"s": s, "t": t, "with_stats": True}),
+    }
+
+
+def check_conv_kernel(ops, rng) -> float:
+    """Phase 3, conv2d_fused: every variant against the plain version
+    (cuDNN with TF32 off) at RAFT's four shapes and at edge shapes; returns
+    the largest absolute error of y."""
+    torch.backends.cudnn.allow_tf32 = False
+    # float32 sums of 9 C products in another order (input channel, then
+    # tap), and fmaf in the prologue: relative to the largest |y|
+    y_rtol = 1e-5
+    # moments: per-block float32 sums added in float64, against float64
+    # sums of the plain output; S1 and S2 relative to their largest value,
+    # and the variance S2/n - (S1/n)^2 the norm takes, relative to itself
+    m_rtol, var_rtol = 1e-5, 1e-4
+    edges = [(1, 37, 53, 96, 96), (2, 19, 40, 64, 64), (1, 17, 45, 64, 64),
+             (1, 9, 33, 96, 96)]
+    shapes = [(B_, H_, W_, C_, C_) for B_, H_, W_, C_ in RAFT_CONVS.values()]
+    worst = 0.0
+    print("conv2d_fused vs plain (TF32 off):", flush=True)
+    for shape in shapes + edges:
+        x, w, b, s, t, r = conv_inputs(rng, *shape)
+        for name, (call, kw) in conv_calls(ops, x, w, b, s, t, r).items():
+            got = call()
+            want = ops.conv3x3_plain(x, w, b, **kw)
+            if not kw.get("with_stats"):
+                got, want = (got,), (want,)
+            label = f"conv2d_fused {name} {shape}"
+            worst = max(worst, compare(label, got[0], want[0],
+                                       y_rtol * want[0].abs().max().item()))
+            if len(got) == 1:
+                continue
+            for k, g, m in (("S1", got[1], want[1]), ("S2", got[2], want[2])):
+                compare(f"{label} {k}", g, m, m_rtol * m.abs().max().item())
+            n = shape[1] * shape[2]
+            var_g = got[2].double() / n - (got[1].double() / n) ** 2
+            var_w = want[2].double() / n - (want[1].double() / n) ** 2
+            rel = ((var_g - var_w).abs() / var_w.abs()).max().item()
+            print(f"  {label} variance: relative error {rel:.2e} "
+                  f"(tolerance {var_rtol:g})", flush=True)
+            if not rel <= var_rtol:
+                raise SmokeFailure(f"{label}: variance error {rel}")
+        del x, w, b, s, t, r, got, want
+    # a prologue that zeroes every input: y = b, so each channel's variance
+    # is 0; the moments stay finite and the variance the norm takes is the
+    # float32 rounding of the sums, within 1e-5 of S2/n
+    x, w, b, s, t, _ = conv_inputs(rng, 1, 19, 40, 64, 64)
+    y, s1, s2 = ops.conv2d_fused_prologue_stats(x, w, b, s, t - 100.0)
+    label = "conv2d_fused prologue+stats, zero variance (1, 19, 40, 64, 64)"
+    compare(label, y, b.expand_as(y), 0.0)
+    m1, m2 = s1.double() / (19 * 40), s2.double() / (19 * 40)
+    var_err = ((m2 - m1 ** 2).abs() / m2).nan_to_num(0.0).max().item()
+    ok = bool(torch.isfinite(s1).all() and torch.isfinite(s2).all()
+              and var_err <= var_rtol * 0.1)
+    print(f"  {label} variance: {var_err:.2e} of S2/n (tolerance "
+          f"{var_rtol * 0.1:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{label}: moments not finite or variance {var_err}")
+    torch.backends.cudnn.allow_tf32 = True
+    return worst
+
+
 def eval_phase(ops, rng, record) -> dict:
     """Phase 4: the eval forward at full size; returns its launch counts."""
     from stereoformer_tpu_torch.models import get_model
@@ -324,7 +437,7 @@ def eval_phase(ops, rng, record) -> dict:
     launches = read_counts(ops)
     print(f"  launches in one forward: {launches}", flush=True)
     if launches != {"corr_band": 1, "local_soft_argmin": ITERS,
-                    "local_soft_argmin_bwd": 0}:
+                    "local_soft_argmin_bwd": 0, "conv2d_fused": 0}:
         raise SmokeFailure(f"eval launches {launches}, expected corr_band 1,"
                            f" local_soft_argmin {ITERS} and no backward")
     disps = out["disparities"]
@@ -395,7 +508,7 @@ def train_phase(ops, batch: int, record, profile_it: bool = False) -> dict:
     launches = read_counts(ops)
     print(f"  launches in one step: {launches}", flush=True)
     if launches != {"corr_band": 1, "local_soft_argmin": ITERS,
-                    "local_soft_argmin_bwd": ITERS}:
+                    "local_soft_argmin_bwd": ITERS, "conv2d_fused": 0}:
         raise SmokeFailure(
             f"train step launches {launches}, expected corr_band 1, "
             f"local_soft_argmin {ITERS}, local_soft_argmin_bwd {ITERS}")
@@ -449,6 +562,60 @@ def train_phase(ops, batch: int, record, profile_it: bool = False) -> dict:
     if profile_it:
         out["profile"] = profile(one_step, "train step")
     record[f"train_b{batch}"] = out
+    return launches
+
+
+def raft_eval_phase(ops, rng, batch: int, record,
+                    profile_it: bool = False) -> dict:
+    """Phase 6: RAFT_Stereo eval at full size with ``batch`` pairs; returns
+    its launch counts per forward."""
+    from stereoformer_tpu_torch.models import get_model
+
+    print(f"RAFT_Stereo eval {H}x{W} B={batch} iters={ITERS} test_mode "
+          f"float32:", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    model = get_model("RAFT_Stereo", device="cuda")
+    left = randn(rng, batch, H, W, 3)
+    right = randn(rng, batch, H, W, 3)
+
+    def forward():
+        with torch.inference_mode():
+            return model(left, right, iters=ITERS, test_mode=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    out = forward()
+    launches = read_counts(ops)
+    print(f"  launches in one forward: {launches}", flush=True)
+    if launches != {"corr_band": 0, "local_soft_argmin": 0,
+                    "local_soft_argmin_bwd": 0, "conv2d_fused": 14}:
+        raise SmokeFailure(f"RAFT eval launches {launches}, expected 14 of "
+                           f"conv2d_fused and nothing else")
+    disps = out["disparities"]
+    if (len(disps) != 1 or disps[0].shape != (batch, H, W, 1)
+            or out["disp_low"].shape != (batch, H // 4, W // 4, 1)):
+        raise SmokeFailure("unexpected RAFT output structure")
+    finite = bool(torch.isfinite(disps[0]).all()) and bool(
+        torch.isfinite(out["disp_low"]).all())
+    print(f"  outputs finite={finite}, range {disps[0].min().item():.3f}.."
+          f"{disps[0].max().item():.3f} px", flush=True)
+    if not finite:
+        raise SmokeFailure("RAFT outputs not finite")
+    del out, disps
+    rec = {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        ms = time_ms(forward, reps=4 if batch <= 2 else 2, warmup=1)
+        key = "tf32_convs" if tf32 else "strict_f32"
+        rec[key] = {"ms_per_batch": ms, "pairs_per_s": batch / ms * 1e3}
+        print(f"  {key} (cudnn.allow_tf32={tf32}; conv2d_fused is float32 "
+              f"either way): {ms:.2f} ms/batch, {batch / ms * 1e3:.2f} "
+              f"pairs/s", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    if profile_it:
+        rec["profile"] = profile(forward, f"RAFT eval forward B={batch}")
+    record[f"raft_eval_b{batch}"] = rec
     return launches
 
 
@@ -553,6 +720,70 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
     return rows
 
 
+def conv_row(ops, rng, err, launches, record) -> dict:
+    """Phase 7, conv2d_fused at RAFT's four shapes: device time of the
+    variant each encoder runs most (the feature net's prologue+stats, the
+    context net's prologue), the plain version's (its conv in cuDNN with
+    TF32 off, float32 as the kernel), cuDNN's F.conv2d with bias (TF32 off
+    and on), and the bounds: bytes (x read, y written) or float32
+    operations, and the operations at the TF32 rate."""
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    times = {}
+    for where, (B_, H_, W_, C) in RAFT_CONVS.items():
+        x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, C)
+        variant = "prologue+stats" if where.startswith("fnet") else "prologue"
+        kern, kw = conv_calls(ops, x, w, b, s, t, r)[variant]
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        nbytes = (2 * B_ * H_ * W_ * C + 9 * C * C + C) * 4
+        nops = 2 * 9 * C * C * B_ * H_ * W_
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_FLOPS_PER_S * 1e3
+        row = {"variant": variant, "shape": [B_, H_, W_, C, C],
+               "gflop": nops / 1e9, "mb": nbytes / 1e6,
+               "ms": device_ms(kern, 10),
+               "call_ms": time_ms(kern, 10),
+               "plain_ms": device_ms(
+                   lambda: ops.conv3x3_plain(x, w, b, **kw), 5),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_tf32_ms": max(t_bytes,
+                                    nops / TF32_FLOPS_PER_S * 1e3)}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            key = "library_tf32_ms" if tf32 else "library_ms"
+            row[key] = device_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
+        torch.backends.cudnn.allow_tf32 = False
+        times[where] = row
+        print(f"  conv2d_fused {variant} {where} {row['shape']}: "
+              f"{row['ms']:.3f} ms on the device ({nops / row['ms'] / 1e9:.1f}"
+              f" TFLOP/s), bound {row['bound_ms']:.3f} ms float32 by "
+              f"{row['bound_by']}, {row['bound_tf32_ms']:.3f} ms TF32; "
+              f"{row['call_ms']:.3f} ms per wrapper call; plain "
+              f"{row['plain_ms']:.3f} ms; cuDNN F.conv2d+bias "
+              f"{row['library_ms']:.3f} ms (TF32 off), "
+              f"{row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        del x, w, b, s, t, r, xc, wc
+    torch.backends.cudnn.allow_tf32 = True
+    record["kernel_times"]["conv2d_fused"] = times
+    main = times["fnet layer1"]
+    route, source, replaces = KERNELS["conv2d_fused"]
+    return {
+        "name": "conv2d_fused", "route": route, "source": source,
+        "replaces": replaces,
+        "launches": launches["raft_eval"]["conv2d_fused"],
+        "launches_by_path": {p: c["conv2d_fused"] for p, c in launches.items()},
+        "max_abs_err": err["conv2d_fused"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library_tf32_ms": main["library_tf32_ms"],
+        "bound_tf32_ms": main["bound_tf32_ms"], "shape": main["shape"],
+        "variant": main["variant"],
+    }
+
+
 def parity_vs_cpu(record) -> dict:
     """Phase 7: the card against the port on the CPU at 64x256, TF32 off,
     moderate weights: the conv weights scaled to sqrt(1.25/fan_in) keep the
@@ -640,6 +871,45 @@ def parity_vs_cpu(record) -> dict:
     parity.update({"train_param_max_diff": worst_all,
                    "train_param_settled_max_diff": worst_settled,
                    "train_param_settled_share": share})
+    torch.backends.cudnn.allow_tf32 = True
+    return parity
+
+
+def raft_parity_vs_cpu() -> dict:
+    """Phase 8, RAFT: the card against the port on the CPU at 64x128, 12
+    iterations, TF32 off, conv weights scaled to sqrt(1.25/fan_in) as for
+    LowCNN."""
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.weights import seeded_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = seeded_state_dict(get_model("RAFT_Stereo", device="cpu"), seed=1)
+    for k, v in sd.items():
+        if v.dim() == 4:
+            sd[k] = v * np.sqrt(1.25 / 2.0)
+    srng = np.random.default_rng(5)
+    li, ri = (torch.from_numpy(srng.standard_normal((2, 64, 128, 3),
+                                                    dtype=np.float32))
+              for _ in range(2))
+    outs = {}
+    for where in ("cpu", "cuda"):
+        m = get_model("RAFT_Stereo", device=where)
+        m.load_state_dict(sd)
+        with torch.inference_mode():
+            o = m(li.to(where), ri.to(where), iters=ITERS)
+        outs[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
+    print("RAFT card vs CPU port at 64x128, 12 iterations, TF32 off:",
+          flush=True)
+    # f32 on both, the fused conv's sums in another order; the last
+    # disparity has been through 12 GRU steps
+    parity = {
+        "disp_low_px": compare("RAFT eval disp_low", outs["cuda"][0],
+                               outs["cpu"][0], 1e-3),
+        "last_disparity_px": compare("RAFT eval last disparity",
+                                     outs["cuda"][1], outs["cpu"][1], 5e-3),
+        "disp_low_range_px": outs["cpu"][0].abs().max().item(),
+    }
     torch.backends.cudnn.allow_tf32 = True
     return parity
 

@@ -3,12 +3,13 @@ pair and save it as PFM, 16-bit KITTI PNG (x256) or ``.npy``.
 
 Usage:
   python -m stereoformer_tpu_torch.cli.infer --left l.png --right r.png \\
-      --out disp.pfm [--weights model.pth] [--net LowCNN_gru] [--iters 12] \\
-      [--device cuda]
+      --out disp.pfm [--weights model.pth] [--net LowCNN_gru|RAFT_Stereo] \\
+      [--iters 12] [--device cuda]
 
 ``--weights`` takes a port or reference PyTorch ``state_dict``; without it
-the weights are random (seed 0). Runs on the GPU unless ``--device cpu``
-is given.
+the weights are random (seed 0). Images are read as 8-bit RGB and
+ImageNet-normalised, the convention both registered models take. Runs on the
+GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations

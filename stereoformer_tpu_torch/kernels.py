@@ -37,6 +37,8 @@ KERNELS = {
     "local_soft_argmin_bwd": ("local_soft_argmin_bwd.cu",
                               "local_soft_argmin_backward",
                               (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "conv2d_fused": ("conv2d_fused.cu", "conv2d_fused_forward",
+                     (_P,) * 10 + (_I,) * 6 + (_P,)),
 }
 
 _functions: dict = {}

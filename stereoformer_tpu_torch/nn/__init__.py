@@ -1,6 +1,6 @@
 """Modules of the port (NCHW inside; NHWC at the GRU step's interface)."""
 
-from .blocks import ConvBnRelu, ConvLReLU, FPNFusion, ResBlock
+from .blocks import ConvBnRelu, ConvLReLU, FPNFusion, FusedConv, ResBlock
 from .conv import Conv
 from .gru import ConvGRU
 from .norm import BatchNorm2d
@@ -13,6 +13,7 @@ __all__ = [
     "ConvGRU",
     "ConvLReLU",
     "FPNFusion",
+    "FusedConv",
     "GRUUpdate",
     "GuidanceEncoder",
     "OffsetHead",

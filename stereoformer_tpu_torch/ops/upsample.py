@@ -1,8 +1,8 @@
-"""Learned convex 8x disparity upsampling (NHWC).
+"""Learned convex disparity upsampling (NHWC).
 
-Counterpart of ``stereoformer_tpu/ops/upsample.py::upsample_convex8``. Its
-gradient is torch autograd's, the same VJP as the JAX package's
-hand-written one (``_upsample_convex_bwd``).
+Counterpart of ``stereoformer_tpu/ops/upsample.py`` (``upsample_convex`` and
+``upsample_convex8``). Its gradient is torch autograd's, the same VJP as the
+JAX package's hand-written one (``_upsample_convex_bwd``).
 """
 
 from __future__ import annotations
@@ -21,15 +21,23 @@ def neighborhood9(x: torch.Tensor) -> torch.Tensor:
         dim=-1)
 
 
-def upsample_convex8(disp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Learned convex 8x upsample.
+def upsample_convex(disp: torch.Tensor, mask: torch.Tensor,
+                    factor: int) -> torch.Tensor:
+    """Learned convex ``factor``x upsample.
 
-    disp [B, H, W, 1] in coarse pixels (scaled by 8 before blending); mask
-    [B, H, W, 576] logits laid out (k, dy, dx) = k*64 + dy*8 + dx. The 9
-    neighbours are softmaxed per fine sub-pixel. Returns [B, 8H, 8W, 1]."""
+    disp [B, H, W, 1] in coarse pixels (scaled by ``factor`` before
+    blending); mask [B, H, W, 9*factor^2] logits laid out (k, dy, dx) =
+    k*factor^2 + dy*factor + dx. The 9 neighbours are softmaxed per fine
+    sub-pixel. Returns [B, factor*H, factor*W, 1]."""
     B, H, W, _ = disp.shape
-    probs = torch.softmax(mask.reshape(B, H, W, 9, 64), dim=3)
-    nbr = neighborhood9(8.0 * disp)                         # [B, H, W, 9]
-    up = (probs * nbr[..., None]).sum(3)                    # [B, H, W, 64]
-    up = up.reshape(B, H, W, 8, 8).permute(0, 1, 3, 2, 4)   # [B, H, 8, W, 8]
-    return up.reshape(B, 8 * H, 8 * W, 1)
+    f = factor
+    probs = torch.softmax(mask.reshape(B, H, W, 9, f * f), dim=3)
+    nbr = neighborhood9(float(f) * disp)                    # [B, H, W, 9]
+    up = (probs * nbr[..., None]).sum(3)                    # [B, H, W, f*f]
+    up = up.reshape(B, H, W, f, f).permute(0, 1, 3, 2, 4)   # [B, H, f, W, f]
+    return up.reshape(B, f * H, f * W, 1)
+
+
+def upsample_convex8(disp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Learned convex 8x upsample (mask [B, H, W, 576])."""
+    return upsample_convex(disp, mask, 8)

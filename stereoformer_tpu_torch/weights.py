@@ -1,9 +1,10 @@
-"""Weights for the port's LowCNN: the bridge from the JAX parameter tree and
+"""Weights for the port's models: the bridge from the JAX parameter trees and
 optimizer state, reference checkpoint files, and a seeded numpy init.
 
 The port's ``state_dict`` uses the reference PyTorch key names, the ones
-``stereoformer_tpu/train/torch_import.py::convert_lowcnn_state_dict`` reads:
-``lowcnn_state_dict_from_jax`` is that converter's inverse.
+``stereoformer_tpu/train/torch_import.py`` reads: ``lowcnn_state_dict_from_jax``
+is the inverse of its ``convert_lowcnn_state_dict``, and
+``raft_state_dict_from_jax`` of its ``convert_raft_state_dict``.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ from .train.optim import AmsgradState
 _BACKBONE = (("conv2", "ResBlock_0"), ("conv3", "ResBlock_1"),
              ("downsample1", "ResBlock_2"), ("downsample2", "ResBlock_3"),
              ("downsample3", "ResBlock_4"))
-# duplicate keys of reference checkpoints: Sequential aliases of conv_z/b/g
+# duplicate keys of reference checkpoints: Sequential aliases of LowCNN's
+# conv_z/b/g, and of each RAFT residual block's norm3 (``downsample.1``)
 _ALIASES = ("local_cost_volume.gru.conv_zz.0.", "local_cost_volume.gru.conv_bb.0.",
             "local_cost_volume.gru.conv_gg.0.")
+_RAFT_ALIAS = ".downsample.1."
 
 
 def _tensor(x) -> torch.Tensor:
@@ -114,6 +117,79 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
     return sd
 
 
+def _raft_block(sd, key, params, stats, shortcut: bool, bn: bool):
+    """A RaftResidualBlock: the norms are numbered in declaration order
+    (_Norm_0 = norm1, _Norm_1 = norm2, _Norm_2 = the shortcut's norm3);
+    instance norms have no parameters."""
+    _conv(sd, key + ".conv1", params["Conv_0"])
+    _conv(sd, key + ".conv2", params["Conv_1"])
+    norms = [("norm1", "_Norm_0"), ("norm2", "_Norm_1")]
+    if shortcut:
+        _conv(sd, key + ".downsample.0", params["downsample"])
+        norms.append(("norm3", "_Norm_2"))
+    if bn:
+        for ours, theirs in norms:
+            _bn(sd, f"{key}.{ours}", params[theirs]["BatchNorm_0"],
+                _at(stats, theirs, "BatchNorm_0"))
+
+
+def raft_state_dict_from_jax(variables) -> dict:
+    """The JAX ``RAFTStereo`` variables ``{"params", "batch_stats"}`` (numpy
+    leaves) -> the port's ``state_dict``. Without ``"batch_stats"``, the
+    parameters' entries only.
+
+    Kernels map HWIO -> OIHW; each GRU's fused gate conv ``convzr`` splits
+    into ``convz`` (first half of its outputs) and ``convr``."""
+    p, s = variables["params"], variables.get("batch_stats")
+    sd: dict = {}
+    fnet = p["fnet"]
+    _conv(sd, "fnet.conv1", fnet["Conv_0"])
+    for n in (1, 2, 3):
+        for i, half in enumerate("ab"):
+            _raft_block(sd, f"fnet.layer{n}.{i}", fnet[f"layer{n}{half}"],
+                        None, shortcut=n > 1 and i == 0, bn=False)
+    _conv(sd, "fnet.conv2", fnet["Conv_1"])
+
+    cnet, cs = p["cnet"], _at(s, "cnet")
+    _conv(sd, "cnet.conv1", cnet["Conv_0"])
+    _bn(sd, "cnet.norm1", cnet["_Norm_0"]["BatchNorm_0"],
+        _at(cs, "_Norm_0", "BatchNorm_0"))
+    for n, ours in ((1, "layer1"), (2, "layer2"), (3, "layer3"),
+                    (4, "down1"), (5, "down2")):
+        for i, half in enumerate("ab"):
+            _raft_block(sd, f"cnet.layer{n}.{i}", cnet[f"{ours}{half}"],
+                        _at(cs, f"{ours}{half}"), shortcut=n > 1 and i == 0,
+                        bn=True)
+    for scale, lvl in (("08", 0), ("16", 1)):
+        for h in range(2):
+            _raft_block(sd, f"cnet.outputs{scale}.{h}.0",
+                        cnet[f"out{lvl}_{h}_res"],
+                        _at(cs, f"out{lvl}_{h}_res"), shortcut=False, bn=True)
+            _conv(sd, f"cnet.outputs{scale}.{h}.1", cnet[f"out{lvl}_{h}_conv"])
+    for h in range(2):
+        _conv(sd, f"cnet.outputs32.{h}", cnet[f"out2_{h}_conv"])
+
+    ub = p["update_block"]
+    for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
+        _conv(sd, f"update_block.encoder.{name}", ub["encoder"][f"Conv_{i}"])
+    for g in ("gru08", "gru16", "gru32"):
+        zr = ub[g]["convzr"]
+        hidden = np.shape(zr["bias"])[0] // 2
+        for part, cut in (("convz", slice(0, hidden)),
+                          ("convr", slice(hidden, None))):
+            _conv(sd, f"update_block.{g}.{part}",
+                  {"kernel": np.asarray(zr["kernel"])[..., cut],
+                   "bias": np.asarray(zr["bias"])[cut]})
+        _conv(sd, f"update_block.{g}.convq", ub[g]["convq"])
+    _conv(sd, "update_block.flow_head.conv1", ub["flow_head"]["Conv_0"])
+    _conv(sd, "update_block.flow_head.conv2", ub["flow_head"]["Conv_1"])
+    _conv(sd, "update_block.mask.0", ub["mask_conv1"])
+    _conv(sd, "update_block.mask.2", ub["mask_conv2"])
+    for i in range(3):
+        _conv(sd, f"context_zqr_convs.{i}", p[f"context_zqr{i}"])
+    return sd
+
+
 def amsgrad_state_from_jax(opt_state, model: torch.nn.Module) -> AmsgradState:
     """optax's AMSGrad state for the JAX ``LowCNN(refinement="gru")``
     (``optax.amsgrad``'s chain state, or any tuple nesting that holds its
@@ -149,27 +225,32 @@ def load_state_dict_file(path: str) -> dict:
     """A port or reference ``.pth`` state_dict, read with
     ``torch.load(weights_only=True)``: unwraps ``{"state_dict": ...}``,
     strips DataParallel's ``module.`` prefix and drops the reference's
-    duplicate GRU alias keys."""
+    duplicate alias keys (LowCNN's GRU convs, RAFT's ``downsample.1``
+    norms)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     sd = raw.get("state_dict", raw)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    return {k: v for k, v in sd.items() if not k.startswith(_ALIASES)}
+    return {k: v for k, v in sd.items()
+            if not k.startswith(_ALIASES) and _RAFT_ALIAS not in k}
 
 
-def seeded_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
+def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
+                      fan: str = "fan_in") -> dict:
     """Random weights for ``model`` from numpy, made from ``seed``: each
-    conv weight he-normal over its fan-in, biases zero, BatchNorm the
-    identity (scale 1, shift 0, mean 0, variance 1), as the JAX model's own
-    init draws them (its GRU gates, drawn orthogonal there, are he-normal
-    here)."""
+    conv weight he-normal over its ``fan`` ("fan_in", as LowCNN's init, or
+    "fan_out", as RAFT's), biases zero, BatchNorm the identity (scale 1,
+    shift 0, mean 0, variance 1), as the JAX models' own inits draw them
+    (LowCNN's GRU gates, drawn orthogonal there, and RAFT's weights, drawn
+    from a truncated normal there, are plain normal here)."""
     rng = np.random.default_rng(seed)
     sd = {}
     for name, m in model.named_modules():
         if isinstance(m, torch.nn.Conv2d):
             shape = tuple(m.weight.shape)
-            fan_in = shape[1] * shape[2] * shape[3]
+            fans = {"fan_in": shape[1], "fan_out": shape[0]}
+            n = fans[fan] * shape[2] * shape[3]
             sd[name + ".weight"] = _tensor(
-                rng.standard_normal(shape) * np.sqrt(2.0 / fan_in))
+                rng.standard_normal(shape) * np.sqrt(2.0 / n))
             if m.bias is not None:
                 sd[name + ".bias"] = torch.zeros(m.out_channels)
         elif isinstance(m, torch.nn.BatchNorm2d):

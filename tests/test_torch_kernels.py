@@ -154,3 +154,94 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     vol = _randn(rng, (1, 2, 30, 24), cuda_device)
     with pytest.raises(ValueError, match="S <= 32"):
         ops.local_soft_argmin(vol, _randn(rng, (1, 2, 30, 40), cuda_device))
+
+
+# float32 sums of 9*C products: the kernel's order (input channel, then tap)
+# against cuDNN's with TF32 off, and fmaf in the prologue against a
+# multiply and an add; relative to the output's largest magnitude
+CONV_RTOL = 1e-5
+# the moments, relative to each moment's magnitude: the kernel sums per
+# block in float32 and across blocks in float64, the plain version in float64
+MOMENT_RTOL = 1e-5
+
+
+def _conv_inputs(rng, shape, device):
+    B, H, W, C, Co = shape
+    x = _randn(rng, (B, H, W, C), device)
+    w = _randn(rng, (3, 3, C, Co), device) / (9 * C) ** 0.5
+    b = 0.1 * _randn(rng, (Co,), device)
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, (B, C)).astype(np.float32)
+                         ).to(device)
+    t = 0.5 * _randn(rng, (B, C), device)
+    r = _randn(rng, (B, H, W, Co), device)
+    return x, w, b, s, t, r
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
+                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96)],
+                         ids=["main-width", "edge-C96", "H-tail-C64",
+                              "tails-C96"])
+@pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
+                                     "stats", "prologue-stats"])
+def test_conv2d_fused_matches_plain(cuda_device, shape, variant):
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    x, w, b, s, t, r = _conv_inputs(rng, shape, cuda_device)
+    kw = {"res-relu": dict(residual=r, relu=True), "bare": {},
+          "prologue": dict(s=s, t=t, relu=True),
+          "stats": dict(with_stats=True),
+          "prologue-stats": dict(s=s, t=t, with_stats=True)}[variant]
+    n = ops.conv2d_fused.launches
+    if "s" in kw and kw.get("with_stats"):
+        got = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+    elif kw.get("with_stats"):
+        got = ops.conv2d_fused_stats(x, w, b)
+    elif "s" in kw:
+        got = ops.conv2d_fused_prologue(x, w, b, s, t, True)
+    else:
+        got = ops.conv2d_fused(x, w, b, kw.get("residual"),
+                               kw.get("relu", False))
+    want = ops.conv3x3_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert ops.conv2d_fused.launches == n + 1
+    if not kw.get("with_stats"):
+        got, want = (got,), (want,)
+    y_tol = CONV_RTOL * want[0].abs().max().item()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=y_tol)
+    for g, m in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, m, rtol=MOMENT_RTOL,
+                                   atol=MOMENT_RTOL * m.abs().max().item())
+
+
+def test_conv2d_fused_prologue_padding_is_zero(cuda_device):
+    """x = 0, s = t = w = 1: the output counts its in-image taps."""
+    B, H, W, C, Co = 2, 11, 40, 64, 64
+    x = torch.zeros(B, H, W, C, device=cuda_device)
+    y = ops.conv2d_fused_prologue(
+        x, torch.ones(3, 3, C, Co, device=cuda_device),
+        torch.zeros(Co, device=cuda_device), torch.ones(B, C, device=cuda_device),
+        torch.ones(B, C, device=cuda_device))
+    taps = torch.full((H, W), 9.0)
+    taps[0, :] = taps[-1, :] = taps[:, 0] = taps[:, -1] = 6.0
+    taps[0, 0] = taps[0, -1] = taps[-1, 0] = taps[-1, -1] = 4.0
+    want = (C * taps)[None, ..., None].expand(B, H, W, Co)
+    torch.testing.assert_close(y.cpu(), want, rtol=0, atol=0)
+
+
+def test_conv2d_fused_rejects_and_has_no_gpu_backward(cuda_device):
+    rng = np.random.default_rng(8)
+    x, w, b, s, t, r = _conv_inputs(rng, (1, 8, 16, 64, 64), cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.conv2d_fused(x[..., :60].contiguous(), w[:, :, :60].contiguous(),
+                         b)
+    with pytest.raises(ValueError, match="Co in"):
+        ops.conv2d_fused(x, w[..., :48].contiguous(), b[:48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.conv2d_fused(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="s and t"):
+        ops.conv2d_fused_prologue(x, w, b, s[:, :32].contiguous(),
+                                  t[:, :32].contiguous())
+    xg = x.clone().requires_grad_(True)
+    y = ops.conv2d_fused(xg, w, b)
+    with pytest.raises(NotImplementedError, match="RAFT training slice"):
+        y.sum().backward()

@@ -162,7 +162,7 @@ def test_get_model_default_device_is_the_gpu():
 
 def test_get_model_unported_name_raises():
     with pytest.raises(ValueError, match="not yet ported.*LowCNN_gru"):
-        get_model("RAFT_Stereo", device="cpu")
+        get_model("CrossAttentionStereo", device="cpu")
 
 
 def test_get_model_seeded_weights_repeat():
@@ -202,7 +202,16 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.train.schedule",
             "stereoformer_tpu_torch.train.state",
             "stereoformer_tpu_torch.train.steps",
-            "stereoformer_tpu_torch.nn.norm"):
+            "stereoformer_tpu_torch.nn.norm",
+            "stereoformer_tpu_torch.ops.corr1d",
+            "stereoformer_tpu_torch.ops.fused_conv",
+            "stereoformer_tpu_torch.ops.upsample",
+            "stereoformer_tpu_torch.nn.blocks",
+            "stereoformer_tpu_torch.nn.raft",
+            "stereoformer_tpu_torch.nn.raft.encoders",
+            "stereoformer_tpu_torch.nn.raft.update",
+            "stereoformer_tpu_torch.models.raft_stereo",
+            "stereoformer_tpu_torch.models.registry"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left
