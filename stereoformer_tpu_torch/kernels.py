@@ -39,6 +39,7 @@ KERNELS = {
                               (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "conv2d_fused": ("conv2d_fused.cu", "conv2d_fused_forward",
                      (_P,) * 10 + (_I,) * 6 + (_P,)),
+    "conv2d_dw": ("conv2d_dw.cu", "conv2d_dw", (_P,) * 4 + (_I,) * 6 + (_P,)),
 }
 
 _functions: dict = {}

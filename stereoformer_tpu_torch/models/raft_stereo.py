@@ -1,4 +1,4 @@
-"""RAFT-Stereo, eval, float32.
+"""RAFT-Stereo, train and eval, float32.
 
 Counterpart of ``stereoformer_tpu/models/raft_stereo.py::RAFTStereo``: a
 context net (per-scale hidden state and GRU gate biases) and a feature net
@@ -11,8 +11,11 @@ Outputs are the negated flow, so positive disparities. Submodule names
 follow the reference ``state_dict`` keys (``raft_stereo.py``).
 
 Inputs are NHWC [B, H, W, 3]; the encoders run ``channels_last``, so the
-fused conv reads their activations without a layout copy. Training is not
-ported yet (the RAFT training slice): ``forward`` raises in train mode.
+fused conv reads their activations without a layout copy. In train mode the
+context net's batch norms take the batch's statistics; every iteration
+starts from a detached ``coords1``, as the reference's, so no gradient flows
+from one iteration to the next through the coordinates (the hidden state
+still carries it).
 """
 
 from __future__ import annotations
@@ -77,10 +80,6 @@ class RAFTStereo(nn.Module):
         Returns {"disparities": iters x [B, H, W, 1] (only the last with
         ``test_mode``), "flow_low": [B, H/4, W/4, 1], "disp_low": its
         negation}."""
-        if self.training:
-            raise NotImplementedError(
-                "RAFTStereo: training is not ported yet (the RAFT training "
-                "slice); call model.eval()")
         cnet_list, fmap1, fmap2 = self.encode(left, right)
         net = [torch.tanh(h) for h, _ in cnet_list]
         ctx = self.context_gates([torch.relu(c) for _, c in cnet_list])
@@ -94,6 +93,7 @@ class RAFTStereo(nn.Module):
 
         preds = []
         for itr in range(iters):
+            coords1 = coords1.detach()
             corr = corr_lookup(pyramid, coords1, CORR_RADIUS)
             flow = torch.cat([(coords1 - coords0)[:, None], flow_y], dim=1)
             last = itr == iters - 1

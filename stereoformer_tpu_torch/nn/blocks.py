@@ -34,7 +34,9 @@ class FusedConv(nn.Conv2d):
     reads), and the output is ``channels_last`` too. ``prologue=(s, t)``
     [B, C] feeds relu(x*s + t) to the conv; with ``with_stats`` it returns
     (y, (S1, S2)), the output's per-sample channel sums [B, Co], or
-    (y, None) at a site that is not routed."""
+    (y, None) at a site that is not routed. At a routed site the gradients
+    of x, s, t, the weight and the bias come from the fused conv's own
+    backward (``ops/fused_conv.py::fused_conv_backward``)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)

@@ -1,4 +1,4 @@
-"""RAFT-Stereo encoders (NCHW modules, eval).
+"""RAFT-Stereo encoders (NCHW modules, train and eval).
 
 Counterparts of ``stereoformer_tpu/nn/raft/encoders.py``: ``GroupNorm``
 (``GroupNormNHWC``), the eval forms of ``_BNStats`` and ``_Norm``,
@@ -11,9 +11,11 @@ Activations are ``channels_last``: the fused conv reads their NHWC view, so
 no layout copy is made around it. A block's stride-1 3x3 convs are
 ``FusedConv``s, and its norm fuses into them as the JAX package's does: the
 first conv emits its output's moments (sample-local norms), the norm turns
-them (or its running statistics) into a per-sample affine (s, t), and the
-second conv applies relu(x*s + t) as it reads its input, emitting its own
-output's moments for the second norm.
+them (or, in eval, batch norm's running statistics) into a per-sample affine
+(s, t), and the second conv applies relu(x*s + t) as it reads its input,
+emitting its own output's moments for the second norm. Batch norm in train
+mode takes the batch's statistics and is not fused: the second conv reads
+relu(norm1(y)).
 """
 
 from __future__ import annotations
@@ -77,11 +79,16 @@ def make_norm(kind: str, channels: int) -> nn.Module:
 
 
 def norm_affine(norm: nn.Module, x: torch.Tensor, sums=None):
-    """The eval norm of x as a per-sample affine (s, t) [B, C] (JAX
+    """The norm of x as a per-sample affine (s, t) [B, C] (JAX
     ``_Norm(stats_only=True)``): from the moments for a group or instance
-    norm, from the running statistics for batch norm (``_BNStats``)."""
+    norm, from the running statistics for batch norm in eval (``_BNStats``);
+    batch norm in train mode has no such form (JAX returns None) and
+    raises."""
     if isinstance(norm, GroupNorm):
         return norm(x, stats_only=True, precomputed_sums=sums)
+    if norm.training:
+        raise ValueError("norm_affine: batch norm in train mode takes the "
+                         "batch's statistics; it is not an affine")
     s = norm.weight * torch.rsqrt(norm.running_var + norm.eps)
     t = norm.bias - norm.running_mean * s
     B = x.shape[0]
@@ -116,17 +123,19 @@ class RaftResidualBlock(nn.Module):
 
     def forward(self, x):
         # sample-local norms take their moments from the convs
-        fuse_stats = isinstance(self.norm1, GroupNorm)
+        local = isinstance(self.norm1, GroupNorm)
         sums1 = sums2 = None
-        if fuse_stats and isinstance(self.conv1, FusedConv):
+        if local and isinstance(self.conv1, FusedConv):
             y, sums1 = self.conv1(x, with_stats=True)
         else:
             y = self.conv1(x)
-        st = norm_affine(self.norm1, y, sums1)
-        if fuse_stats:
-            y, sums2 = self.conv2(y, prologue=st, with_stats=True)
+        if local:
+            y, sums2 = self.conv2(y, prologue=norm_affine(self.norm1, y, sums1),
+                                  with_stats=True)
+        elif not self.norm1.training:
+            y = self.conv2(y, prologue=norm_affine(self.norm1, y))
         else:
-            y = self.conv2(y, prologue=st)
+            y = self.conv2(torch.relu(self.norm1(y)))
         y = torch.relu(apply_norm(self.norm2, y, sums2))
         if self.downsample is not None:
             x = self.norm3(self.downsample(x))

@@ -6,12 +6,14 @@ from .cost_volume import (
     correlation_volume_backward,
     correlation_volume_plain,
 )
+from .dw_conv import conv2d_dw, conv2d_dw_plain
 from .fused_conv import (
     conv2d_fused,
     conv2d_fused_prologue,
     conv2d_fused_prologue_stats,
     conv2d_fused_stats,
     conv3x3_plain,
+    fused_conv_backward,
 )
 from .local_volume import (
     local_soft_argmin,
@@ -29,6 +31,8 @@ from .warp import disp_warp
 __all__ = [
     "InputPadder",
     "allpairs_corr1d",
+    "conv2d_dw",
+    "conv2d_dw_plain",
     "conv2d_fused",
     "conv2d_fused_prologue",
     "conv2d_fused_prologue_stats",
@@ -40,6 +44,7 @@ __all__ = [
     "correlation_volume_backward",
     "correlation_volume_plain",
     "disp_warp",
+    "fused_conv_backward",
     "local_soft_argmin",
     "local_soft_argmin_backward_plain",
     "local_soft_argmin_plain",

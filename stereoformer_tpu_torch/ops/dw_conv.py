@@ -1,0 +1,71 @@
+"""Weight gradient of a stride-1 3x3 SAME convolution (NHWC, HWIO).
+
+Counterpart of the Pallas kernel
+``stereoformer_tpu/ops/pallas/dw_conv.py::conv2d_dw_pallas``, which the
+fused conv's backward calls for its weight gradient:
+
+    conv2d_dw(x, g) -> dw,
+    dw[di, dj, c, co] = sum_{b, h, w} xp[b, h + di, w + dj, c] * g[b, h, w, co]
+
+x [B, H, W, C] (the conv's input), g [B, H, W, Co] (its output's cotangent),
+xp the zero-padded x; dw [3, 3, C, Co], all float32. CPU tensors take the
+plain version (``conv2d_dw_plain``); CUDA tensors launch the kernel
+``csrc/conv2d_dw.cu`` or raise, counting launches in ``conv2d_dw.launches``.
+The kernel takes C = Co = 64 or 96, the widths of the sites RAFT routes to
+the fused conv.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+# the widths the kernel has templates for (csrc/conv2d_dw.cu)
+_KERNEL_C = (64, 96)
+# input channels per block (csrc/conv2d_dw.cu: KC)
+_CHUNK = 32
+
+
+def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The tap formulation (``stereoformer_tpu/ops/convgrad.py::
+    conv2d_dw_tap``): one contraction over (b, h, w) per tap, of the shifted
+    slice of the zero-padded x with g."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = [torch.einsum("bhwc,bhwo->co", xp[:, di:di + H, dj:dj + W], g)
+            for di in range(3) for dj in range(3)]
+    return torch.stack(taps).reshape(3, 3, C, g.shape[-1])
+
+
+def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw [3, 3, C, Co] of a stride-1 3x3 SAME conv with input x and output
+    cotangent g: the plain version on CPU tensors, the kernel on CUDA
+    tensors."""
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return conv2d_dw_plain(x, g)
+    kernels.check_inputs("conv2d_dw", x, g)
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(
+            f"conv2d_dw: the kernel takes x [B, H, W, C] and g [B, H, W, Co], "
+            f"got {tuple(x.shape)} and {tuple(g.shape)}")
+    B, H, W, C = x.shape
+    Co = g.shape[3]
+    if C != Co or C not in _KERNEL_C:
+        raise ValueError(
+            f"conv2d_dw: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
+            f"Co={Co}")
+    # two blocks per SM over all the channel chunks: every block gets the
+    # same number of pixel tiles, and the partials stay a few tens of MB
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit = max(1, 2 * sms // (C // _CHUNK))
+    part = x.new_empty((nsplit, 9, C, Co))
+    dw = x.new_empty((3, 3, C, Co))
+    kernels.launch("conv2d_dw", x.device, x.data_ptr(), g.data_ptr(),
+                   part.data_ptr(), dw.data_ptr(), B, H, W, C, Co, nsplit)
+    conv2d_dw.launches += 1
+    return dw
+
+
+conv2d_dw.launches = 0

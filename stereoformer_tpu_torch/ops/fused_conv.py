@@ -1,4 +1,4 @@
-"""Fused stride-1 3x3 SAME convolution (NHWC, HWIO weights).
+"""Fused stride-1 3x3 SAME convolution (NHWC, HWIO weights), and its backward.
 
 Counterpart of the Pallas kernel ``stereoformer_tpu/ops/pallas/conv2d.py``
 (``_forward``) and its four entry points, with the same arguments and
@@ -14,12 +14,16 @@ layouts:
     S1[b, co] = sum_{h, w} y, S2[b, co] = sum_{h, w} y^2.
 
 x [B, H, W, C], w [3, 3, C, Co], b [Co], s and t [B, C], residual
-[B, H, W, Co]. The padding is zero whatever the prologue. CPU tensors take
-the plain version (``conv3x3_plain``); CUDA tensors launch the kernel
-``csrc/conv2d_fused.cu`` or raise, counting launches in
+[B, H, W, Co]. The padding is zero whatever the prologue. Every call is one
+``_FusedConv`` autograd node: its forward takes the plain version
+(``conv3x3_plain``) on CPU tensors and launches the kernel
+``csrc/conv2d_fused.cu`` on CUDA tensors or raises, counting launches in
 ``conv2d_fused.launches`` (one count for all four entry points: they are one
-kernel). The kernel has no backward yet: on CUDA tensors the gradient raises
-until the RAFT training slice ports ``_bwd`` and ``_prologue_bwd``.
+kernel). Its backward is ``fused_conv_backward``, the Pallas VJPs ``_bwd``,
+``_prologue_bwd`` and the moments' fold: the input gradient is the same
+fused conv with flipped, io-transposed weights, the weight gradient is
+``dw_conv.conv2d_dw``, the rest is elementwise torch ops and [B, C]
+reductions, as XLA does them in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .dw_conv import conv2d_dw
 
 # the kernel's output tile (csrc/conv2d_fused.cu: TH, TW); one moment
 # partial per tile
@@ -54,58 +59,114 @@ def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
     return (y, y64.sum((1, 2)).float(), y64.square().sum((1, 2)).float())
 
 
+def _launch(x, w, b, residual, s, t, relu, with_stats):
+    """One launch of the kernel: y, or (y, S1, S2) with the moments."""
+    given = [a for a in (x, w, b, residual, s, t) if a is not None]
+    kernels.check_inputs("conv2d_fused", *given)
+    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3):
+        raise ValueError(
+            f"conv2d_fused: the kernel takes x [B, H, W, C] and w "
+            f"[3, 3, C, Co], got {tuple(x.shape)} and {tuple(w.shape)}")
+    B, H, W, C = x.shape
+    Co = w.shape[3]
+    if w.shape[2] != C or C % 8 or Co not in _KERNEL_CO:
+        raise ValueError(
+            f"conv2d_fused: the kernel takes C a multiple of 8 and Co in "
+            f"{_KERNEL_CO}, got w {tuple(w.shape)} for C={C}")
+    if b.shape != (Co,):
+        raise ValueError(f"conv2d_fused: b must be [{Co}]")
+    if residual is not None and residual.shape != (B, H, W, Co):
+        raise ValueError(f"conv2d_fused: residual must be {(B, H, W, Co)}")
+    if s is not None and (s.shape != (B, C) or t.shape != (B, C)):
+        raise ValueError(f"conv2d_fused: s and t must be [{B}, {C}]")
+    y = x.new_empty((B, H, W, Co))
+    part = s1 = s2 = None
+    if with_stats:
+        tiles = -(-H // _TILE_H) * -(-W // _TILE_W)
+        part = x.new_empty((B, tiles, 2, Co))
+        s1, s2 = x.new_empty((B, Co)), x.new_empty((B, Co))
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    kernels.launch("conv2d_fused", x.device, x.data_ptr(), w.data_ptr(),
+                   b.data_ptr(), ptr(s), ptr(t), ptr(residual), y.data_ptr(),
+                   ptr(part), ptr(s1), ptr(s2), B, H, W, C, Co, int(relu))
+    conv2d_fused.launches += 1
+    return (y, s1, s2) if with_stats else y
+
+
+def fused_conv_backward(x, w, y, gy, gs1=None, gs2=None, s=None, t=None,
+                        relu=False, has_residual=False, needs=(True,) * 6):
+    """The VJP of ``conv3x3_fused`` (the Pallas ``_bwd``, ``_prologue_bwd``
+    and ``_stats_total_cotangent``): from the forward's x, w, s, t and its
+    output y (needed with ``relu`` or moments, else None), and the
+    cotangents of y, S1 and S2 (any of them None for zero), returns
+    (dx, dw, db, dresidual, ds, dt), None for each input that is absent or
+    that ``needs`` (x, w, b, residual, s, t) does not ask for.
+
+    g = gy + gs1 + 2 y gs2; gpre = g where y > 0 with ``relu`` (the saved
+    output's mask: 0 at y == 0); db = sum gpre; dresidual = gpre;
+    dw = conv2d_dw(z, gpre) with z = relu(x s + t) or x; dz = the fused conv
+    of gpre with the flipped, io-transposed w and no bias; with the prologue
+    du = dz where x s + t > 0, dx = du s, ds = sum_hw du x, dt = sum_hw du,
+    else dx = dz."""
+    need_x, need_w, need_b, need_res, need_s, need_t = needs
+    g = gy if gy is not None else torch.zeros_like(y)
+    if gs1 is not None:
+        g = g + gs1[:, None, None, :]
+    if gs2 is not None:
+        g = g + 2.0 * y * gs2[:, None, None, :]
+    if relu:
+        g = torch.where(y > 0, g, 0.0)
+    if not g.is_contiguous():
+        # the cotangent of an NCHW consumer; the kernels read NHWC
+        g = g.contiguous()
+        conv2d_fused.grad_copies += 1
+    db = g.sum((0, 1, 2)) if need_b else None
+    dres = g if has_residual and need_res else None
+    u = None if s is None else x * s[:, None, None, :] + t[:, None, None, :]
+    dw = conv2d_dw(x if u is None else torch.relu(u), g) if need_w else None
+    dx = ds = dt = None
+    if need_x or need_s or need_t:
+        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+        dz = conv3x3_fused(g, w_rot, w.new_zeros(w.shape[2]))
+        if u is None:
+            dx = dz
+        else:
+            du = torch.where(u > 0, dz, 0.0)
+            dx = du * s[:, None, None, :] if need_x else None
+            ds = (du * x).sum((1, 2)) if need_s else None
+            dt = du.sum((1, 2)) if need_t else None
+    return dx, dw, db, dres, ds, dt
+
+
 class _FusedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, residual, s, t, relu, with_stats):
-        given = [a for a in (x, w, b, residual, s, t) if a is not None]
-        kernels.check_inputs("conv2d_fused", *given)
-        if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3):
-            raise ValueError(
-                f"conv2d_fused: the kernel takes x [B, H, W, C] and w "
-                f"[3, 3, C, Co], got {tuple(x.shape)} and {tuple(w.shape)}")
-        B, H, W, C = x.shape
-        Co = w.shape[3]
-        if w.shape[2] != C or C % 8 or Co not in _KERNEL_CO:
-            raise ValueError(
-                f"conv2d_fused: the kernel takes C a multiple of 8 and Co in "
-                f"{_KERNEL_CO}, got w {tuple(w.shape)} for C={C}")
-        if b.shape != (Co,):
-            raise ValueError(f"conv2d_fused: b must be [{Co}]")
-        if residual is not None and residual.shape != (B, H, W, Co):
-            raise ValueError(f"conv2d_fused: residual must be {(B, H, W, Co)}")
-        if s is not None and (s.shape != (B, C) or t.shape != (B, C)):
-            raise ValueError(f"conv2d_fused: s and t must be [{B}, {C}]")
-        y = x.new_empty((B, H, W, Co))
-        part = s1 = s2 = None
-        if with_stats:
-            tiles = -(-H // _TILE_H) * -(-W // _TILE_W)
-            part = x.new_empty((B, tiles, 2, Co))
-            s1, s2 = x.new_empty((B, Co)), x.new_empty((B, Co))
-
-        def ptr(a):
-            return None if a is None else a.data_ptr()
-
-        kernels.launch("conv2d_fused", x.device, x.data_ptr(), w.data_ptr(),
-                       b.data_ptr(), ptr(s), ptr(t), ptr(residual),
-                       y.data_ptr(), ptr(part), ptr(s1), ptr(s2), B, H, W, C,
-                       Co, int(relu))
-        conv2d_fused.launches += 1
-        return (y, s1, s2) if with_stats else y
+        if all(a.device.type == "cpu" for a in (x, w, b)):
+            out = conv3x3_plain(x, w, b, residual, relu, s, t, with_stats)
+        else:
+            out = _launch(x, w, b, residual, s, t, relu, with_stats)
+        y = out[0] if with_stats else out
+        ctx.relu, ctx.has_residual = relu, residual is not None
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, s, t, y if relu or with_stats else None)
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "conv2d_fused: the backward of the fused conv kernel (the Pallas "
-            "_bwd and _prologue_bwd) is not ported yet; it comes with the "
-            "RAFT training slice")
+    def backward(ctx, gy, gs1=None, gs2=None):
+        x, w, s, t, y = ctx.saved_tensors
+        grads = fused_conv_backward(x, w, y, gy, gs1, gs2, s, t, ctx.relu,
+                                    ctx.has_residual, ctx.needs_input_grad[:6])
+        return (*grads, None, None)
 
 
 def conv3x3_fused(x, w, b, residual=None, relu=False, s=None, t=None,
                   with_stats=False):
-    """Every entry point in one call, with ``conv3x3_plain``'s arguments:
-    the plain version on CPU tensors, the kernel on CUDA tensors."""
-    if all(a.device.type == "cpu" for a in (x, w, b)):
-        return conv3x3_plain(x, w, b, residual, relu, s, t, with_stats)
+    """Every entry point in one differentiable call, with ``conv3x3_plain``'s
+    arguments: the plain version on CPU tensors, the kernel on CUDA
+    tensors; the backward is ``fused_conv_backward`` on either."""
     return _FusedConv.apply(x, w, b, residual, s, t, relu, with_stats)
 
 
@@ -131,3 +192,5 @@ def conv2d_fused_prologue_stats(x, w, b, s, t, relu: bool = False):
 
 
 conv2d_fused.launches = 0
+# copies of a cotangent to NHWC that the backward had to make
+conv2d_fused.grad_copies = 0

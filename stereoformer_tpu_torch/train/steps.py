@@ -53,9 +53,14 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
     of all gradients). The step leaves this batch's gradients in each
     parameter's ``.grad``.
 
-    ``freeze_bn=True`` is the fine-tune knob: every BatchNorm normalises
-    with its running statistics, which stay as they are, while the
-    parameters still get gradients.
+    The model is the state's, ``LowCNN`` or ``RAFTStereo``; a step runs it
+    in train mode, all ``iters`` outputs supervised.
+
+    ``freeze_bn=True`` is the fine-tune knob (RAFT's, in the reference):
+    every BatchNorm normalises with its running statistics, which stay as
+    they are, while the parameters still get gradients; RAFT's context net
+    then takes them as the fused conv's prologue, whose backward passes
+    the gradient on to the BatchNorm's scale and shift.
 
     Not ported: ``remat`` (the JAX step's ``jax.checkpoint``) and
     ``state_out_shardings``; ``loss_name="range_supervised"`` waits for the

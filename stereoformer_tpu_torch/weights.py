@@ -191,19 +191,24 @@ def raft_state_dict_from_jax(variables) -> dict:
 
 
 def amsgrad_state_from_jax(opt_state, model: torch.nn.Module) -> AmsgradState:
-    """optax's AMSGrad state for the JAX ``LowCNN(refinement="gru")``
-    (``optax.amsgrad``'s chain state, or any tuple nesting that holds its
-    ``ScaleByAmsgradState``) -> the port's ``AmsgradState`` for ``model``,
-    on the model's device. ``mu``, ``nu`` and ``nu_max`` map as the
-    parameters do (``lowcnn_state_dict_from_jax``), so a JAX run goes on in
-    the port."""
+    """optax's AMSGrad state for the JAX ``LowCNN(refinement="gru")`` or
+    ``RAFTStereo`` (``optax.amsgrad``'s chain state, or any tuple nesting
+    that holds its ``ScaleByAmsgradState``) -> the port's ``AmsgradState``
+    for ``model``, on the model's device. ``mu``, ``nu`` and ``nu_max`` map
+    as the parameters do (``raft_state_dict_from_jax`` for a
+    ``RAFTStereo``, else ``lowcnn_state_dict_from_jax``), so a JAX run goes
+    on in the port."""
+    from .models.raft_stereo import RAFTStereo   # models import this module
+
     state = _find_amsgrad(opt_state)
     if state is None:
         raise ValueError("no AMSGrad state (with nu_max) in opt_state")
     params = dict(model.named_parameters())
+    to_state_dict = (raft_state_dict_from_jax if isinstance(model, RAFTStereo)
+                     else lowcnn_state_dict_from_jax)
 
     def moments(tree):
-        sd = lowcnn_state_dict_from_jax({"params": tree})
+        sd = to_state_dict({"params": tree})
         return {k: sd[k].to(p.device) for k, p in params.items()}
 
     return AmsgradState(count=int(state.count), mu=moments(state.mu),

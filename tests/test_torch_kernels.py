@@ -228,7 +228,7 @@ def test_conv2d_fused_prologue_padding_is_zero(cuda_device):
     torch.testing.assert_close(y.cpu(), want, rtol=0, atol=0)
 
 
-def test_conv2d_fused_rejects_and_has_no_gpu_backward(cuda_device):
+def test_conv2d_fused_rejects_what_the_kernel_does_not_take(cuda_device):
     rng = np.random.default_rng(8)
     x, w, b, s, t, r = _conv_inputs(rng, (1, 8, 16, 64, 64), cuda_device)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -241,7 +241,124 @@ def test_conv2d_fused_rejects_and_has_no_gpu_backward(cuda_device):
     with pytest.raises(ValueError, match="s and t"):
         ops.conv2d_fused_prologue(x, w, b, s[:, :32].contiguous(),
                                   t[:, :32].contiguous())
+    with pytest.raises(ValueError, match="C = Co"):
+        ops.conv2d_dw(x, r[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.conv2d_dw(x.transpose(1, 2), r.transpose(1, 2))
+
+
+# dw sums B*H*W products per element: float32 partial sums of a block's
+# pixels added in float64, against float64 sums; relative to the largest
+# |dw|
+DW_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
+                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96)],
+                         ids=["main-width", "edge-C96", "H-tail-C64",
+                              "tails-C96"])
+def test_conv2d_dw_matches_plain(cuda_device, shape):
+    B, H, W, C, Co = shape
+    rng = np.random.default_rng(9)
+    x = _randn(rng, (B, H, W, C), cuda_device)
+    g = _randn(rng, (B, H, W, Co), cuda_device)
+    n = ops.conv2d_dw.launches
+    got = ops.conv2d_dw(x, g)
+    want = ops.conv2d_dw_plain(x.double(), g.double())
+    torch.cuda.synchronize()
+    assert ops.conv2d_dw.launches == n + 1
+    assert got.shape == (3, 3, C, Co) and got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=DW_RTOL * want.abs().max().item())
+
+
+# the backward's gradients against autograd of the plain version on
+# float64 copies (cuDNN's float32 weight gradient is itself less exact than
+# the kernel's at large shapes), norm-wise relative to the plain gradient:
+# float32 sums (the CPU measures 6.6e-7 against JAX)
+BWD_RTOL = 1e-5
+# and elementwise, relative to the largest magnitude
+BWD_ATOL = 2e-5
+_BWD_VARIANTS = {"bare": (False, False, False, False),
+                 "res-relu": (True, False, False, True),
+                 "prologue-linear": (False, True, False, False),
+                 "prologue-relu": (False, True, False, True),
+                 "stats": (False, False, True, False),
+                 "prologue-stats": (False, True, True, False)}
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 19, 53, 96, 96)],
+                         ids=["main-width", "tails-C96"])
+@pytest.mark.parametrize("variant", list(_BWD_VARIANTS))
+def test_conv2d_fused_backward_matches_plain_autograd(cuda_device, shape,
+                                                      variant):
+    """The backward on the card (dx on conv2d_fused, dw on conv2d_dw, the
+    rest torch ops) against autograd of conv3x3_plain, from a loss that
+    uses y and both moments. With an output ReLU the reference applies the
+    kernel's mask (y > 0) to its pre-activation: an output within float32
+    rounding of 0 would else pass its gradient on one side and block it on
+    the other."""
+    torch.backends.cudnn.allow_tf32 = False
+    res, pro, stats, relu = _BWD_VARIANTS[variant]
+    rng = np.random.default_rng(10)
+    x, w, b, s, t, r = _conv_inputs(rng, shape, cuda_device)
+    B, H, W, C, Co = shape
+    cy = _randn(rng, (B, H, W, Co), cuda_device)
+    c1 = 0.1 * _randn(rng, (B, Co), cuda_device)
+    c2 = 0.01 * _randn(rng, (B, Co), cuda_device)
+    inputs = {"x": x, "w": w, "b": b}
+    if res:
+        inputs["r"] = r
+    if pro:
+        inputs.update(s=s, t=t)
+
+    def grads(fn, dtype=torch.float32, mask=None):
+        v = {k: a.detach().to(dtype, copy=True).requires_grad_(True)
+             for k, a in inputs.items()}
+        out = fn(v["x"], v["w"], v["b"], v.get("r"), relu and mask is None,
+                 v.get("s"), v.get("t"), stats)
+        y = out[0] if stats else out
+        if mask is not None:
+            out = y * mask
+        if stats:
+            loss = ((out[0] * cy).sum() + (out[1] * c1).sum()
+                    + (out[2] * c2).sum())
+        else:
+            loss = (out * cy).sum()
+        return y.detach(), dict(zip(v, torch.autograd.grad(
+            loss, list(v.values()))))
+
+    n = ops.conv2d_fused.launches, ops.conv2d_dw.launches
+    y, got = grads(ops.fused_conv.conv3x3_fused)
+    torch.cuda.synchronize()
+    # the forward and the dx conv; one dw
+    assert (ops.conv2d_fused.launches, ops.conv2d_dw.launches) == (
+        n[0] + 2, n[1] + 1)
+    _, want = grads(ops.conv3x3_plain, torch.float64,
+                    (y > 0).double() if relu else None)
+    torch.backends.cudnn.allow_tf32 = True
+    for k, wk in want.items():
+        err = ((got[k].double() - wk).norm() / wk.norm()).item()
+        assert err <= BWD_RTOL, (k, err)
+        torch.testing.assert_close(got[k].double(), wk, rtol=0,
+                                   atol=BWD_ATOL * wk.abs().max().item())
+
+
+def test_gpu_backward_runs_the_kernels_and_skips_what_needs_no_grad(
+        cuda_device):
+    """x needs no gradient: the backward launches no dx conv, only dw; with
+    x needing one it launches both."""
+    rng = np.random.default_rng(11)
+    x, w, b, _, _, _ = _conv_inputs(rng, (1, 8, 40, 64, 64), cuda_device)
+    wg = w.clone().requires_grad_(True)
+    n = ops.conv2d_fused.launches, ops.conv2d_dw.launches
+    ops.conv2d_fused(x, wg, b).sum().backward()
+    torch.cuda.synchronize()
+    assert (ops.conv2d_fused.launches, ops.conv2d_dw.launches) == (
+        n[0] + 1, n[1] + 1)
     xg = x.clone().requires_grad_(True)
-    y = ops.conv2d_fused(xg, w, b)
-    with pytest.raises(NotImplementedError, match="RAFT training slice"):
-        y.sum().backward()
+    ops.conv2d_fused(xg, wg, b).sum().backward()
+    torch.cuda.synchronize()
+    assert (ops.conv2d_fused.launches, ops.conv2d_dw.launches) == (
+        n[0] + 3, n[1] + 2)
+    assert xg.grad is not None and b.grad is None

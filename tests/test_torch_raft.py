@@ -274,7 +274,7 @@ def test_reference_checkpoint_file_loads(tmp_path, raft):
 def test_registry_defaults():
     """ImageNet-normalised inputs, and the shared contract's max_disp and
     loop are dropped; the reference's widths are fixed; random weights
-    repeat; eval mode; training raises."""
+    repeat; eval mode; train mode supervises every iteration."""
     model = get_model("RAFT_Stereo", device="cpu", max_disp=192, loop="scan")
     with pytest.raises(TypeError):
         get_model("RAFT_Stereo", device="cpu", downsample=3)
@@ -284,8 +284,9 @@ def test_registry_defaults():
         assert torch.equal(v, again[k]), k
     model.train()
     x = torch.zeros(1, 32, 64, 3)
-    with pytest.raises(NotImplementedError, match="RAFT training slice"):
-        model(x, x, iters=1)
+    out = model(x, x, iters=2)
+    assert [d.shape for d in out["disparities"]] == [(1, 32, 64, 1)] * 2
+    assert all(bool(torch.isfinite(d).all()) for d in out["disparities"])
 
 
 def test_infer_cli_raft_on_cpu(tmp_path, raft):
