@@ -40,6 +40,8 @@ KERNELS = {
     "conv2d_fused": ("conv2d_fused.cu", "conv2d_fused_forward",
                      (_P,) * 10 + (_I,) * 6 + (_P,)),
     "conv2d_dw": ("conv2d_dw.cu", "conv2d_dw", (_P,) * 4 + (_I,) * 6 + (_P,)),
+    "deform_sample": ("deform_sample.cu", "deform_sample_forward",
+                      (_P,) * 4 + (_I,) * 10 + (_P,)),
 }
 
 _functions: dict = {}

@@ -1,7 +1,8 @@
 """Model registry of the port: names -> models on a device.
 
 Counterpart of ``stereoformer_tpu/models/registry.py``. Only the names this
-port has reached are here; the others raise.
+port has reached are here (``LowCNN_gru``, ``LowCNN_dynamic``,
+``LowCNN_dynamic_supervised``, ``RAFT_Stereo``); the others raise.
 """
 
 from __future__ import annotations
@@ -24,9 +25,19 @@ def _raft(**kw):
     return RAFTStereo(**kw)
 
 
+def _lowcnn(refinement):
+    def build(**kw):
+        kw.setdefault("refinement", refinement)
+        return LowCNN(**kw)
+    return build
+
+
 # name -> (constructor, the fan its seeded conv weights are scaled by, as
 # the JAX model's init: he-normal over fan-in for LowCNN, fan-out for RAFT)
-_PORTED = {"LowCNN_gru": (LowCNN, "fan_in"),
+_PORTED = {"LowCNN_gru": (_lowcnn("gru"), "fan_in"),
+           "LowCNN_dynamic": (_lowcnn("learned"), "fan_in"),
+           "LowCNN_dynamic_supervised": (_lowcnn("learned_supervised"),
+                                         "fan_in"),
            "RAFT_Stereo": (_raft, "fan_out")}
 
 

@@ -1,10 +1,24 @@
-"""Modules of the port (NCHW inside; NHWC at the GRU step's interface)."""
+"""Modules of the port (NCHW inside; NHWC at the refinement heads' interfaces)."""
 
-from .blocks import ConvBnRelu, ConvLReLU, FPNFusion, FusedConv, ResBlock
+from .blocks import (
+    ConvBnRelu,
+    ConvLReLU,
+    DeformBlock,
+    DeformConv,
+    FPNFusion,
+    FusedConv,
+    ResBlock,
+)
 from .conv import Conv
 from .gru import ConvGRU
 from .norm import BatchNorm2d
-from .update import GRUUpdate, GuidanceEncoder, OffsetHead
+from .update import (
+    GRUUpdate,
+    GuidanceEncoder,
+    LearnedBounds,
+    OffsetHead,
+    SmallUNet,
+)
 
 __all__ = [
     "BatchNorm2d",
@@ -12,10 +26,14 @@ __all__ = [
     "ConvBnRelu",
     "ConvGRU",
     "ConvLReLU",
+    "DeformBlock",
+    "DeformConv",
     "FPNFusion",
     "FusedConv",
     "GRUUpdate",
     "GuidanceEncoder",
+    "LearnedBounds",
     "OffsetHead",
     "ResBlock",
+    "SmallUNet",
 ]

@@ -1,9 +1,9 @@
 """Building blocks (NCHW modules).
 
 Counterparts of ``stereoformer_tpu/nn/blocks.py`` (``FusedConv``,
-``ConvLReLU``, ``ConvBnRelu``, ``ResBlock``, ``FPNFusion``). Submodule names
-follow the reference ``state_dict`` keys. BatchNorm is ``norm.BatchNorm2d``,
-Flax's.
+``ConvLReLU``, ``ConvBnRelu``, ``ResBlock``, ``DeformConv``, ``DeformBlock``,
+``FPNFusion``). Submodule names follow the reference ``state_dict`` keys.
+BatchNorm is ``norm.BatchNorm2d``, Flax's.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deform import deform_conv_fused, modulated_deform_conv
 from ..ops.fused_conv import conv3x3_fused
 from ..ops.resize import resize_bilinear
 from .conv import Conv
@@ -100,6 +101,81 @@ class ResBlock(nn.Module):
             self.shortcut = nn.Sequential(
                 Conv(in_channels, out_channels, 1, stride),
                 BatchNorm2d(out_channels))
+
+    def forward(self, x):
+        residual = x if self.shortcut is None else self.shortcut(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return F.relu(out + residual)
+
+
+class DeformConv(nn.Module):
+    """Modulated deformable conv "Pack" (DCNv2): ``conv_offset_mask``, a
+    k x k conv of the input to 3K channels (zero at init), gives per tap the
+    offsets (dy, dx) (channels 2t, 2t+1 of the first 2K) and the mask
+    (sigmoid of the last K); then the deformable conv with ``weight``
+    [Co, C, k, k] and ``bias`` [Co], the reference's DCNv2 Pack names.
+
+    ``window`` (stride 1 only): offsets clamped to +-window px, through
+    ``ops.deform_conv_fused``, the kernel on the GPU. ``window=None``: the
+    exact gather form ``ops.modulated_deform_conv``, any stride. x and the
+    output are NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 dilation: int = 1, window: int | None = 2):
+        super().__init__()
+        if window is not None and stride != 1:
+            raise ValueError(
+                "DeformConv: window-clamped form supports stride=1 only; "
+                "pass window=None for strided deformable convs (exact "
+                "unbounded gather semantics).")
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding, self.dilation, self.window = padding, dilation, window
+        K = kernel_size * kernel_size
+        self.conv_offset_mask = nn.Conv2d(in_channels, 3 * K, kernel_size,
+                                          stride=stride, padding=padding)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, x):
+        K = self.kernel_size * self.kernel_size
+        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)   # NHWC, 3K
+        offsets = om[..., :2 * K].reshape(*om.shape[:3], K, 2).contiguous()
+        mask = torch.sigmoid(om[..., 2 * K:]).contiguous()
+        xh = x.permute(0, 2, 3, 1).contiguous()
+        # [Co, C, k, k] -> [K*C, Co], tap-major (ky, kx, cin)
+        weight = self.weight.permute(2, 3, 1, 0).reshape(
+            -1, self.weight.shape[0])
+        if self.window is None:
+            out = modulated_deform_conv(
+                xh, offsets, mask, weight, kernel_size=self.kernel_size,
+                stride=self.stride, padding=self.padding,
+                dilation=self.dilation)
+        else:
+            out = deform_conv_fused(xh, offsets, mask, weight,
+                                    self.kernel_size, self.padding,
+                                    self.dilation, self.window)
+        return (out + self.bias).permute(0, 3, 1, 2)
+
+
+class DeformBlock(nn.Module):
+    """ResBlock whose second conv is a ``DeformConv``, at stride 1:
+    conv3x3-BN-ReLU, DeformConv-BN, plus a 1x1 conv-BN shortcut when the
+    width changes, then ReLU of the sum; keys as ``ResBlock``'s (``conv2``
+    is the DeformConv)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = Conv(in_channels, out_channels, 3)
+        self.bn1 = BatchNorm2d(out_channels)
+        self.conv2 = DeformConv(out_channels, out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
+        self.shortcut = None
+        if in_channels != out_channels:
+            self.shortcut = nn.Sequential(Conv(in_channels, out_channels, 1),
+                                          BatchNorm2d(out_channels))
 
     def forward(self, x):
         residual = x if self.shortcut is None else self.shortcut(x)

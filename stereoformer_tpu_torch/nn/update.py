@@ -1,9 +1,12 @@
-"""The GRU refinement step of LowCNN_gru.
+"""The refinement heads of LowCNN: the GRU step of LowCNN_gru and the
+learned bounds of LowCNN_dynamic and LowCNN_dynamic_supervised.
 
-Counterparts of ``stereoformer_tpu/nn/update.py`` (``GuidanceEncoder``,
-``OffsetHead``, ``GRUUpdate``). Disparities, volumes, images and the mask
-keep the JAX package's NHWC layouts; the convolutions and the hidden state
-are NCHW. Submodule names follow the reference ``state_dict`` keys.
+Counterparts of ``stereoformer_tpu/nn/update.py`` (``_images_at``,
+``GuidanceEncoder``, ``OffsetHead``, ``GRUUpdate``, ``SmallUNet``,
+``LearnedBounds``). Disparities, volumes, images and the mask keep the JAX
+package's NHWC layouts; the convolutions and the hidden state are NCHW.
+Submodule names follow the reference ``state_dict`` keys where they are
+known (the GRU step's).
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from ..ops import (
     disp_warp,
     local_soft_argmin,
     make_candidates,
+    resize_bilinear,
     uncertainty_volume,
 )
+from .blocks import DeformBlock, ResBlock
 from .conv import Conv
 from .norm import BatchNorm2d
 from .gru import ConvGRU
@@ -29,6 +34,25 @@ def _nchw(x):
 
 def _nhwc(x):
     return x.permute(0, 2, 3, 1)
+
+
+def _images_at(disp, left, right):
+    """Downscale full-resolution images [B, H, W, 3] to the disparity's
+    resolution (bilinear, align_corners=False)."""
+    H, W = disp.shape[1:3]
+    if left.shape[2] != W:
+        left = resize_bilinear(left, (H, W), align_corners=False)
+        right = resize_bilinear(right, (H, W), align_corners=False)
+    return left, right
+
+
+def _guidance(cur_disp, left, right, prob):
+    """The photometric error map (the right image warped by the disparity,
+    minus the left) and the uncertainty volume, both NCHW; the images at
+    the disparity's resolution."""
+    warped_left, _ = disp_warp(right, cur_disp)
+    return (_nchw(warped_left - left),
+            _nchw(uncertainty_volume(prob, cur_disp)))
 
 
 def _conv_bn_relu(in_channels, out_channels):
@@ -49,11 +73,9 @@ class GuidanceEncoder(nn.Module):
     def forward(self, cur_disp, left, right, prob):
         """cur_disp [B, H, W, 1]; left, right [B, H, W, 3] at the
         disparity's resolution; prob [B, H, W, D] -> [B, 2*hidden, H, W]."""
-        warped_left, _ = disp_warp(right, cur_disp)
-        error_map = warped_left - left
-        uncert = uncertainty_volume(prob, cur_disp)
-        return torch.cat([self.disparity_error_encoder(_nchw(error_map)),
-                          self.uncertain_encoder(_nchw(uncert))], dim=1)
+        error_map, uncert = _guidance(cur_disp, left, right, prob)
+        return torch.cat([self.disparity_error_encoder(error_map),
+                          self.uncertain_encoder(uncert)], dim=1)
 
 
 class OffsetHead(nn.Module):
@@ -97,3 +119,62 @@ class GRUUpdate(nn.Module):
                                 volume.shape[-1])
         disp = local_soft_argmin(volume, cands.contiguous())
         return disp, hidden, mask
+
+
+class SmallUNet(nn.Module):
+    """The offset net of the learned bounds: conv-BN-ReLU encoders of the
+    error map (3 -> hidden) and the uncertainty volume (D -> hidden),
+    concatenated, a ResBlock, a DeformBlock to hidden/2, and
+    relu(conv3x3 -> 2): the two offsets [B, 2, H, W].
+
+    The reference's key names for this net are not at hand; the submodules
+    are named after the JAX tree: ``error_encoder`` and
+    ``uncertain_encoder`` (with their ``_bn`` as ``.1``), ``resblock``
+    (``ResBlock_0``), ``deformblock`` (``DeformBlock_0``) and ``conv``
+    (``Conv_0``)."""
+
+    def __init__(self, num_bins: int, hidden: int = 32):
+        super().__init__()
+        self.error_encoder = _conv_bn_relu(3, hidden)
+        self.uncertain_encoder = _conv_bn_relu(num_bins, hidden)
+        self.resblock = ResBlock(2 * hidden, hidden)
+        self.deformblock = DeformBlock(hidden, hidden // 2)
+        self.conv = Conv(hidden // 2, 2, 3)
+
+    def forward(self, error_map, uncert):
+        x = torch.cat([self.error_encoder(error_map),
+                       self.uncertain_encoder(uncert)], dim=1)
+        return F.relu(self.conv(self.deformblock(self.resblock(x))))
+
+
+class LearnedBounds(nn.Module):
+    """Learned-bounds local cost volume: the error map of the right image
+    warped by the current disparity and the uncertainty volume feed a
+    ``SmallUNet``, whose two outputs are the bounds, absolute
+    (``relative=False``) or around the current disparity (``relative=True``:
+    lower = disp - out0, upper = disp + out1); candidates in them, then the
+    local soft-argmin over the volume."""
+
+    def __init__(self, num_bins: int, num_samples: int = 20,
+                 relative: bool = False):
+        super().__init__()
+        self.num_samples, self.relative = num_samples, relative
+        self.unet = SmallUNet(num_bins)
+
+    def forward(self, volume, cur_disp, left, right, consider_valid=False):
+        """volume [B, H, W, D]; cur_disp [B, H, W, 1]; left, right the
+        full-resolution images [B, 8H, 8W, 3].
+
+        Returns (disp [B, H, W, 1], (lower, upper) [B, H, W, 1] each)."""
+        left, right = _images_at(cur_disp, left, right)
+        off = _nhwc(self.unet(*_guidance(cur_disp, left, right,
+                                         torch.softmax(volume, dim=-1))))
+        lo_off, up_off = off[..., 0:1], off[..., 1:2]
+        if self.relative:
+            lower, upper = cur_disp - lo_off, cur_disp + up_off
+        else:
+            lower, upper = lo_off, up_off
+        cands = make_candidates(lower, upper, cur_disp, self.num_samples,
+                                volume.shape[-1],
+                                consider_valid=consider_valid)
+        return local_soft_argmin(volume, cands.contiguous()), (lower, upper)

@@ -6,6 +6,13 @@ from .cost_volume import (
     correlation_volume_backward,
     correlation_volume_plain,
 )
+from .deform import (
+    bilinear_sample_2d,
+    deform_columns,
+    deform_conv_fused,
+    modulated_deform_conv,
+    modulated_deform_conv_windowed,
+)
 from .dw_conv import conv2d_dw, conv2d_dw_plain
 from .fused_conv import (
     conv2d_fused,
@@ -31,6 +38,7 @@ from .warp import disp_warp
 __all__ = [
     "InputPadder",
     "allpairs_corr1d",
+    "bilinear_sample_2d",
     "conv2d_dw",
     "conv2d_dw_plain",
     "conv2d_fused",
@@ -43,12 +51,16 @@ __all__ = [
     "correlation_volume",
     "correlation_volume_backward",
     "correlation_volume_plain",
+    "deform_columns",
+    "deform_conv_fused",
     "disp_warp",
     "fused_conv_backward",
     "local_soft_argmin",
     "local_soft_argmin_backward_plain",
     "local_soft_argmin_plain",
     "make_candidates",
+    "modulated_deform_conv",
+    "modulated_deform_conv_windowed",
     "resample_volume_hat",
     "resize_bilinear",
     "scale_disp",

@@ -1,8 +1,7 @@
 """Local cost-volume refinement: candidates, hat re-sample, local soft-argmin.
 
-Counterpart of ``stereoformer_tpu/ops/local_volume.py`` (``make_candidates``
-with ``consider_valid=True``, ``resample_volume_hat``, ``local_soft_argmin``)
-and of its Pallas kernel
+Counterpart of ``stereoformer_tpu/ops/local_volume.py`` (``make_candidates``,
+``resample_volume_hat``, ``local_soft_argmin``) and of its Pallas kernel
 ``ops/pallas/local_refine.py::fused_local_soft_argmin``.
 
 ``local_soft_argmin`` takes the plain version for CPU tensors, whose autograd
@@ -23,14 +22,23 @@ from .. import kernels
 
 def make_candidates(lower: torch.Tensor, upper: torch.Tensor,
                     cur_disp: torch.Tensor, num_samples: int,
-                    max_disp: int) -> torch.Tensor:
+                    max_disp: int, consider_valid: bool = True) -> torch.Tensor:
     """S+1 = num_samples+1 uniform candidates in [lower, upper] per pixel.
 
-    lower, upper, cur_disp: [B, H, W, 1] -> [B, H, W, S+1]. A pixel whose
-    range leaves [0, max_disp - 1) (lower < 0 or upper >= max_disp - 1, with
-    max_disp the volume's D) collapses every candidate to cur_disp."""
+    lower, upper, cur_disp: [B, H, W, 1] -> [B, H, W, S+1], with max_disp
+    the volume's D. ``consider_valid=True``: a pixel whose range leaves
+    [0, max_disp - 1) (lower < 0 or upper >= max_disp - 1) collapses every
+    candidate to cur_disp. ``consider_valid=False``: the bounds are clamped
+    instead, lower to >= 0 and upper to [0, max_disp], as JAX's
+    ``jnp.clip`` (half the gradient at a tie)."""
     steps = torch.arange(num_samples + 1, dtype=lower.dtype,
                          device=lower.device)
+    if not consider_valid:
+        zero = lower.new_tensor(0.0)
+        lower = torch.maximum(lower, zero)
+        upper = torch.minimum(torch.maximum(upper, zero),
+                              upper.new_tensor(float(max_disp)))
+        return lower + steps * ((upper - lower) / num_samples)
     invalid = ((lower < 0) | (upper >= max_disp - 1)).to(lower.dtype)
     cands = lower + steps * ((upper - lower) / num_samples)
     return cands * (1.0 - invalid) + invalid * cur_disp

@@ -54,7 +54,10 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
     parameter's ``.grad``.
 
     The model is the state's, ``LowCNN`` or ``RAFTStereo``; a step runs it
-    in train mode, all ``iters`` outputs supervised.
+    in train mode, every output supervised (``iters`` of them for the GRU
+    models; the initial and refined disparities of the learned-bounds
+    models, with the bounds too for ``loss_name="range_supervised"``,
+    which takes ``LowCNN_dynamic_supervised``).
 
     ``freeze_bn=True`` is the fine-tune knob (RAFT's, in the reference):
     every BatchNorm normalises with its running statistics, which stay as
@@ -63,12 +66,7 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
     the gradient on to the BatchNorm's scale and shift.
 
     Not ported: ``remat`` (the JAX step's ``jax.checkpoint``) and
-    ``state_out_shardings``; ``loss_name="range_supervised"`` waits for the
-    ``learned_supervised`` model."""
-    if loss_name == "range_supervised":
-        raise NotImplementedError(
-            "loss 'range_supervised' needs the learned_supervised model, "
-            "which is not yet ported")
+    ``state_out_shardings``."""
     if loss_name not in LOSS_NAMES:
         raise ValueError(f"unknown loss {loss_name!r}; one of {LOSS_NAMES}")
 

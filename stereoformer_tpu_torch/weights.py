@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .nn.blocks import DeformConv
 from .train.optim import AmsgradState
 
 # reference prefix -> Flax module name, for the backbone's ResBlocks
@@ -54,7 +55,8 @@ def _bn(sd, key, params, stats):
 
 
 def _resblock(sd, key, params, stats):
-    """Flax numbers a ResBlock's norms in call order and the shortcut runs
+    """A ResBlock, or a DeformBlock (whose second conv is ``DeformConv_0``).
+    Flax numbers a block's norms in call order and the shortcut runs
     first, so with a shortcut its norm is BatchNorm_0 and bn1/bn2 are
     BatchNorm_1/BatchNorm_2."""
     shortcut = "shortcut_conv" in params
@@ -62,7 +64,10 @@ def _resblock(sd, key, params, stats):
     _conv(sd, key + ".conv1", params["Conv_0"])
     _bn(sd, key + ".bn1", params[f"BatchNorm_{off}"],
         _at(stats, f"BatchNorm_{off}"))
-    _conv(sd, key + ".conv2", params["Conv_1"])
+    if "DeformConv_0" in params:
+        _deform_conv(sd, key + ".conv2", params["DeformConv_0"])
+    else:
+        _conv(sd, key + ".conv2", params["Conv_1"])
     _bn(sd, key + ".bn2", params[f"BatchNorm_{off + 1}"],
         _at(stats, f"BatchNorm_{off + 1}"))
     if shortcut:
@@ -72,12 +77,15 @@ def _resblock(sd, key, params, stats):
 
 
 def lowcnn_state_dict_from_jax(variables) -> dict:
-    """The JAX ``LowCNN(refinement="gru")`` variables ``{"params",
-    "batch_stats"}`` (numpy leaves) -> the port's ``state_dict``. Without
+    """The JAX ``LowCNN`` variables ``{"params", "batch_stats"}`` (numpy
+    leaves) of ``refinement="gru"``, ``"learned"`` or
+    ``"learned_supervised"`` -> the port's ``state_dict``. Without
     ``"batch_stats"``, the parameters' entries only.
 
-    Kernels map HWIO -> OIHW; the fused GRU gate conv ``conv_zb`` splits
-    into ``conv_z`` (first half of its outputs) and ``conv_b``."""
+    Kernels map HWIO -> OIHW. The GRU step's fused gate conv ``conv_zb``
+    splits into ``conv_z`` and ``conv_b``; the learned bounds map
+    ``ConvAffinityUpsample_0`` to ``upsample_mask`` and
+    ``LearnedBounds_0/SmallUNet_0`` to ``local_cost_volume.unet``."""
     p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
     _conv(sd, "conv1.0", p["ConvLReLU_0"]["Conv_0"])
@@ -93,9 +101,23 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
         _resblock(sd, f"correlation_aggreagtion.{i}", p[f"agg{i}"],
                   _at(s, f"agg{i}"))
 
-    g = p["gru_update"]
+    if "gru_update" in p:
+        _gru_head(sd, p["gru_update"], _at(s, "gru_update"))
+    if "LearnedBounds_0" in p:
+        mask = p["ConvAffinityUpsample_0"]
+        _conv(sd, "upsample_mask.upsample_mask.0", mask["Conv_0"])
+        _conv(sd, "upsample_mask.upsample_mask.2", mask["Conv_1"])
+        _smallunet(sd, "local_cost_volume.unet",
+                   p["LearnedBounds_0"]["SmallUNet_0"],
+                   _at(s, "LearnedBounds_0", "SmallUNet_0"))
+    return sd
+
+
+def _gru_head(sd, g, gs):
+    """The GRU step (``gru_update``); the fused gate conv ``conv_zb`` splits
+    into ``conv_z`` (first half of its outputs) and ``conv_b``."""
     enc = g["GuidanceEncoder_0"]
-    encs = _at(s, "gru_update", "GuidanceEncoder_0")
+    encs = _at(gs, "GuidanceEncoder_0")
     key = "local_cost_volume.encoder"
     _conv(sd, key + ".disparity_error_encoder.0", enc["error_encoder"], bias=False)
     _bn(sd, key + ".disparity_error_encoder.1", enc["error_encoder_bn"],
@@ -114,7 +136,28 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
     _conv(sd, "local_cost_volume.offset.conv2", g["OffsetHead_0"]["Conv_1"])
     _conv(sd, "local_cost_volume.mask.0", g["mask_conv1"])
     _conv(sd, "local_cost_volume.mask.2", g["mask_conv2"])
-    return sd
+
+
+def _deform_conv(sd, key, node):
+    """DeformConv: ``offset_mask`` -> ``conv_offset_mask``; the weight
+    [K*C, Co], tap-major (ky, kx, cin), -> [Co, C, k, k]."""
+    _conv(sd, key + ".conv_offset_mask", node["offset_mask"])
+    k, _, C, _ = np.shape(node["offset_mask"]["kernel"])
+    w = np.asarray(node["weight"])
+    sd[key + ".weight"] = _tensor(
+        np.transpose(w.reshape(k, k, C, w.shape[1]), (3, 2, 0, 1)))
+    sd[key + ".bias"] = _tensor(node["bias"])
+
+
+def _smallunet(sd, key, p, s):
+    """SmallUNet: encoders, ResBlock_0, DeformBlock_0 and Conv_0."""
+    for enc in ("error_encoder", "uncertain_encoder"):
+        _conv(sd, f"{key}.{enc}.0", p[enc], bias=False)
+        _bn(sd, f"{key}.{enc}.1", p[enc + "_bn"], _at(s, enc + "_bn"))
+    _resblock(sd, key + ".resblock", p["ResBlock_0"], _at(s, "ResBlock_0"))
+    _resblock(sd, key + ".deformblock", p["DeformBlock_0"],
+              _at(s, "DeformBlock_0"))
+    _conv(sd, key + ".conv", p["Conv_0"])
 
 
 def _raft_block(sd, key, params, stats, shortcut: bool, bn: bool):
@@ -242,27 +285,33 @@ def load_state_dict_file(path: str) -> dict:
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
                       fan: str = "fan_in") -> dict:
     """Random weights for ``model`` from numpy, made from ``seed``: each
-    conv weight he-normal over its ``fan`` ("fan_in", as LowCNN's init, or
-    "fan_out", as RAFT's), biases zero, BatchNorm the identity (scale 1,
-    shift 0, mean 0, variance 1), as the JAX models' own inits draw them
-    (LowCNN's GRU gates, drawn orthogonal there, and RAFT's weights, drawn
-    from a truncated normal there, are plain normal here)."""
+    conv weight (a ``DeformConv``'s too) he-normal over its ``fan``
+    ("fan_in", as LowCNN's init, or "fan_out", as RAFT's), biases zero,
+    BatchNorm the identity (scale 1, shift 0, mean 0, variance 1), as the
+    JAX models' own inits draw them (LowCNN's GRU gates, drawn orthogonal
+    there, and RAFT's weights, drawn from a truncated normal there, are
+    plain normal here). A ``DeformConv``'s ``conv_offset_mask`` is zero, as
+    in JAX, so it starts as a plain conv modulated by 0.5."""
     rng = np.random.default_rng(seed)
     sd = {}
     for name, m in model.named_modules():
-        if isinstance(m, torch.nn.Conv2d):
+        key = name + "." if name else ""
+        if name.endswith("conv_offset_mask"):
+            sd[key + "weight"] = torch.zeros(m.weight.shape)
+            sd[key + "bias"] = torch.zeros(m.out_channels)
+        elif isinstance(m, (torch.nn.Conv2d, DeformConv)):
             shape = tuple(m.weight.shape)
             fans = {"fan_in": shape[1], "fan_out": shape[0]}
             n = fans[fan] * shape[2] * shape[3]
-            sd[name + ".weight"] = _tensor(
+            sd[key + "weight"] = _tensor(
                 rng.standard_normal(shape) * np.sqrt(2.0 / n))
             if m.bias is not None:
-                sd[name + ".bias"] = torch.zeros(m.out_channels)
+                sd[key + "bias"] = torch.zeros(m.bias.shape)
         elif isinstance(m, torch.nn.BatchNorm2d):
             n = m.num_features
-            sd[name + ".weight"] = torch.ones(n)
-            sd[name + ".bias"] = torch.zeros(n)
-            sd[name + ".running_mean"] = torch.zeros(n)
-            sd[name + ".running_var"] = torch.ones(n)
-            sd[name + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            sd[key + "weight"] = torch.ones(n)
+            sd[key + "bias"] = torch.zeros(n)
+            sd[key + "running_mean"] = torch.zeros(n)
+            sd[key + "running_var"] = torch.ones(n)
+            sd[key + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd

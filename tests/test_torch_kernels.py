@@ -362,3 +362,117 @@ def test_gpu_backward_runs_the_kernels_and_skips_what_needs_no_grad(
     assert (ops.conv2d_fused.launches, ops.conv2d_dw.launches) == (
         n[0] + 3, n[1] + 2)
     assert xg.grad is not None and b.grad is None
+
+
+# deform_sample: float32 sums of K taps x 4 corners x the matmul's C products
+# against float64; relative to the output's largest magnitude
+DEFORM_RTOL = 1e-5
+# shape (B, H, W, C, Co), padding, dilation, offset scale or "integer"
+DEFORM_CASES = {
+    "train-width": ((4, 40, 80, 16, 16), 1, 1, 1.8),
+    "eval-width": ((2, 72, 120, 16, 16), 1, 1, 1.8),
+    "odd-W-Co6": ((2, 13, 17, 8, 6), 1, 1, 1.8),
+    "dilation-2": ((1, 19, 37, 16, 16), 2, 2, 1.8),
+    "beyond-window": ((1, 24, 40, 16, 16), 1, 1, 5.0),
+    "integer": ((1, 24, 40, 16, 16), 1, 1, "integer"),
+    "Co-32": ((1, 24, 40, 16, 32), 1, 1, 1.8),
+}
+
+
+def _deform_inputs(rng, shape, scale, device):
+    B, H, W, C, Co = shape
+    x = _randn(rng, (B, H, W, C), device)
+    if scale == "integer":
+        off = rng.choice(np.array([0.0, 0.0, 1.0, -1.0, 2.0, -2.0, 3.0]),
+                         size=(B, H, W, 9, 2)).astype(np.float32)
+    else:
+        off = (rng.random((B, H, W, 9, 2)) * 2 * scale - scale).astype(
+            np.float32)
+    mask = torch.from_numpy(rng.random((B, H, W, 9)).astype(np.float32))
+    w = _randn(rng, (9 * C, Co), device) / np.sqrt(9 * C)
+    return x, torch.from_numpy(off).to(device), mask.to(device), w
+
+
+@pytest.mark.parametrize("case", list(DEFORM_CASES))
+def test_deform_sample_matches_plain(cuda_device, case):
+    """The kernel (after the wrapper's matmul) against the plain windowed
+    form on float64 copies, one launch per call."""
+    shape, pad, dil, scale = DEFORM_CASES[case]
+    rng = np.random.default_rng(12)
+    x, off, mask, w = _deform_inputs(rng, shape, scale, cuda_device)
+    n = ops.deform_conv_fused.launches
+    got = ops.deform_conv_fused(x, off, mask, w, 3, pad, dil, 2)
+    torch.cuda.synchronize()
+    assert ops.deform_conv_fused.launches == n + 1
+    want = ops.modulated_deform_conv_windowed(
+        x.double(), off.double(), mask.double(), w.double(), padding=pad,
+        dilation=dil, window=2)
+    assert got.shape == want.shape == shape[:3] + (shape[4],)
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=DEFORM_RTOL * want.abs().max().item())
+
+
+def test_deform_sample_without_mask(cuda_device):
+    rng = np.random.default_rng(13)
+    x, off, _, w = _deform_inputs(rng, (1, 9, 21, 8, 6), 1.8, cuda_device)
+    got = ops.deform_conv_fused(x, off, None, w)
+    want = ops.modulated_deform_conv_windowed(
+        x.double(), off.double(), None, w.double())
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=DEFORM_RTOL * want.abs().max().item())
+
+
+def test_deform_backward_is_autograd_of_the_plain_form(cuda_device):
+    """One launch forward and none backward; the gradients are the plain
+    windowed form's."""
+    rng = np.random.default_rng(14)
+    inputs = _deform_inputs(rng, (2, 16, 24, 16, 16), 1.8, cuda_device)
+    g = _randn(rng, (2, 16, 24, 16), cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    n = ops.deform_conv_fused.launches
+    ops.deform_conv_fused(*leaves).backward(g)
+    torch.cuda.synchronize()
+    assert ops.deform_conv_fused.launches == n + 1
+    ref = [t.double().requires_grad_(True) for t in inputs]
+    ops.modulated_deform_conv_windowed(*ref).backward(g.double())
+    for got, want in zip(leaves, ref):
+        # the same float32 arithmetic as the plain form, against float64
+        torch.testing.assert_close(got.grad.double(), want.grad, rtol=0,
+                                   atol=1e-5 * want.grad.abs().max().item())
+
+
+def test_deform_conv_module_launches_the_kernel(cuda_device):
+    from stereoformer_tpu_torch.nn import DeformConv
+    from stereoformer_tpu_torch.weights import seeded_state_dict
+
+    m = DeformConv(16, 16)
+    m.load_state_dict(seeded_state_dict(m))
+    m = m.to(cuda_device)
+    x = _randn(np.random.default_rng(15), (2, 16, 40, 80), cuda_device)
+    n = ops.deform_conv_fused.launches
+    out = m(x)
+    torch.cuda.synchronize()
+    assert ops.deform_conv_fused.launches == n + 1
+    # zero offset conv: the plain conv modulated by 0.5
+    want = 0.5 * torch.nn.functional.conv2d(x.double(), m.weight.double(),
+                                            padding=1) + m.bias.double()[
+                                                :, None, None]
+    torch.testing.assert_close(out.double(), want, rtol=0,
+                               atol=DEFORM_RTOL * want.abs().max().item())
+
+
+def test_deform_sample_rejects_what_the_kernel_does_not_take(cuda_device):
+    rng = np.random.default_rng(16)
+    x, off, mask, w = _deform_inputs(rng, (1, 8, 12, 8, 6), 1.0, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ops.deform_conv_fused(x.double(), off.double(), mask.double(),
+                              w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.deform_conv_fused(x, off.transpose(1, 2).contiguous().transpose(
+            1, 2), mask, w)
+    with pytest.raises(ValueError, match="offsets must be"):
+        ops.deform_conv_fused(x, off[:, :, :-1].contiguous(), mask, w)
+    with pytest.raises(ValueError, match="weight must be"):
+        ops.deform_conv_fused(x, off, mask, w[:-1].contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.deform_conv_fused(x, off.cpu(), mask, w)

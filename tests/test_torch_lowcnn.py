@@ -204,6 +204,7 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.train.steps",
             "stereoformer_tpu_torch.nn.norm",
             "stereoformer_tpu_torch.ops.corr1d",
+            "stereoformer_tpu_torch.ops.deform",
             "stereoformer_tpu_torch.ops.dw_conv",
             "stereoformer_tpu_torch.ops.fused_conv",
             "stereoformer_tpu_torch.ops.upsample",

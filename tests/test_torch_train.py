@@ -450,8 +450,12 @@ def test_freeze_bn_keeps_statistics_and_trains_parameters(jax_steps):
 
 
 def test_train_step_rejects_unported_and_unknown_losses():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.make_train_step(train.Amsgrad(LR), "range_supervised")
+    # every loss of the JAX step is ported ("range_supervised" with the
+    # learned_supervised model, tests/test_torch_lowcnn_dynamic.py)
+    assert train.LOSS_NAMES == ("sequence", "equal", "single",
+                                "range_supervised")
+    for name in train.LOSS_NAMES:
+        assert callable(train.make_train_step(train.Amsgrad(LR), name))
     with pytest.raises(ValueError, match="unknown loss"):
         train.make_train_step(train.Amsgrad(LR), "l2")
 
