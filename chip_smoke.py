@@ -7,8 +7,7 @@ Needs one CUDA device and nvcc; imports nothing of JAX. Phases, in order;
 any failure exits nonzero and prints no result:
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. build every CUDA kernel of the main paths from csrc/, one nvcc per
-   source, all at once;
+2. build every CUDA kernel from csrc/, one nvcc per source, all at once;
 3. each kernel against its plain PyTorch version at the main paths' shapes
    and at edge inputs, with the tolerance stated: the two forward kernels,
    local_soft_argmin's backward kernel, corr_band's backward (torch ops)
@@ -16,9 +15,13 @@ any failure exits nonzero and prints no result:
    conv2d_dw against float64 sums at RAFT's four training shapes, the
    fused conv's backward (conv2d_fused for dx, conv2d_dw for dw, torch ops
    for the rest) in all six variants against autograd of its plain version,
-   and deform_sample (with the wrapper's matmul) against the plain windowed
+   deform_sample (with the wrapper's matmul) against the plain windowed
    form in float64 at the learned bounds' eval and train shapes, an odd W,
-   dilation 2, offsets beyond the window, integer offsets and Co = 6, 32;
+   dilation 2, offsets beyond the window, integer offsets and Co = 6, 32,
+   conv2d_s2 with and without ReLU against the plain version in float64 at
+   RAFT's six stride-2 sites and edge shapes, with its gradient, and
+   row_gather bit-equal to its plain version at the probe's shape, an index
+   out of range raising;
 4. LowCNN_gru eval through get_model at 576x960, B=8, 12 GRU iterations,
    float32, random weights from seed 0: launch counts (corr_band once,
    local_soft_argmin once per iteration, no backward), shapes, finiteness
@@ -40,33 +43,50 @@ any failure exits nonzero and prints no result:
    (TF32 on and off), the parts of a step, peak memory, a profiler
    breakdown; then one LowCNN_dynamic train step with the "equal" loss: a
    finite loss and the same launch counts;
-8. RAFT_Stereo eval through get_model at 576x960, B=2 and B=8, 12 GRU
+8. the rest of the family as in phases 4 and 5: LowCNN (fixed radius),
+   LowCNN_simple (no refinement), LowCNN_ada (variance) and LowCNN_gru2 (the
+   GRU with the left feature, 12 iterations) eval at 576x960, B=8 (launches
+   corr_band / local_soft_argmin 1/1, 1/0, 1/1, 1/12); the LowCNN_ada
+   ("equal" loss) and LowCNN_gru2 ("sequence") train steps at 320x640, B=4
+   (corr_band / local_soft_argmin / its backward 1/1/1 and 1/12/12 per
+   step, a falling loss over 5 steps, peak memory);
+9. RAFT_Stereo eval through get_model at 576x960, B=2 and B=8, 12 GRU
    iterations, test_mode, float32, random weights from seed 0: 14 launches
    of conv2d_fused per forward (7 in each encoder), shapes and finiteness,
    ms/batch and pairs/s with CUDA events (cuDNN's TF32 on and off), peak
    memory, a profiler breakdown of one B=2 forward;
-9. the RAFT_Stereo train step through train.make_train_step at 320x720,
+10. the RAFT_Stereo train step through train.make_train_step at 320x720,
    B=4, 12 GRU iterations, sequence loss (gamma 0.8), AMSGrad lr 2e-4,
    float32 (bench.py's RAFT protocol): launch counts per step (conv2d_fused
    28: 14 forward, 14 dx; conv2d_dw 14), the cotangent copies the backward
    made, a finite loss that falls over 5 steps on one batch, ms/step and
    pairs/s (TF32 on and off), the parts of a step, peak memory, a profiler
    breakdown of one step;
-10. each kernel's device time beside its bound and its plain version's;
+11. the two kernels no model path reaches, through their public entry
+   points: conv2d_fused_s2 at RAFT's six stride-2 sites (which stay cuDNN
+   convs in the model, as they stay XLA convs in the JAX package), and the
+   row-gather probe (stereoformer_tpu_torch.scripts.gather_probe): one
+   launch per call;
+12. each kernel's device time beside its bound and its plain version's;
    for conv2d_fused also its TF32 bound and cuDNN's time for one F.conv2d
    with bias at the same shape (TF32 on and off), at the four RAFT eval
    shapes, and as the dx conv at the four RAFT training shapes beside
    cuDNN's conv2d_input; for conv2d_dw, at the four training shapes, beside
    cuDNN's conv2d_weight (TF32 on and off); for deform_sample at the
    learned bounds' eval and train shapes, beside the wrapper with its
-   matmul and torchvision's deform_conv2d where torchvision imports;
-11. parity of the card against the port on the CPU (TF32 off): LowCNN_gru
+   matmul and torchvision's deform_conv2d where torchvision imports; for
+   conv2d_s2 at RAFT's six stride-2 sites beside one F.conv2d with stride 2
+   (TF32 off and on); for row_gather at the probe's shape beside
+   torch.gather;
+13. parity of the card against the port on the CPU (TF32 off): LowCNN_gru
    at 64x256, the eval forward and one train step (loss, gradient norm,
    updated parameters); LowCNN_dynamic_supervised at 64x256 likewise
    (range_supervised loss), with offsets of about a pixel; RAFT_Stereo
    eval at 64x128, 12 iterations, and one RAFT train step at 64x128, 2
-   iterations (loss, gradient norm, updated parameters);
-12. one JSON line with each kernel's numbers; the last line says the run
+   iterations (loss, gradient norm, updated parameters); LowCNN_gru2 at
+   64x256, eval and one train step; LowCNN with the concat volume and the
+   simple upsample, eval;
+14. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -132,7 +152,48 @@ KERNELS = {
     "deform_sample": (
         "cuda", "stereoformer_tpu_torch/csrc/deform_sample.cu",
         "stereoformer_tpu/ops/pallas/deform_sample.py:90"),
+    "conv2d_s2": (
+        "cuda", "stereoformer_tpu_torch/csrc/conv2d_s2.cu",
+        "stereoformer_tpu/ops/pallas/conv2d.py:585"),
+    "row_gather": (
+        "cuda", "stereoformer_tpu_torch/csrc/row_gather.cu",
+        "scripts/_gather_probe.py:21"),
 }
+# RAFT's stride-2 3x3 sites at eval, B=2, 576x960 (the first conv of the
+# first block of layer2 and layer3 in both encoders, and of the context
+# net's layer4 and layer5; the feature net runs on the stacked pair). They
+# stay cuDNN convs in the model, as they stay XLA convs in the JAX package;
+# conv2d_fused_s2 is driven at their shapes. name -> (B, H, W, C, Co) of
+# the input
+RAFT_S2_CONVS = {
+    "fnet layer2": (4, 576, 960, 64, 96), "fnet layer3": (4, 288, 480, 96, 128),
+    "cnet layer2": (2, 576, 960, 64, 96), "cnet layer3": (2, 288, 480, 96, 128),
+    "cnet layer4": (2, 144, 240, 128, 128),
+    "cnet layer5": (2, 72, 120, 128, 128)}
+# the JAX test's shape, an output that no 8 x 32 tile divides (17 x 33), and
+# C, Co that are no multiple of 4
+EDGE_S2_CONVS = [(2, 20, 48, 16, 24), (1, 34, 66, 96, 128), (2, 18, 70, 6, 10)]
+# the LowCNN family's models: name -> (outputs of a forward, launches in one
+# eval forward); a train step adds one local_soft_argmin_bwd per forward
+# launch of local_soft_argmin
+LOWCNN = {
+    "LowCNN_gru": (ITERS, {"corr_band": 1, "local_soft_argmin": ITERS}),
+    "LowCNN_gru2": (ITERS, {"corr_band": 1, "local_soft_argmin": ITERS}),
+    "LowCNN": (2, {"corr_band": 1, "local_soft_argmin": 1}),
+    "LowCNN_simple": (1, {"corr_band": 1}),
+    "LowCNN_ada": (2, {"corr_band": 1, "local_soft_argmin": 1}),
+    "LowCNN_dynamic": (2, {"corr_band": 1, "local_soft_argmin": 1,
+                           "deform_sample": 1}),
+    "LowCNN_dynamic_supervised": (2, {"corr_band": 1, "local_soft_argmin": 1,
+                                      "deform_sample": 1}),
+}
+
+
+def train_launches(name: str) -> dict:
+    counts = dict(LOWCNN[name][1])
+    if "local_soft_argmin" in counts:
+        counts["local_soft_argmin_bwd"] = counts["local_soft_argmin"]
+    return counts
 # deform_sample's calls: the learned bounds' DeformConv (16 -> 16 channels at
 # 1/8 resolution) in LowCNN_dynamic eval (B=8, 576x960) and in the train
 # step (B=4, 320x640): (B, H, W, C, Co)
@@ -161,10 +222,41 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, match: str = "") -> float:
-    """Mean device time per call of ``fn``: the profiler's GPU events (the
-    kernels whose name contains ``match``, or every kernel, copy and fill
-    ``fn`` launches), without the host's launch overhead."""
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device time per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, the graph replayed ``replays`` times between two CUDA
+    events. A replay runs the captured kernels back to back with no host
+    work between them, so this is the device's time for kernels of any
+    size. No kernel time here comes from the profiler: on the H100 its
+    kernel durations read low under sustained load (``profiler_ms``,
+    recorded beside conv2d_s2's times in phase 12, shows by how much)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # outside the capture: cuDNN's plans, first allocations
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
+
+
+def profiler_ms(fn, reps: int, match: str) -> float:
+    """Mean device time per call of ``fn`` by the profiler's GPU events
+    whose name contains ``match``: recorded only to show how far it
+    strays from ``graph_ms``."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -173,12 +265,9 @@ def device_ms(fn, reps: int, match: str = "") -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(_device_us(e) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and match in e.key)
-    if total_us <= 0:
-        raise SmokeFailure(f"profiler saw no device time for {match or fn}")
-    return total_us / 1e3 / reps
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and match in e.key) / 1e3 / reps
 
 
 def _device_us(evt) -> float:
@@ -219,6 +308,8 @@ def reset_counts(ops) -> None:
     ops.conv2d_fused.launches = 0
     ops.conv2d_dw.launches = 0
     ops.deform_conv_fused.launches = 0
+    ops.conv2d_fused_s2.launches = 0
+    ops.take_rows.launches = 0
 
 
 def read_counts(ops) -> dict:
@@ -228,7 +319,9 @@ def read_counts(ops) -> dict:
             "local_soft_argmin_bwd": ops.local_soft_argmin.backward_launches,
             "conv2d_fused": ops.conv2d_fused.launches,
             "conv2d_dw": ops.conv2d_dw.launches,
-            "deform_sample": ops.deform_conv_fused.launches}
+            "deform_sample": ops.deform_conv_fused.launches,
+            "conv2d_s2": ops.conv2d_fused_s2.launches,
+            "row_gather": ops.take_rows.launches}
 
 
 def check_launches(label: str, got: dict, **want) -> None:
@@ -277,6 +370,8 @@ def main() -> int:
     err["conv2d_fused"] = check_conv_kernel(ops, rng)
     err["conv2d_dw"] = check_dw_kernel(ops, rng)
     err["deform_sample"] = check_deform_kernel(ops, rng)
+    err["conv2d_s2"] = check_s2_kernel(ops, rng)
+    err["row_gather"] = check_gather_kernel(ops, rng)
     record["max_abs_err"] = err
     record["backward_rel_err"] = check_conv_backward(ops, rng)
 
@@ -291,21 +386,33 @@ def main() -> int:
         ops, 4, record, "LowCNN_dynamic_supervised", "range_supervised",
         profile_it=True)
     launches["dynamic_train_step"] = dynamic_equal_step(ops, record)
+    for name in ("LowCNN", "LowCNN_simple", "LowCNN_ada", "LowCNN_gru2"):
+        launches[f"{name}_eval"] = eval_phase(ops, rng, record, name,
+                                              key=f"{name}_eval")
+    launches["LowCNN_ada_train_step"] = train_phase(
+        ops, 4, record, "LowCNN_ada", "equal", profile_it=True)
+    launches["LowCNN_gru2_train_step"] = train_phase(
+        ops, 4, record, "LowCNN_gru2", "sequence", profile_it=True)
     for batch in RAFT_BATCHES:
         launches["raft_eval"] = raft_eval_phase(
             ops, rng, batch, record, profile_it=batch == RAFT_BATCHES[0])
     launches["raft_train_step"] = raft_train_phase(ops, record)
+    launches["conv2d_s2_sites"] = s2_path(ops, rng, record)
+    launches["gather_probe"] = gather_probe_path(ops, record)
     record["launches"] = launches
 
     rows = kernel_rows(ops, rng, err, launches, record)
     rows.append(conv_row(ops, rng, err, launches, record))
     rows.append(dw_row(ops, rng, err, launches, record))
     rows.append(deform_row(ops, rng, err, launches, record))
+    rows.append(s2_row(ops, rng, err, launches, record))
+    rows.append(gather_row(ops, rng, err, launches, record))
     record["kernels"] = rows
     record["parity_vs_cpu"] = parity_vs_cpu()
     record["dynamic_parity_vs_cpu"] = dynamic_parity_vs_cpu()
     record["raft_parity_vs_cpu"] = raft_parity_vs_cpu()
     record["raft_train_parity_vs_cpu"] = raft_train_parity_vs_cpu()
+    record["family_parity_vs_cpu"] = family_parity_vs_cpu()
     record["seconds"] = time.perf_counter() - t_start
     print(f"all phases passed in {record['seconds']:.1f} s", flush=True)
 
@@ -670,14 +777,89 @@ def check_deform_kernel(ops, rng) -> float:
     return worst
 
 
+def s2_inputs(rng, B_, H_, W_, C, Co):
+    """x, w, b for conv2d_fused_s2: weights scaled by 1/sqrt(9 C)."""
+    return (randn(rng, B_, H_, W_, C), randn(rng, 3, 3, C, Co) / np.sqrt(9 * C),
+            0.1 * randn(rng, Co))
+
+
+def check_s2_kernel(ops, rng) -> float:
+    """Phase 3, conv2d_s2: conv2d_fused_s2 with and without ReLU against
+    the plain version on float64 copies, at RAFT's six stride-2 sites and
+    at edge shapes; its gradient (autograd of the plain version, cuDNN in
+    float32 with TF32 off) against float64 autograd. Returns the largest
+    absolute error of y."""
+    torch.backends.cudnn.allow_tf32 = False
+    # float32 sums of 9 C products in another order than float64's:
+    # relative to the largest |y| (or gradient)
+    rtol = 1e-5
+    worst = 0.0
+    print("conv2d_s2 vs plain in float64 (TF32 off):", flush=True)
+    for shape in list(RAFT_S2_CONVS.values()) + EDGE_S2_CONVS:
+        x, w, b = s2_inputs(rng, *shape)
+        want = ops.conv3x3_s2_plain(x.double(), w.double(), b.double())
+        top = want.abs().max().item()
+        for relu in (False, True):
+            got = ops.conv2d_fused_s2(x, w, b, relu)
+            worst = max(worst, compare(
+                f"conv2d_s2 {'relu' if relu else 'bare'} {shape}", got,
+                torch.relu(want) if relu else want, rtol * top))
+            del got
+        del x, w, b, want
+    x, w, b = s2_inputs(rng, *EDGE_S2_CONVS[0])
+    g = randn(rng, 2, 10, 24, 24)
+    got = [a.clone().requires_grad_(True) for a in (x, w, b)]
+    ops.conv2d_fused_s2(*got, True).backward(g)
+    ref = [a.double().requires_grad_(True) for a in (x, w, b)]
+    ops.conv3x3_s2_plain(*ref, True).backward(g.double())
+    for k, a, r in zip("xwb", got, ref):
+        compare(f"conv2d_s2 gradient d{k} {EDGE_S2_CONVS[0]}", a.grad,
+                r.grad, rtol * r.grad.abs().max().item())
+    torch.backends.cudnn.allow_tf32 = True
+    return worst
+
+
+def gather_inputs(rng):
+    """The probe's shape: img [8640, 64] and int32 row indices in range,
+    constant along each row (as the probe's) or not."""
+    img = randn(rng, 8640, 64)
+    rows = rng.integers(0, 8640, (8640, 1)).astype(np.int32)
+    probe = torch.from_numpy(np.broadcast_to(rows, (8640, 64)).copy()).cuda()
+    free = torch.from_numpy(rng.integers(0, 8640, (8640, 64)).astype(
+        np.int32)).cuda()
+    return img, probe, free
+
+
+def check_gather_kernel(ops, rng) -> float:
+    """Phase 3, row_gather: take_rows bit-equal to the plain version at the
+    probe's shape; an index out of range raises and launches nothing."""
+    print("row_gather vs plain (bit-equal):", flush=True)
+    img, probe, free = gather_inputs(rng)
+    for label, idx in (("rows", probe), ("elements", free)):
+        compare(f"row_gather {tuple(img.shape)} by {label}",
+                ops.take_rows(img, idx), ops.take_rows_plain(img, idx), 0.0)
+    bad = free.clone()
+    bad[5, 7] = 8640
+    n = ops.take_rows.launches
+    try:
+        ops.take_rows(img, bad)
+    except IndexError as exc:
+        print(f"  an index out of range raises: {exc}", flush=True)
+    else:
+        raise SmokeFailure("row_gather: an index out of range did not raise")
+    if ops.take_rows.launches != n:
+        raise SmokeFailure("row_gather: launched on an index out of range")
+    return 0.0
+
+
 def eval_phase(ops, rng, record, name: str = "LowCNN_gru",
                key: str = "eval") -> dict:
-    """Phases 4 and 6: the eval forward of LowCNN model ``name`` at full
-    size; returns its launch counts."""
+    """Phases 4, 6 and 8: the eval forward of LowCNN model ``name`` at
+    full size; returns its launch counts."""
     from stereoformer_tpu_torch.models import get_model
 
     H8, W8, D = H // 8, W // 8, 24
-    gru = name == "LowCNN_gru"
+    outputs, counts = LOWCNN[name]
     print(f"{name} eval {H}x{W} B={B} iters={ITERS} float32:", flush=True)
     model = get_model(name, device="cuda")
     left = randn(rng, B, H, W, 3)
@@ -692,15 +874,9 @@ def eval_phase(ops, rng, record, name: str = "LowCNN_gru",
     out = forward()
     launches = read_counts(ops)
     print(f"  launches in one forward: {launches}", flush=True)
-    if gru:
-        check_launches(f"{name} eval", launches, corr_band=1,
-                       local_soft_argmin=ITERS)
-    else:
-        check_launches(f"{name} eval", launches, corr_band=1,
-                       local_soft_argmin=1, deform_sample=1)
+    check_launches(f"{name} eval", launches, **counts)
     disps = out["disparities"]
-    if (out["disp_low"].shape != (B, H8, W8, 1)
-            or len(disps) != (ITERS if gru else 2)):
+    if out["disp_low"].shape != (B, H8, W8, 1) or len(disps) != outputs:
         raise SmokeFailure("unexpected output structure")
     for d in disps:
         if d.shape != (B, H, W, 1):
@@ -709,15 +885,17 @@ def eval_phase(ops, rng, record, name: str = "LowCNN_gru",
     lo, hi = stacked.min().item(), stacked.max().item()
     finite = bool(torch.isfinite(stacked).all()) and bool(
         torch.isfinite(out["disp_low"]).all())
-    # the GRU's candidates, and soft-argmin's expectation, lie in [0, D-1]
-    # coarse px; the convex upsample blends 8x of them with zero padding at
-    # the border. The learned bounds' candidates lie between the bounds:
-    # the supervised variant clamps them to [0, D]; the unsupervised one
-    # takes the offset net's two outputs as they come (both >= 0, in either
-    # order), so its refined disparity has no upper limit. Its lower limit
-    # is 0 up to float32 rounding of the candidates' steps.
-    top = {"LowCNN_gru": 8 * (D - 1), "LowCNN_dynamic_supervised": 8 * D}
-    top = top.get(name, float("inf"))
+    # the GRU's, the fixed and the variance refiners' candidates (which
+    # collapse to the current disparity where their range leaves [0, D-1)),
+    # and soft-argmin's expectation, lie in [0, D-1] coarse px; the convex
+    # upsample blends 8x of them with zero padding at the border. The
+    # learned bounds' candidates lie between the bounds: the supervised
+    # variant clamps them to [0, D]; the unsupervised one takes the offset
+    # net's two outputs as they come (both >= 0, in either order), so its
+    # refined disparity has no upper limit. Its lower limit is 0 up to
+    # float32 rounding of the candidates' steps.
+    top = {"LowCNN_dynamic": float("inf"),
+           "LowCNN_dynamic_supervised": 8 * D}.get(name, 8 * (D - 1))
     first_hi = disps[0].max().item()
     print(f"  outputs finite={finite}, range {lo:.3f}..{hi:.3f} px; the "
           f"first output's largest {first_hi:.3f} px", flush=True)
@@ -755,7 +933,7 @@ def train_batch(seed: int, batch: int, h: int, w: int) -> dict:
 
 def train_phase(ops, batch: int, record, name: str = "LowCNN_gru",
                 loss: str = "sequence", profile_it: bool = False) -> dict:
-    """Phases 5 and 7: the train step of LowCNN model ``name`` at full
+    """Phases 5, 7 and 8: the train step of LowCNN model ``name`` at full
     size with ``batch`` pairs and ``loss``; returns its launch counts per
     step."""
     from stereoformer_tpu_torch.models import get_model
@@ -781,13 +959,7 @@ def train_phase(ops, batch: int, record, name: str = "LowCNN_gru",
     state, m = step(state, data)
     launches = read_counts(ops)
     print(f"  launches in one step: {launches}", flush=True)
-    if name == "LowCNN_gru":
-        check_launches(f"{name} train step", launches, corr_band=1,
-                       local_soft_argmin=ITERS, local_soft_argmin_bwd=ITERS)
-    else:
-        check_launches(f"{name} train step", launches, corr_band=1,
-                       local_soft_argmin=1, local_soft_argmin_bwd=1,
-                       deform_sample=1)
+    check_launches(f"{name} train step", launches, **train_launches(name))
     curve = [float(m["loss"])]
     for _ in range(4):
         state, m = step(state, data)
@@ -860,9 +1032,8 @@ def dynamic_equal_step(ops, record) -> dict:
     loss = float(m["loss"])
     print(f"  launches in one step: {launches}; loss {loss:.4f}, grad_norm "
           f"{float(m['grad_norm']):.4f}", flush=True)
-    check_launches("LowCNN_dynamic train step", launches, corr_band=1,
-                   local_soft_argmin=1, local_soft_argmin_bwd=1,
-                   deform_sample=1)
+    check_launches("LowCNN_dynamic train step", launches,
+                   **train_launches("LowCNN_dynamic"))
     if not np.isfinite(loss):
         raise SmokeFailure(f"LowCNN_dynamic loss not finite: {loss}")
     record["LowCNN_dynamic_equal_step"] = {"loss": loss,
@@ -872,7 +1043,7 @@ def dynamic_equal_step(ops, record) -> dict:
 
 def raft_eval_phase(ops, rng, batch: int, record,
                     profile_it: bool = False) -> dict:
-    """Phase 8: RAFT_Stereo eval at full size with ``batch`` pairs; returns
+    """Phase 9: RAFT_Stereo eval at full size with ``batch`` pairs; returns
     its launch counts per forward."""
     from stereoformer_tpu_torch.models import get_model
 
@@ -922,7 +1093,7 @@ def raft_eval_phase(ops, rng, batch: int, record,
 
 
 def raft_train_phase(ops, record) -> dict:
-    """Phase 9: the RAFT train step at full size; returns its launch counts
+    """Phase 10: the RAFT train step at full size; returns its launch counts
     per step."""
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.train import (
@@ -1008,10 +1179,54 @@ def raft_train_phase(ops, record) -> dict:
     return launches
 
 
+def s2_path(ops, rng, record) -> dict:
+    """Phase 11: conv2d_fused_s2 at RAFT's six stride-2 sites, as the
+    encoders would call it (no ReLU: a norm follows each): launch counts,
+    shapes and finiteness."""
+    print("conv2d_fused_s2 at RAFT's stride-2 sites (B=2, 576x960):",
+          flush=True)
+    reset_counts(ops)
+    for where, shape in RAFT_S2_CONVS.items():
+        B_, H_, W_, _, Co = shape
+        x, w, b = s2_inputs(rng, *shape)
+        y = ops.conv2d_fused_s2(x, w, b)
+        if y.shape != (B_, H_ // 2, W_ // 2, Co) or not bool(
+                torch.isfinite(y).all()):
+            raise SmokeFailure(f"conv2d_s2 {where}: shape {tuple(y.shape)} "
+                               f"or values not finite")
+        del x, w, b, y
+    launches = read_counts(ops)
+    print(f"  launches: {launches}", flush=True)
+    check_launches("conv2d_s2 at RAFT's sites", launches,
+                   conv2d_s2=len(RAFT_S2_CONVS))
+    record["conv2d_s2_sites"] = {"launches": launches}
+    return launches
+
+
+def gather_probe_path(ops, record) -> dict:
+    """Phase 11: the row-gather probe as a user runs it
+    (``python -m stereoformer_tpu_torch.scripts.gather_probe``): one launch,
+    the result checked against numpy by the probe itself."""
+    from stereoformer_tpu_torch.scripts import gather_probe
+
+    print("row-gather probe:", flush=True)
+    reset_counts(ops)
+    out = gather_probe.main([])
+    launches = read_counts(ops)
+    print(f"  launches: {launches}", flush=True)
+    check_launches("gather probe", launches, row_gather=1)
+    if out.device.type != "cuda":
+        raise SmokeFailure("gather probe did not run on the card")
+    record["gather_probe"] = {"launches": launches}
+    return launches
+
+
 def kernel_rows(ops, rng, err, launches, record) -> list:
-    """Phase 10: each kernel at its main path's shapes: device time per
+    """Phase 12: each kernel at its main path's shapes: device time per
     launch (and per call of its wrapper, host overhead included), the plain
     version's device time, the bound."""
+    from stereoformer_tpu_torch import kernels
+
     dev = torch.device("cuda")
     D, S, C = 24, 21, 256
     eval_shape = (B, H // 8, W // 8)
@@ -1021,10 +1236,10 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
         feats_l, feats_r = randn(rng, *shape, C), randn(rng, *shape, C)
         npix = int(np.prod(shape))
         band = shape[0] * shape[1] * (D * shape[2] - D * (D - 1) // 2)
-        return ((2 * npix * C + npix * D) * 4, 2 * C * band,
-                lambda: ops.correlation_volume(feats_l, feats_r, D),
+        kern = lambda: ops.correlation_volume(feats_l, feats_r, D)  # noqa: E731
+        return ((2 * npix * C + npix * D) * 4, 2 * C * band, kern,
                 lambda: ops.correlation_volume_plain(feats_l, feats_r, D),
-                50, 5)
+                50, 5, kern)
 
     def local_work(shape):
         vol = randn(rng, *shape, D)
@@ -1032,9 +1247,9 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
         npix = int(np.prod(shape))
         # ~20 operations per candidate: clip, floor, two hat taps, max, exp,
         # sums (csrc/local_soft_argmin.cu)
-        return (npix * (D + S + 1) * 4, 20 * npix * S,
-                lambda: ops.local_soft_argmin(vol, cands),
-                lambda: ops.local_soft_argmin_plain(vol, cands), 200, 20)
+        kern = lambda: ops.local_soft_argmin(vol, cands)  # noqa: E731
+        return (npix * (D + S + 1) * 4, 20 * npix * S, kern,
+                lambda: ops.local_soft_argmin_plain(vol, cands), 200, 20, kern)
 
     def bwd_work(shape):
         vol = randn(rng, *shape, D).requires_grad_(True)
@@ -1043,13 +1258,22 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
         g = randn(rng, *shape, 1)
         out = ops.local_soft_argmin(vol, cands)
         npix = int(np.prod(shape))
+        dvol, dcand = torch.empty_like(vol), torch.empty_like(cands)
+
+        def launch():
+            # the kernel alone, as _LocalSoftArgmin.backward launches it (an
+            # autograd backward cannot be captured from a side stream)
+            kernels.launch("local_soft_argmin_bwd", dev, vol.data_ptr(),
+                           cands.data_ptr(), g.data_ptr(), dvol.data_ptr(),
+                           dcand.data_ptr(), npix, D, S)
+
         # reads vol, cand, g; writes dvol, dcand. ~35 operations per
         # candidate: the forward's, then the softmax VJP and four hat terms
         return (npix * (2 * D + 2 * S + 1) * 4, 35 * npix * S,
                 lambda: torch.autograd.grad(out, (vol, cands), g,
                                             retain_graph=True),
                 lambda: ops.local_soft_argmin_backward_plain(
-                    vol.detach(), cands.detach(), g), 200, 20)
+                    vol.detach(), cands.detach(), g), 200, 20, launch)
 
     # the forward kernels at the eval shapes (slice 1's main path) and at
     # the train shapes; the backward at the train shapes and the eval shapes
@@ -1060,14 +1284,14 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
     for name, (make, main_shape, other_shape) in work.items():
         times = {}
         for shape in (main_shape, other_shape):
-            nbytes, nops, kern, plain, reps, plain_reps = make(shape)
+            nbytes, nops, kern, plain, reps, plain_reps, timed = make(shape)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / F32_FLOPS_PER_S * 1e3
             # each timed function launches its own kernel only
             times[shape] = {
-                "ms": device_ms(kern, reps, match=name),
+                "ms": graph_ms(timed, reps),
                 "call_ms": time_ms(kern, reps),
-                "plain_ms": device_ms(plain, plain_reps),
+                "plain_ms": graph_ms(plain, plain_reps),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "mb": nbytes / 1e6,
@@ -1099,7 +1323,7 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
     g = randn(rng, *shape, D)
     npix = int(np.prod(shape))
     nbytes = (4 * npix * C + npix * D) * 4
-    ms = device_ms(lambda: ops.correlation_volume_backward(left, right, g), 20)
+    ms = graph_ms(lambda: ops.correlation_volume_backward(left, right, g), 20)
     record["corr_band_backward"] = {
         "shape": list(shape), "ms": ms, "mb": nbytes / 1e6,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -1110,7 +1334,7 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
 
 
 def conv_row(ops, rng, err, launches, record) -> dict:
-    """Phase 10, conv2d_fused at RAFT's four eval shapes: device time of the
+    """Phase 12, conv2d_fused at RAFT's four eval shapes: device time of the
     variant each encoder runs most (the feature net's prologue+stats, the
     context net's prologue), the plain version's (its conv in cuDNN with
     TF32 off, float32 as the kernel), cuDNN's F.conv2d with bias (TF32 off
@@ -1132,9 +1356,9 @@ def conv_row(ops, rng, err, launches, record) -> dict:
         t_ops = nops / F32_FLOPS_PER_S * 1e3
         row = {"variant": variant, "shape": [B_, H_, W_, C, C],
                "gflop": nops / 1e9, "mb": nbytes / 1e6,
-               "ms": device_ms(kern, 10),
+               "ms": graph_ms(kern, 10),
                "call_ms": time_ms(kern, 10),
-               "plain_ms": device_ms(
+               "plain_ms": graph_ms(
                    lambda: ops.conv3x3_plain(x, w, b, **kw), 5),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1143,7 +1367,7 @@ def conv_row(ops, rng, err, launches, record) -> dict:
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = device_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
+            row[key] = graph_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
         print(f"  conv2d_fused {variant} {where} {row['shape']}: "
@@ -1176,7 +1400,7 @@ def conv_row(ops, rng, err, launches, record) -> dict:
 
 
 def dx_times(ops, rng) -> dict:
-    """Phase 10, conv2d_fused as the backward's dx conv at RAFT's four
+    """Phase 12, conv2d_fused as the backward's dx conv at RAFT's four
     training shapes (the cotangent with the flipped, io-transposed weights
     and no bias): its device time, the plain version's, cuDNN's
     conv2d_input for the same gradient (TF32 off and on), and the bounds."""
@@ -1199,16 +1423,16 @@ def dx_times(ops, rng) -> dict:
             return ops.conv2d_fused(g, w_rot, zero, None, False)
 
         row = {"shape": [B_, H_, W_, C, C], "gflop": nops / 1e9,
-               "mb": nbytes / 1e6, "ms": device_ms(kern, 10),
+               "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
                "call_ms": time_ms(kern, 10),
-               "plain_ms": device_ms(
+               "plain_ms": graph_ms(
                    lambda: ops.conv3x3_plain(g, w_rot, zero), 5),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = device_ms(
+            row[key] = graph_ms(
                 lambda: conv2d_input((B_, C, H_, W_), wc, gc, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
@@ -1224,7 +1448,7 @@ def dx_times(ops, rng) -> dict:
 
 
 def dw_row(ops, rng, err, launches, record) -> dict:
-    """Phase 10, conv2d_dw at RAFT's four training shapes: its device time
+    """Phase 12, conv2d_dw at RAFT's four training shapes: its device time
     (both kernels), the plain version's (nine float32 einsums), cuDNN's
     conv2d_weight for the same gradient (TF32 off and on), and the bound:
     x and g read, dw written, or float32 operations."""
@@ -1244,16 +1468,16 @@ def dw_row(ops, rng, err, launches, record) -> dict:
             return ops.conv2d_dw(x, g)
 
         row = {"shape": [B_, H_, W_, C, C], "gflop": nops / 1e9,
-               "mb": nbytes / 1e6, "ms": device_ms(kern, 10),
+               "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
                "call_ms": time_ms(kern, 10),
-               "plain_ms": device_ms(lambda: ops.conv2d_dw_plain(x, g), 3),
+               "plain_ms": graph_ms(lambda: ops.conv2d_dw_plain(x, g), 3),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3)}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = device_ms(
+            row[key] = graph_ms(
                 lambda: conv2d_weight(xc, (C, C, 3, 3), gc, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
@@ -1283,13 +1507,15 @@ def dw_row(ops, rng, err, launches, record) -> dict:
 
 
 def deform_row(ops, rng, err, launches, record) -> dict:
-    """Phase 10, deform_sample at the learned bounds' eval and train shapes:
+    """Phase 12, deform_sample at the learned bounds' eval and train shapes:
     the kernel's device time, the wrapper's (its matmul G = x . W_k and the
     kernel), the plain version's (the windowed form, matmul included), and
     torchvision's deform_conv2d on pre-clamped offsets where torchvision
     imports (the same function, matmul included); the bound is the
     kernel's: G, the offsets and the mask read once, the output written
     once, or four corner FMAs per tap and output channel in float32."""
+    from stereoformer_tpu_torch import kernels
+
     try:
         import torchvision.ops as tv_ops
     except ImportError:
@@ -1307,11 +1533,21 @@ def deform_row(ops, rng, err, launches, record) -> dict:
         def kern():
             return ops.deform_conv_fused(x, off, mask, w)
 
+        # the kernel alone, on the wrapper's G = x . W_k
+        G = torch.matmul(x.reshape(-1, C), w.reshape(K, C, Co).permute(
+            1, 0, 2).reshape(C, K * Co))
+        out = x.new_empty((B_, H_, W_, Co))
+
+        def launch():
+            kernels.launch("deform_sample", x.device, G.data_ptr(),
+                           off.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                           B_, H_, W_, H_, W_, 3, Co, 1, 1, 2)
+
         row = {"shape": list(shape), "mb": nbytes / 1e6,
-               "ms": device_ms(kern, 50, match="deform_sample_kernel"),
-               "wrapper_ms": device_ms(kern, 50),
+               "ms": graph_ms(launch, 50),
+               "wrapper_ms": graph_ms(kern, 50),
                "call_ms": time_ms(kern, 50),
-               "plain_ms": device_ms(
+               "plain_ms": graph_ms(
                    lambda: ops.modulated_deform_conv_windowed(x, off, mask,
                                                               w), 5),
                "bound_ms": max(t_bytes, t_ops),
@@ -1328,7 +1564,7 @@ def deform_row(ops, rng, err, launches, record) -> dict:
                 return tv_ops.deform_conv2d(xc, offc, wc, padding=(1, 1),
                                             mask=mc)
 
-            row["library_ms"] = device_ms(lib, 20)
+            row["library_ms"] = graph_ms(lib, 20)
             row["library_max_abs_diff"] = (
                 lib().permute(0, 2, 3, 1) - kern()).abs().max().item()
         times[where] = row
@@ -1341,7 +1577,7 @@ def deform_row(ops, rng, err, launches, record) -> dict:
               f"{row['wrapper_ms'] * 1e3:.1f} us, {row['call_ms'] * 1e3:.1f} "
               f"us per wrapper call; plain {row['plain_ms'] * 1e3:.1f} us; "
               f"{lib_text}", flush=True)
-        del x, off, mask, w
+        del x, off, mask, w, G, out
     record["kernel_times"]["deform_sample"] = times
     main = times["eval"]
     route, source, replaces = KERNELS["deform_sample"]
@@ -1359,7 +1595,117 @@ def deform_row(ops, rng, err, launches, record) -> dict:
     }
 
 
-def moderate_weights(name: str) -> dict:
+def s2_row(ops, rng, err, launches, record) -> dict:
+    """Phase 12, conv2d_s2 at RAFT's six stride-2 sites: the kernel's device
+    time, the plain version's (cuDNN, TF32 off), one F.conv2d with stride 2
+    and bias (TF32 off and on), and the bounds: x read, w and b read, y
+    written, or float32 operations (and those at the TF32 rate)."""
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    times = {}
+    for where, shape in RAFT_S2_CONVS.items():
+        B_, H_, W_, C, Co = shape
+        x, w, b = s2_inputs(rng, *shape)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        npix = B_ * (H_ // 2) * (W_ // 2)
+        nbytes = (B_ * H_ * W_ * C + 9 * C * Co + Co + npix * Co) * 4
+        nops = 2 * 9 * C * Co * npix
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_FLOPS_PER_S * 1e3
+
+        def kern():
+            return ops.conv2d_fused_s2(x, w, b)
+
+        row = {"shape": list(shape), "gflop": nops / 1e9, "mb": nbytes / 1e6,
+               "ms": graph_ms(kern, 10),
+               "profiler_ms": profiler_ms(kern, 10, "conv3x3_s2_kernel"),
+               "call_ms": time_ms(kern, 10),
+               "plain_ms": graph_ms(
+                   lambda: ops.conv3x3_s2_plain(x, w, b), 5),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3)}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            key = "library_tf32_ms" if tf32 else "library_ms"
+            row[key] = graph_ms(
+                lambda: F.conv2d(xc, wc, b, stride=2, padding=1), 10)
+        torch.backends.cudnn.allow_tf32 = False
+        times[where] = row
+        print(f"  conv2d_s2 {where} {row['shape']}: {row['ms']:.3f} ms on the "
+              f"device ({nops / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+              f"{row['bound_ms']:.3f} ms float32 by {row['bound_by']}, "
+              f"{row['bound_tf32_ms']:.3f} ms TF32; {row['call_ms']:.3f} ms "
+              f"per wrapper call (the profiler: {row['profiler_ms']:.3f} ms "
+              f"on the device); plain {row['plain_ms']:.3f} ms; cuDNN "
+              f"F.conv2d stride 2 + bias {row['library_ms']:.3f} ms (TF32 "
+              f"off), {row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        del x, w, b, xc, wc
+    torch.backends.cudnn.allow_tf32 = True
+    record["kernel_times"]["conv2d_s2"] = times
+    main = times["fnet layer2"]
+    route, source, replaces = KERNELS["conv2d_s2"]
+    return {
+        "name": "conv2d_s2", "route": route, "source": source,
+        "replaces": replaces,
+        "launches": launches["conv2d_s2_sites"]["conv2d_s2"],
+        "launches_by_path": {p: c["conv2d_s2"] for p, c in launches.items()},
+        "max_abs_err": err["conv2d_s2"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library_tf32_ms": main["library_tf32_ms"],
+        "bound_tf32_ms": main["bound_tf32_ms"], "shape": main["shape"],
+    }
+
+
+def gather_row(ops, rng, err, launches, record) -> dict:
+    """Phase 12, row_gather at the probe's shape (indices constant along
+    each row): the kernel's device time, the wrapper's per call (its range
+    check included), the plain version's, torch.gather's on the indices as
+    int64 (converted once, outside the timing), and the bound: img, idx read
+    once and out written once."""
+    from stereoformer_tpu_torch import kernels
+
+    img, idx, _ = gather_inputs(rng)
+    idx64 = idx.long()
+    out = torch.empty_like(img)
+    nbytes = 3 * img.numel() * 4
+
+    def launch():
+        # the kernel alone, as take_rows launches it after its range check
+        # (a host sync, which a CUDA graph cannot capture)
+        kernels.launch("row_gather", img.device, img.data_ptr(),
+                       idx.data_ptr(), out.data_ptr(), *img.shape[:1],
+                       *idx.shape)
+
+    row = {"shape": list(img.shape), "mb": nbytes / 1e6,
+           "ms": graph_ms(launch, 200),
+           "call_ms": time_ms(lambda: ops.take_rows(img, idx), 200),
+           "plain_ms": graph_ms(lambda: ops.take_rows_plain(img, idx), 50),
+           "library_ms": graph_ms(lambda: torch.gather(img, 0, idx64), 200),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(f"  row_gather {row['shape']}: {row['ms'] * 1e3:.2f} us on the "
+          f"device (bound {row['bound_ms'] * 1e3:.2f} us by bytes, "
+          f"{row['mb']:.2f} MB), {row['call_ms'] * 1e3:.1f} us per wrapper "
+          f"call (with its range check); plain {row['plain_ms'] * 1e3:.1f} "
+          f"us; torch.gather {row['library_ms'] * 1e3:.2f} us", flush=True)
+    record["kernel_times"]["row_gather"] = row
+    route, source, replaces = KERNELS["row_gather"]
+    return {
+        "name": "row_gather", "route": route, "source": source,
+        "replaces": replaces,
+        "launches": launches["gather_probe"]["row_gather"],
+        "launches_by_path": {p: c["row_gather"] for p, c in launches.items()},
+        "max_abs_err": err["row_gather"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": "bytes", "library_ms": row["library_ms"],
+        "call_ms": row["call_ms"], "shape": row["shape"],
+    }
+
+
+def moderate_weights(name: str, **kwargs) -> dict:
     """Seeded weights (seed 1) with the conv weights scaled to
     sqrt(1.25/fan): they keep the softmaxes neither flat nor one-hot;
     he-normal weights make them nearly one-hot, and float32 rounding then
@@ -1368,7 +1714,7 @@ def moderate_weights(name: str) -> dict:
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.weights import seeded_state_dict
 
-    sd = seeded_state_dict(get_model(name, device="cpu"), seed=1)
+    sd = seeded_state_dict(get_model(name, device="cpu", **kwargs), seed=1)
     sd = {k: v * np.sqrt(1.25 / 2.0) if v.dim() == 4 else v
           for k, v in sd.items()}
     orng = np.random.default_rng(8)
@@ -1451,7 +1797,7 @@ def train_step_parity(name: str, sd: dict, batch: dict, iters: int,
 
 
 def parity_vs_cpu() -> dict:
-    """Phase 11: the card against the port on the CPU at 64x256, TF32 off,
+    """Phase 13: the card against the port on the CPU at 64x256, TF32 off,
     moderate weights (``moderate_weights``): the eval forward and one train
     step."""
     from stereoformer_tpu_torch.models import get_model
@@ -1490,7 +1836,7 @@ def parity_vs_cpu() -> dict:
 
 
 def dynamic_parity_vs_cpu() -> dict:
-    """Phase 11, the learned bounds: LowCNN_dynamic_supervised on the card
+    """Phase 13, the learned bounds: LowCNN_dynamic_supervised on the card
     (deform_sample in the forward) against the port on the CPU at 64x256,
     TF32 off, moderate weights with a nonzero offset conv: the eval outputs
     (both disparities, disp_low and the bounds) and one range_supervised
@@ -1538,7 +1884,7 @@ def dynamic_parity_vs_cpu() -> dict:
 
 
 def raft_parity_vs_cpu() -> dict:
-    """Phase 11, RAFT eval: the card against the port on the CPU at 64x128,
+    """Phase 13, RAFT eval: the card against the port on the CPU at 64x128,
     12 iterations, TF32 off, moderate weights as for LowCNN."""
     from stereoformer_tpu_torch.models import get_model
 
@@ -1572,7 +1918,7 @@ def raft_parity_vs_cpu() -> dict:
 
 
 def raft_train_parity_vs_cpu() -> dict:
-    """Phase 11, RAFT training: one train step on the card (its fused convs'
+    """Phase 13, RAFT training: one train step on the card (its fused convs'
     forward, dx and dw on the kernels) against the port on the CPU at
     64x128, B=2, 2 iterations, TF32 off, moderate weights. The updated
     parameters are held as tests/test_torch_raft_train.py holds the port
@@ -1590,6 +1936,52 @@ def raft_train_parity_vs_cpu() -> dict:
           "off:", flush=True)
     parity = train_step_parity("RAFT_Stereo", moderate_weights("RAFT_Stereo"),
                                batch, iters=2, param_tol=2e-6, min_share=0.85)
+    torch.backends.cudnn.allow_tf32 = True
+    return parity
+
+
+def family_parity_vs_cpu() -> dict:
+    """Phase 13, the rest of the family: LowCNN_gru2 on the card against the
+    port on the CPU at 64x256, TF32 off, moderate weights: the eval forward
+    (12 iterations) and one sequence train step (2 iterations); and the
+    eval forward of LowCNN with the concat volume and the simple
+    upsample."""
+    from stereoformer_tpu_torch.models import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srng = np.random.default_rng(9)
+    li, ri = (torch.from_numpy(srng.standard_normal((2, 64, 256, 3),
+                                                    dtype=np.float32))
+              for _ in range(2))
+    gt = torch.from_numpy(
+        (40 + 10 * srng.standard_normal((2, 64, 256, 1))).astype(np.float32))
+    parity, weights = {}, {}
+    for label, name, kw in (
+            ("LowCNN_gru2", "LowCNN_gru2", {}),
+            ("LowCNN concat volume, simple upsample", "LowCNN",
+             {"cost_volume": "concat", "upsample": "simple"})):
+        weights[label] = sd = moderate_weights(name, **kw)
+        outs = {}
+        for where in ("cpu", "cuda"):
+            m = get_model(name, device=where, **kw)
+            m.load_state_dict(sd)
+            with torch.inference_mode():
+                o = m(li.to(where), ri.to(where), iters=ITERS)
+            outs[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
+        print(f"{label}, card vs CPU port at 64x256, TF32 off:", flush=True)
+        # f32 on both, sums in other orders; the GRU's last disparity has
+        # been through 12 steps
+        parity[label] = {
+            "disp_low_px": compare("eval disp_low", outs["cuda"][0],
+                                   outs["cpu"][0], 1e-3),
+            "last_disparity_px": compare("eval last disparity",
+                                         outs["cuda"][1], outs["cpu"][1],
+                                         5e-3)}
+    parity["LowCNN_gru2"].update(train_step_parity(
+        "LowCNN_gru2", weights["LowCNN_gru2"],
+        {"img_left": li, "img_right": ri, "gt_disp": gt}, iters=2,
+        param_tol=1e-6, min_share=0.95))
     torch.backends.cudnn.allow_tf32 = True
     return parity
 

@@ -6,9 +6,10 @@ Usage:
       --out disp.pfm [--weights model.pth] [--net NAME] [--iters 12] \\
       [--device cuda]
 
-``--net`` is a name of the port's registry: ``LowCNN_gru`` (the default),
-``LowCNN_dynamic``, ``LowCNN_dynamic_supervised`` or ``RAFT_Stereo``;
-``--iters`` is ignored by the learned-bounds models, which refine once.
+``--net`` is a name of the port's registry (``models.available_models()``):
+``LowCNN_gru`` (the default), ``LowCNN_gru2``, ``LowCNN``, ``LowCNN_simple``,
+``LowCNN_ada``, ``LowCNN_dynamic``, ``LowCNN_dynamic_supervised`` or
+``RAFT_Stereo``; ``--iters`` is read only by the GRU models and RAFT.
 ``--weights`` takes a port or reference PyTorch ``state_dict``; without it
 the weights are random (seed 0). Images are read as 8-bit RGB and
 ImageNet-normalised, the convention every registered model takes. Runs on

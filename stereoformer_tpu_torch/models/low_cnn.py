@@ -1,23 +1,35 @@
-"""LowCNN, float32: the GRU refinement (``LowCNN_gru``) and the learned
-bounds (``LowCNN_dynamic``, ``LowCNN_dynamic_supervised``).
+"""LowCNN, float32: every refinement of the family.
 
-Counterpart of ``stereoformer_tpu/models/low_cnn.py::LowCNN`` with
-``refinement`` one of "gru", "learned" and "learned_supervised": a siamese
-backbone and FPN to 1/8, the 24-bin correlation volume, three aggregation
-ResBlocks and soft-argmin, then
+Counterpart of ``stereoformer_tpu/models/low_cnn.py::LowCNN``: a siamese
+backbone and FPN to 1/8, a 24-bin cost volume (``cost_volume=
+"correlation"``, or "concat": the [B, H, W, D, 2C] concat volume projected
+to one score per bin by ``concat_proj1``, ReLU and ``concat_proj2``), three
+aggregation ResBlocks and soft-argmin, then by ``refinement``:
 
-- "gru": ``iters`` GRU refinement steps, each convex-upsampled 8x with its
-  own mask;
-- "learned" / "learned_supervised": one learned-bounds refinement
+- "none" (``LowCNN_simple``): [disp_low] upsampled;
+- "fixed" (``LowCNN``) and "variance" (``LowCNN_ada``): one local
+  soft-argmin in disp_low -/+ ``radius``, or -/+ ``gamma`` times the root
+  variance of the volume's softmax -> [disp_low, refined] upsampled;
+- "gru" (``LowCNN_gru``) and "gru_feature" (``LowCNN_gru2``, its GRU also
+  reading the encoded left feature): ``iters`` GRU refinement steps, each
+  upsampled with its own mask;
+- "learned" / "learned_supervised" (``LowCNN_dynamic``,
+  ``LowCNN_dynamic_supervised``): one learned-bounds refinement
   (``nn/update.py::LearnedBounds``, its offset net running a deformable
   conv) from the full-resolution images, the bounds absolute or around
-  the current disparity; ``disp_low`` and the refined disparity are both
-  upsampled with one convex mask from the left feature
-  (``ConvAffinityUpsample``). ``iters`` is ignored.
+  the current disparity -> [disp_low, refined] upsampled.
+
+``upsample="convex"`` takes the learned convex 8x upsample: the GRU step's
+own mask, or for the other refinements one mask from the left feature
+(``ConvAffinityUpsample``, built only then); "simple" the bilinear one
+(the GRU step's mask head is then built, as in JAX, but unread). The
+non-GRU refinements ignore ``iters``.
 
 Submodule names follow the reference ``state_dict`` keys
 (``correlation_aggreagtion`` is the reference's spelling), so reference
-checkpoints load as they are.
+checkpoints load as they are; the modules the reference keys do not name
+are named after the JAX modules (``concat_proj1``, ``concat_proj2``,
+``feature_encode``).
 
 ``model.train()`` normalises with batch statistics and moves the running
 ones (``nn/norm.py``); gradients flow through every refinement step, the
@@ -32,13 +44,18 @@ from torch import nn
 from ..nn import ConvLReLU, FPNFusion, GRUUpdate, LearnedBounds, ResBlock
 from ..nn.conv import Conv
 from ..ops import (
+    concat_volume,
     correlation_volume,
+    fixed_local_cost_volume,
     resize_bilinear,
     soft_argmin,
     upsample_convex8,
+    upsample_simple8,
+    variance_local_cost_volume,
 )
 
-REFINEMENTS = ("gru", "learned", "learned_supervised")
+REFINEMENTS = ("none", "fixed", "variance", "gru", "gru_feature", "learned",
+               "learned_supervised")
 
 
 class ConvAffinityUpsample(nn.Module):
@@ -58,14 +75,29 @@ class ConvAffinityUpsample(nn.Module):
 
 class LowCNN(nn.Module):
     def __init__(self, max_disp: int = 192, refinement: str = "gru",
-                 num_samples: int = 20, gru_hidden: int = 32):
+                 upsample: str = "convex", cost_volume: str = "correlation",
+                 num_samples: int = 20, gru_hidden: int = 32,
+                 radius: float = 2.0, gamma: float = 1.0, dtype=None,
+                 loop: str = "unroll"):
         super().__init__()
         if refinement not in REFINEMENTS:
+            raise ValueError(f"unknown refinement {refinement!r}; one of "
+                             f"{REFINEMENTS}")
+        if upsample not in ("convex", "simple"):
+            raise ValueError(f"unknown upsample {upsample!r}")
+        if cost_volume not in ("correlation", "concat", "concated"):
+            raise ValueError(f"unknown cost_volume {cost_volume!r}")
+        if loop != "unroll":
             raise NotImplementedError(
-                f"refinement {refinement!r} is not yet ported (the rest of "
-                f"the LowCNN family comes in a later slice); ported: "
-                f"{REFINEMENTS}")
-        self.refinement = refinement
+                f"loop={loop!r} is not ported: it is the JAX package's "
+                f"compile device; the port's GRU loop is always unrolled")
+        if dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"dtype={dtype!r} is not ported yet (bf16 comes in a later "
+                f"slice); the port computes in float32")
+        self.refinement, self.upsample = refinement, upsample
+        self.concat = cost_volume != "correlation"
+        self.num_samples, self.radius, self.gamma = num_samples, radius, gamma
         self.num_bins = max_disp // 8
         self.conv1 = ConvLReLU(3, 64, 7, 2)
         self.conv2 = ResBlock(64, 128, stride=2)
@@ -74,13 +106,19 @@ class LowCNN(nn.Module):
         self.downsample2 = ResBlock(256, 512, stride=2)
         self.downsample3 = ResBlock(512, 512, stride=2)
         self.feature_concated = FPNFusion((512, 512, 256))
+        if self.concat:
+            self.concat_proj1 = nn.Linear(512, 64)
+            self.concat_proj2 = nn.Linear(64, 1)
         self.correlation_aggreagtion = nn.ModuleList(
             ResBlock(self.num_bins, self.num_bins) for _ in range(3))
-        if refinement == "gru":
-            self.local_cost_volume = GRUUpdate(self.num_bins, gru_hidden,
-                                               num_samples)
-        else:
+        if refinement in ("gru", "gru_feature"):
+            self.local_cost_volume = GRUUpdate(
+                self.num_bins, gru_hidden, num_samples,
+                feature_dim=64 if refinement == "gru_feature" else 0)
+            return
+        if upsample == "convex":
             self.upsample_mask = ConvAffinityUpsample()
+        if refinement.startswith("learned"):
             self.local_cost_volume = LearnedBounds(
                 self.num_bins, num_samples,
                 relative=refinement == "learned_supervised")
@@ -91,9 +129,10 @@ class LowCNN(nn.Module):
         of 8.
 
         Returns {"disparities": [B, H, W, 1] each (``iters`` of them for
-        "gru", [initial, refined] for the learned bounds),
-        "disp_low": [B, H/8, W/8, 1]}, and for "learned_supervised"
-        "bounds": (lower, upper) [B, H/8, W/8, 1] each."""
+        the GRU refinements, [disp_low] for "none", [initial, refined]
+        for the others), "disp_low": [B, H/8, W/8, 1]}, and for
+        "learned_supervised" "bounds": (lower, upper) [B, H/8, W/8, 1]
+        each."""
         B = left.shape[0]
         # one backbone pass over the stacked pair, as the JAX model does
         x = torch.cat([left, right], dim=0).permute(0, 3, 1, 2)
@@ -103,8 +142,13 @@ class LowCNN(nn.Module):
         f32 = self.downsample3(f16)
         fused = self.feature_concated([f32, f16, f8])
         feats = fused.permute(0, 2, 3, 1)
-        volume = correlation_volume(feats[:B].contiguous(),
-                                    feats[B:].contiguous(), self.num_bins)
+        if self.concat:
+            cvol = concat_volume(feats[:B], feats[B:], self.num_bins)
+            volume = self.concat_proj2(
+                torch.relu(self.concat_proj1(cvol)))[..., 0]
+        else:
+            volume = correlation_volume(feats[:B].contiguous(),
+                                        feats[B:].contiguous(), self.num_bins)
 
         v = volume.permute(0, 3, 1, 2)
         for block in self.correlation_aggreagtion:
@@ -113,17 +157,43 @@ class LowCNN(nn.Module):
         disp_low = soft_argmin(volume)[..., None]
         out = {"disp_low": disp_low}
 
-        if self.refinement != "gru":
-            mask = self.upsample_mask(fused[:B])
+        if self.refinement in ("gru", "gru_feature"):
+            lf = fused[:B] if self.refinement == "gru_feature" else None
+            out["disparities"] = self._gru(volume, disp_low, left, right, lf,
+                                           iters)
+            return out
+
+        mask = (self.upsample_mask(fused[:B]) if self.upsample == "convex"
+                else None)
+        if self.refinement == "none":
+            out["disparities"] = [self._up(disp_low, mask)]
+            return out
+        if self.refinement == "fixed":
+            refined = fixed_local_cost_volume(volume, disp_low, self.radius,
+                                              self.num_samples,
+                                              consider_valid=True)
+        elif self.refinement == "variance":
+            refined = variance_local_cost_volume(volume, disp_low, self.gamma,
+                                                 self.num_samples,
+                                                 consider_valid=True)
+        else:
             refined, bounds = self.local_cost_volume(
                 volume, disp_low, left, right,
                 consider_valid=self.refinement == "learned")
             if self.refinement == "learned_supervised":
                 out["bounds"] = bounds
-            out["disparities"] = [upsample_convex8(disp_low, mask),
-                                  upsample_convex8(refined, mask)]
-            return out
+        out["disparities"] = [self._up(disp_low, mask),
+                              self._up(refined, mask)]
+        return out
 
+    def _up(self, disp, mask):
+        if self.upsample == "convex":
+            return upsample_convex8(disp, mask)
+        return upsample_simple8(disp)
+
+    def _gru(self, volume, disp_low, left, right, left_feature, iters):
+        """The GRU refinements' ``iters`` upsampled disparities;
+        ``left_feature`` [B, 256, H/8, W/8] for "gru_feature", else None."""
         H8, W8 = volume.shape[1:3]
         left8 = resize_bilinear(left, (H8, W8), align_corners=False)
         right8 = resize_bilinear(right, (H8, W8), align_corners=False)
@@ -131,7 +201,6 @@ class LowCNN(nn.Module):
         disp, hidden, preds = disp_low, None, []
         for _ in range(iters):
             disp, hidden, mask = self.local_cost_volume(
-                volume, disp, left8, right8, hidden, prob)
-            preds.append(upsample_convex8(disp, mask))
-        out["disparities"] = preds
-        return out
+                volume, disp, left8, right8, hidden, prob, left_feature)
+            preds.append(self._up(disp, mask))
+        return preds

@@ -1,8 +1,9 @@
 """Model registry of the port: names -> models on a device.
 
 Counterpart of ``stereoformer_tpu/models/registry.py``. Only the names this
-port has reached are here (``LowCNN_gru``, ``LowCNN_dynamic``,
-``LowCNN_dynamic_supervised``, ``RAFT_Stereo``); the others raise.
+port has reached are here (the LowCNN family: ``LowCNN``, ``LowCNN_simple``,
+``LowCNN_ada``, ``LowCNN_dynamic``, ``LowCNN_dynamic_supervised``,
+``LowCNN_gru``, ``LowCNN_gru2``; and ``RAFT_Stereo``); the others raise.
 """
 
 from __future__ import annotations
@@ -34,7 +35,11 @@ def _lowcnn(refinement):
 
 # name -> (constructor, the fan its seeded conv weights are scaled by, as
 # the JAX model's init: he-normal over fan-in for LowCNN, fan-out for RAFT)
-_PORTED = {"LowCNN_gru": (_lowcnn("gru"), "fan_in"),
+_PORTED = {"LowCNN": (_lowcnn("fixed"), "fan_in"),
+           "LowCNN_simple": (_lowcnn("none"), "fan_in"),
+           "LowCNN_ada": (_lowcnn("variance"), "fan_in"),
+           "LowCNN_gru": (_lowcnn("gru"), "fan_in"),
+           "LowCNN_gru2": (_lowcnn("gru_feature"), "fan_in"),
            "LowCNN_dynamic": (_lowcnn("learned"), "fan_in"),
            "LowCNN_dynamic_supervised": (_lowcnn("learned_supervised"),
                                          "fan_in"),

@@ -1,5 +1,6 @@
-"""The refinement heads of LowCNN: the GRU step of LowCNN_gru and the
-learned bounds of LowCNN_dynamic and LowCNN_dynamic_supervised.
+"""The refinement heads of LowCNN: the GRU step of LowCNN_gru (and its v2
+of LowCNN_gru2) and the learned bounds of LowCNN_dynamic and
+LowCNN_dynamic_supervised.
 
 Counterparts of ``stereoformer_tpu/nn/update.py`` (``_images_at``,
 ``GuidanceEncoder``, ``OffsetHead``, ``GRUUpdate``, ``SmallUNet``,
@@ -92,24 +93,40 @@ class OffsetHead(nn.Module):
 
 class GRUUpdate(nn.Module):
     """One refinement step: guidance -> ConvGRU -> bounds and convex-upsample
-    mask -> candidates -> local soft-argmin over the volume."""
+    mask -> candidates -> local soft-argmin over the volume.
 
-    def __init__(self, num_bins: int, hidden: int = 32, num_samples: int = 20):
+    ``feature_dim > 0`` is the v2 step (``LowCNN_gru2``): a conv3x3 (no
+    bias), BatchNorm and ReLU encode the left 1/8 feature (256 channels) to
+    ``feature_dim`` channels, concatenated after the guidance, so the GRU,
+    the mask head and the offset head read 2*hidden + feature_dim channels.
+    Its modules are named after the JAX ones, ``feature_encode`` and
+    ``feature_encode_bn``."""
+
+    def __init__(self, num_bins: int, hidden: int = 32, num_samples: int = 20,
+                 feature_dim: int = 0):
         super().__init__()
-        gru_dim = 2 * hidden
+        gru_dim = 2 * hidden + feature_dim
         self.num_samples = num_samples
         self.encoder = GuidanceEncoder(num_bins, hidden)
+        if feature_dim:
+            self.feature_encode = Conv(256, feature_dim, 3, bias=False)
+            self.feature_encode_bn = BatchNorm2d(feature_dim)
         self.gru = ConvGRU(gru_dim, gru_dim)
         self.offset = OffsetHead(gru_dim)
         self.mask = nn.Sequential(Conv(gru_dim, 256, 3), nn.ReLU(),
                                   Conv(256, 64 * 9, 1))
 
-    def forward(self, volume, cur_disp, left, right, hidden, prob):
+    def forward(self, volume, cur_disp, left, right, hidden, prob,
+                left_feature=None):
         """volume, prob [B, H, W, D]; cur_disp [B, H, W, 1]; left, right
-        [B, H, W, 3]; hidden [B, 2*hidden, H, W] or None.
+        [B, H, W, 3]; hidden [B, gru_dim, H, W] or None; left_feature
+        [B, 256, H, W] (the v2 step only).
 
         Returns (disp [B, H, W, 1], hidden, mask [B, H, W, 576])."""
         feats = self.encoder(cur_disp, left, right, prob)
+        if left_feature is not None:
+            lf = self.feature_encode_bn(self.feature_encode(left_feature))
+            feats = torch.cat([feats, F.relu(lf)], dim=1)
         hidden = self.gru(feats, hidden)
         mask = 0.25 * _nhwc(self.mask(hidden))
         bounds = _nhwc(self.offset(hidden))

@@ -1,7 +1,8 @@
-"""Correlation cost volume [B, H, W, D] (NHWC features, D innermost).
+"""Cost volumes (NHWC features, D after W): correlation and concat.
 
-Counterpart of ``stereoformer_tpu/ops/cost_volume.py::correlation_volume``
-and of its Pallas kernel ``ops/pallas/corr_band.py::corr_band``:
+Counterpart of ``stereoformer_tpu/ops/cost_volume.py`` (``correlation_volume``
+and ``concat_volume``) and of the correlation's Pallas kernel
+``ops/pallas/corr_band.py::corr_band``:
 
     out[b,h,w,d] = mean_c left[b,h,w,c] * right[b,h,w-d,c],   0 where w < d.
 
@@ -84,3 +85,16 @@ def correlation_volume(left: torch.Tensor, right: torch.Tensor,
 
 
 correlation_volume.launches = 0
+
+
+def concat_volume(left: torch.Tensor, right: torch.Tensor,
+                  max_disp: int) -> torch.Tensor:
+    """Concat volume: out[b, h, w, d] = [left[b, h, w], right[b, h, w - d]],
+    the whole 2C slice zero where w < d. left, right [B, H, W, C] ->
+    [B, H, W, max_disp, 2C]."""
+    B, H, W, C = left.shape
+    out = left.new_zeros((B, H, W, max_disp, 2 * C))
+    for d in range(min(max_disp, W)):
+        out[:, :, d:, d, :C] = left[:, :, d:]
+        out[:, :, d:, d, C:] = right[:, :, :W - d]
+    return out

@@ -118,7 +118,8 @@ def _window_pads(Ho: int, Wo: int, H: int, W: int, k: int, padding: int,
 
 def _clamp(v: torch.Tensor, r: float) -> torch.Tensor:
     """jnp.clip(v, -r, r), whose gradient is half at exactly +-r."""
-    return torch.minimum(torch.maximum(v, v.new_tensor(-r)), v.new_tensor(r))
+    return torch.minimum(torch.maximum(v, v.new_full((), -r)),
+                         v.new_full((), r))
 
 
 def modulated_deform_conv_windowed(x: torch.Tensor, offsets: torch.Tensor,

@@ -24,6 +24,18 @@ kernel). Its backward is ``fused_conv_backward``, the Pallas VJPs ``_bwd``,
 fused conv with flipped, io-transposed weights, the weight gradient is
 ``dw_conv.conv2d_dw``, the rest is elementwise torch ops and [B, C]
 reductions, as XLA does them in the JAX package.
+
+Beside them, as the JAX module keeps it, the stride-2 entry point
+
+    conv2d_fused_s2(x, w, b, relu=False)   y = relu?(conv3x3_s2(x, w) + b)
+
+with x [B, H, W, C] (H and W even), y [B, H/2, W/2, Co], padding 1 on every
+side (the Pallas ``_forward_s2``). CPU tensors take its plain version
+(``conv3x3_s2_plain``); CUDA tensors launch ``csrc/conv2d_s2.cu`` or raise,
+counting launches in ``conv2d_fused_s2.launches``. Its backward is autograd
+of the plain version (float32, as the kernel), as the Pallas ``_s2_bwd`` is
+the XLA VJP of ``_reference_s2``. No model calls it: RAFT's stride-2 convs stay cuDNN
+convs, as they stay XLA convs in the JAX package.
 """
 
 from __future__ import annotations
@@ -194,3 +206,61 @@ def conv2d_fused_prologue_stats(x, w, b, s, t, relu: bool = False):
 conv2d_fused.launches = 0
 # copies of a cotangent to NHWC that the backward had to make
 conv2d_fused.grad_copies = 0
+
+
+def conv3x3_s2_plain(x, w, b, relu=False):
+    """The plain version of ``conv2d_fused_s2``: x [B, H, W, C], w
+    [3, 3, C, Co], b [Co] -> [B, ceil(H/2), ceil(W/2), Co]."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, stride=2,
+                 padding=1).permute(0, 2, 3, 1)
+    return torch.relu(y) if relu else y
+
+
+def _launch_s2(x, w, b, relu):
+    kernels.check_inputs("conv2d_s2", x, w, b)
+    B, H, W, C = x.shape
+    Co = w.shape[3]
+    if w.shape[:3] != (3, 3, C) or b.shape != (Co,):
+        raise ValueError(
+            f"conv2d_s2: the kernel takes w [3, 3, {C}, Co] and b [Co], got "
+            f"{tuple(w.shape)} and {tuple(b.shape)}")
+    y = x.new_empty((B, H // 2, W // 2, Co))
+    kernels.launch("conv2d_s2", x.device, x.data_ptr(), w.data_ptr(),
+                   b.data_ptr(), y.data_ptr(), B, H, W, C, Co, int(relu))
+    conv2d_fused_s2.launches += 1
+    return y
+
+
+class _FusedConvS2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, relu):
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, b)
+        if all(a.device.type == "cpu" for a in (x, w, b)):
+            return conv3x3_s2_plain(x, w, b, relu)
+        return _launch_s2(x, w, b, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(n)
+                    for a, n in zip(ctx.saved_tensors, need)]
+            y = conv3x3_s2_plain(*args, ctx.relu)
+            got = iter(torch.autograd.grad(
+                y, [a for a, n in zip(args, need) if n], g))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def conv2d_fused_s2(x, w, b, relu: bool = False):
+    """y = relu?(conv3x3_s2(x, w) + b): x [B, H, W, C] with H and W even,
+    w [3, 3, C, Co], b [Co] -> [B, H/2, W/2, Co]. Raises ``ValueError`` on
+    an odd H or W, as the JAX kernel asserts."""
+    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(
+            f"conv2d_fused_s2: x must be [B, H, W, C] with H and W even, got "
+            f"{tuple(x.shape)}")
+    return _FusedConvS2.apply(x, w, b, relu)
+
+
+conv2d_fused_s2.launches = 0

@@ -1,7 +1,9 @@
-"""Local cost-volume refinement: candidates, hat re-sample, local soft-argmin.
+"""Local cost-volume refinement: candidates, hat re-sample, local soft-argmin,
+and the fixed-radius and variance-scaled refiners built on them.
 
 Counterpart of ``stereoformer_tpu/ops/local_volume.py`` (``make_candidates``,
-``resample_volume_hat``, ``local_soft_argmin``) and of its Pallas kernel
+``resample_volume_hat``, ``local_soft_argmin``, ``fixed_local_cost_volume``,
+``variance_local_cost_volume``) and of its Pallas kernel
 ``ops/pallas/local_refine.py::fused_local_soft_argmin``.
 
 ``local_soft_argmin`` takes the plain version for CPU tensors, whose autograd
@@ -18,28 +20,34 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .softargmin import disparity_variance
 
 
 def make_candidates(lower: torch.Tensor, upper: torch.Tensor,
                     cur_disp: torch.Tensor, num_samples: int,
-                    max_disp: int, consider_valid: bool = True) -> torch.Tensor:
+                    max_disp: int, consider_valid: bool = True,
+                    extra_invalid: torch.Tensor | None = None) -> torch.Tensor:
     """S+1 = num_samples+1 uniform candidates in [lower, upper] per pixel.
 
     lower, upper, cur_disp: [B, H, W, 1] -> [B, H, W, S+1], with max_disp
     the volume's D. ``consider_valid=True``: a pixel whose range leaves
-    [0, max_disp - 1) (lower < 0 or upper >= max_disp - 1) collapses every
-    candidate to cur_disp. ``consider_valid=False``: the bounds are clamped
-    instead, lower to >= 0 and upper to [0, max_disp], as JAX's
+    [0, max_disp - 1) (lower < 0 or upper >= max_disp - 1), or where
+    ``extra_invalid`` (broadcast to [B, H, W, 1]) is nonzero, collapses
+    every candidate to cur_disp. ``consider_valid=False``: the bounds are
+    clamped instead, lower to >= 0 and upper to [0, max_disp], as JAX's
     ``jnp.clip`` (half the gradient at a tie)."""
     steps = torch.arange(num_samples + 1, dtype=lower.dtype,
                          device=lower.device)
     if not consider_valid:
-        zero = lower.new_tensor(0.0)
+        zero = lower.new_full((), 0.0)
         lower = torch.maximum(lower, zero)
         upper = torch.minimum(torch.maximum(upper, zero),
-                              upper.new_tensor(float(max_disp)))
+                              upper.new_full((), float(max_disp)))
         return lower + steps * ((upper - lower) / num_samples)
-    invalid = ((lower < 0) | (upper >= max_disp - 1)).to(lower.dtype)
+    invalid = (lower < 0) | (upper >= max_disp - 1)
+    if extra_invalid is not None:
+        invalid = invalid | (extra_invalid != 0)
+    invalid = invalid.to(lower.dtype)
     cands = lower + steps * ((upper - lower) / num_samples)
     return cands * (1.0 - invalid) + invalid * cur_disp
 
@@ -147,3 +155,43 @@ def local_soft_argmin(volume: torch.Tensor,
 
 local_soft_argmin.launches = 0
 local_soft_argmin.backward_launches = 0
+
+
+def fixed_local_cost_volume(volume: torch.Tensor, cur_disp: torch.Tensor,
+                            radius: float, num_samples: int,
+                            consider_valid: bool = False) -> torch.Tensor:
+    """Fixed-radius refinement: the local soft-argmin over num_samples+1
+    candidates in cur_disp -/+ radius. volume [B, H, W, D], cur_disp
+    [B, H, W, 1] -> [B, H, W, 1]."""
+    cands = make_candidates(cur_disp - radius, cur_disp + radius, cur_disp,
+                            num_samples, volume.shape[-1],
+                            consider_valid=consider_valid)
+    return local_soft_argmin(volume, cands.contiguous())
+
+
+def variance_local_cost_volume(volume: torch.Tensor, cur_disp: torch.Tensor,
+                               gamma: float, num_samples: int,
+                               consider_valid: bool = False) -> torch.Tensor:
+    """Variance-scaled refinement: candidates in mu -/+ gamma * sigma, sigma
+    the root variance of softmax(volume) around cur_disp = mu. With
+    ``consider_valid`` a pixel whose upper bound passes its own column x of
+    the volume's grid (upper > x: the match would leave the image) is
+    invalid too; without it both bounds are clamped to [0, D - 1]."""
+    B, H, W, D = volume.shape
+    sigma = disparity_variance(torch.softmax(volume, dim=-1), cur_disp)
+    lower = cur_disp - gamma * sigma
+    upper = cur_disp + gamma * sigma
+    if consider_valid:
+        x = torch.arange(W, dtype=volume.dtype, device=volume.device)
+        cands = make_candidates(lower, upper, cur_disp, num_samples, D,
+                                extra_invalid=upper > x[:, None])
+    else:
+        # jnp.clip's half gradient at a tie, as make_candidates
+        zero = lower.new_full((), 0.0)
+        top = lower.new_full((), float(D - 1))
+        lower = torch.minimum(torch.maximum(lower, zero), top)
+        upper = torch.minimum(torch.maximum(upper, zero), top)
+        steps = torch.arange(num_samples + 1, dtype=lower.dtype,
+                             device=lower.device)
+        cands = lower + steps * ((upper - lower) / num_samples)
+    return local_soft_argmin(volume, cands.contiguous())

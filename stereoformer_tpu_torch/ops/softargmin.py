@@ -1,4 +1,5 @@
-"""Soft-argmin disparity regression and the GRU's uncertainty volume.
+"""Soft-argmin disparity regression, the root variance around a disparity,
+and the GRU's uncertainty volume.
 
 Counterpart of ``stereoformer_tpu/ops/softargmin.py``. Volumes are
 ``[B, H, W, D]`` with D innermost.
@@ -15,6 +16,16 @@ def soft_argmin(cost_volume: torch.Tensor) -> torch.Tensor:
     d = torch.arange(cost_volume.shape[-1], dtype=prob.dtype,
                      device=prob.device)
     return (prob * d).sum(-1)
+
+
+def disparity_variance(prob_volume: torch.Tensor,
+                       cur_disp: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum_d p_d (d - mu)^2) around the current disparity mu: prob
+    [B, H, W, D], cur_disp [B, H, W] or [B, H, W, 1] -> [B, H, W, 1]."""
+    cur = cur_disp if cur_disp.dim() == prob_volume.dim() else cur_disp[..., None]
+    d = torch.arange(prob_volume.shape[-1], dtype=prob_volume.dtype,
+                     device=prob_volume.device)
+    return (prob_volume * (d - cur) ** 2).sum(-1, keepdim=True).sqrt()
 
 
 def uncertainty_volume(prob_volume: torch.Tensor,

@@ -1,7 +1,7 @@
-"""Learned convex disparity upsampling (NHWC).
+"""Disparity upsampling (NHWC): learned convex, and simple bilinear.
 
-Counterpart of ``stereoformer_tpu/ops/upsample.py`` (``upsample_convex`` and
-``upsample_convex8``). Its gradient is torch autograd's, the same VJP as the
+Counterpart of ``stereoformer_tpu/ops/upsample.py`` (``upsample_convex``,
+``upsample_convex8`` and ``upsample_simple8``). Its gradient is torch autograd's, the same VJP as the
 JAX package's hand-written one (``_upsample_convex_bwd``).
 """
 
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .resize import resize_bilinear
 
 
 def neighborhood9(x: torch.Tensor) -> torch.Tensor:
@@ -41,3 +43,10 @@ def upsample_convex(disp: torch.Tensor, mask: torch.Tensor,
 def upsample_convex8(disp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Learned convex 8x upsample (mask [B, H, W, 576])."""
     return upsample_convex(disp, mask, 8)
+
+
+def upsample_simple8(disp: torch.Tensor) -> torch.Tensor:
+    """8x bilinear upsample with align_corners=True, values scaled by 8:
+    disp [B, H, W, 1] -> [B, 8H, 8W, 1]."""
+    H, W = disp.shape[1:3]
+    return 8.0 * resize_bilinear(disp, (8 * H, 8 * W), align_corners=True)

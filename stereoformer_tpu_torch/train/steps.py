@@ -51,13 +51,15 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
     ``{"img_left", "img_right", "gt_disp"}`` on the model's device, metrics
     ``{"loss", "epe", "grad_norm"}`` (0-d tensors; grad_norm is the L2 norm
     of all gradients). The step leaves this batch's gradients in each
-    parameter's ``.grad``.
+    parameter's ``.grad``: zeros for a parameter the loss does not reach,
+    as in JAX, so that it is left as it was.
 
     The model is the state's, ``LowCNN`` or ``RAFTStereo``; a step runs it
-    in train mode, every output supervised (``iters`` of them for the GRU
-    models; the initial and refined disparities of the learned-bounds
-    models, with the bounds too for ``loss_name="range_supervised"``,
-    which takes ``LowCNN_dynamic_supervised``).
+    in train mode, every output supervised by ``loss_name`` (``iters`` of
+    them for the GRU models; the initial and refined disparities of the
+    other LowCNN refinements but "none", with the bounds too for
+    ``loss_name="range_supervised"``, which takes
+    ``LowCNN_dynamic_supervised``).
 
     ``freeze_bn=True`` is the fine-tune knob (RAFT's, in the reference):
     every BatchNorm normalises with its running statistics, which stay as
@@ -80,6 +82,11 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
         gt = batch["gt_disp"]
         loss = compute_loss(loss_name, out, gt, gamma, weights)
         loss.backward()
+        for p in params.values():
+            if p.grad is None:
+                # outside the loss (LowCNN_gru's mask head with
+                # upsample="simple"): a zero gradient, as JAX gives it
+                p.grad = torch.zeros_like(p)
         grads = {k: p.grad for k, p in params.items()}
         with torch.no_grad():
             epe = losses.epe(out["disparities"][-1], gt)

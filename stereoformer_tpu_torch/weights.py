@@ -78,14 +78,19 @@ def _resblock(sd, key, params, stats):
 
 def lowcnn_state_dict_from_jax(variables) -> dict:
     """The JAX ``LowCNN`` variables ``{"params", "batch_stats"}`` (numpy
-    leaves) of ``refinement="gru"``, ``"learned"`` or
-    ``"learned_supervised"`` -> the port's ``state_dict``. Without
-    ``"batch_stats"``, the parameters' entries only.
+    leaves) of any refinement, upsample and cost volume -> the port's
+    ``state_dict``. Without ``"batch_stats"``, the parameters' entries
+    only.
 
-    Kernels map HWIO -> OIHW. The GRU step's fused gate conv ``conv_zb``
-    splits into ``conv_z`` and ``conv_b``; the learned bounds map
-    ``ConvAffinityUpsample_0`` to ``upsample_mask`` and
-    ``LearnedBounds_0/SmallUNet_0`` to ``local_cost_volume.unet``."""
+    Kernels map HWIO -> OIHW, Dense kernels [in, out] -> [out, in]. The GRU
+    step's fused gate conv ``conv_zb`` splits into ``conv_z`` and
+    ``conv_b``; ``ConvAffinityUpsample_0`` maps to ``upsample_mask`` and
+    ``LearnedBounds_0/SmallUNet_0`` to ``local_cost_volume.unet``. The keys
+    of the concat volume's projections (``concat_proj1``, ``concat_proj2``)
+    and of the v2 GRU step's feature encoder
+    (``local_cost_volume.feature_encode``, ``..._bn``) are the JAX modules'
+    names: the reference's names for them are not known, and these keys are
+    not checked against a reference checkpoint."""
     p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
     _conv(sd, "conv1.0", p["ConvLReLU_0"]["Conv_0"])
@@ -100,13 +105,18 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
     for i in range(3):
         _resblock(sd, f"correlation_aggreagtion.{i}", p[f"agg{i}"],
                   _at(s, f"agg{i}"))
+    for name in ("concat_proj1", "concat_proj2"):
+        if name in p:
+            sd[name + ".weight"] = _tensor(np.transpose(p[name]["kernel"]))
+            sd[name + ".bias"] = _tensor(p[name]["bias"])
 
     if "gru_update" in p:
         _gru_head(sd, p["gru_update"], _at(s, "gru_update"))
-    if "LearnedBounds_0" in p:
+    if "ConvAffinityUpsample_0" in p:
         mask = p["ConvAffinityUpsample_0"]
         _conv(sd, "upsample_mask.upsample_mask.0", mask["Conv_0"])
         _conv(sd, "upsample_mask.upsample_mask.2", mask["Conv_1"])
+    if "LearnedBounds_0" in p:
         _smallunet(sd, "local_cost_volume.unet",
                    p["LearnedBounds_0"]["SmallUNet_0"],
                    _at(s, "LearnedBounds_0", "SmallUNet_0"))
@@ -115,7 +125,8 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
 
 def _gru_head(sd, g, gs):
     """The GRU step (``gru_update``); the fused gate conv ``conv_zb`` splits
-    into ``conv_z`` (first half of its outputs) and ``conv_b``."""
+    into ``conv_z`` (first half of its outputs) and ``conv_b``; the v2
+    step's ``feature_encode`` and its BatchNorm keep their JAX names."""
     enc = g["GuidanceEncoder_0"]
     encs = _at(gs, "GuidanceEncoder_0")
     key = "local_cost_volume.encoder"
@@ -125,6 +136,11 @@ def _gru_head(sd, g, gs):
     _conv(sd, key + ".uncertain_encoder.0", enc["uncertain_encoder"], bias=False)
     _bn(sd, key + ".uncertain_encoder.1", enc["uncertain_encoder_bn"],
         _at(encs, "uncertain_encoder_bn"))
+    if "feature_encode" in g:
+        key = "local_cost_volume.feature_encode"
+        _conv(sd, key, g["feature_encode"], bias=False)
+        _bn(sd, key + "_bn", g["feature_encode_bn"],
+            _at(gs, "feature_encode_bn"))
     zb = g["ConvGRU_0"]["conv_zb"]
     hidden = np.shape(zb["bias"])[0] // 2
     for part, cut in (("conv_z", slice(0, hidden)), ("conv_b", slice(hidden, None))):
@@ -285,7 +301,8 @@ def load_state_dict_file(path: str) -> dict:
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
                       fan: str = "fan_in") -> dict:
     """Random weights for ``model`` from numpy, made from ``seed``: each
-    conv weight (a ``DeformConv``'s too) he-normal over its ``fan``
+    conv weight (a ``DeformConv``'s too) and linear weight he-normal over
+    its ``fan``
     ("fan_in", as LowCNN's init, or "fan_out", as RAFT's), biases zero,
     BatchNorm the identity (scale 1, shift 0, mean 0, variance 1), as the
     JAX models' own inits draw them (LowCNN's GRU gates, drawn orthogonal
@@ -299,10 +316,10 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
         if name.endswith("conv_offset_mask"):
             sd[key + "weight"] = torch.zeros(m.weight.shape)
             sd[key + "bias"] = torch.zeros(m.out_channels)
-        elif isinstance(m, (torch.nn.Conv2d, DeformConv)):
+        elif isinstance(m, (torch.nn.Conv2d, DeformConv, torch.nn.Linear)):
             shape = tuple(m.weight.shape)
             fans = {"fan_in": shape[1], "fan_out": shape[0]}
-            n = fans[fan] * shape[2] * shape[3]
+            n = fans[fan] * int(np.prod(shape[2:]))
             sd[key + "weight"] = _tensor(
                 rng.standard_normal(shape) * np.sqrt(2.0 / n))
             if m.bias is not None:

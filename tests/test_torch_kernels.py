@@ -476,3 +476,105 @@ def test_deform_sample_rejects_what_the_kernel_does_not_take(cuda_device):
         ops.deform_conv_fused(x, off, mask, w[:-1].contiguous())
     with pytest.raises(ValueError, match="CUDA device"):
         ops.deform_conv_fused(x, off.cpu(), mask, w)
+
+
+# --- the stride-2 fused conv (csrc/conv2d_s2.cu) ---------------------------
+
+# float32 sums of 9 C products in another order than cuDNN's float64: relative
+# to the largest |y|
+S2_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 48, 16, 24), (2, 144, 240, 128, 128),
+                                   (1, 34, 70, 6, 10), (1, 18, 66, 96, 128)],
+                         ids=["jax-test", "raft-cnet-down1a", "odd-C-Co",
+                              "tile-tails"])
+@pytest.mark.parametrize("relu", [False, True], ids=["bare", "relu"])
+def test_conv2d_s2_matches_plain(cuda_device, shape, relu):
+    B, H, W, C, Co = shape
+    rng = np.random.default_rng(20)
+    x = _randn(rng, (B, H, W, C), cuda_device)
+    w = _randn(rng, (3, 3, C, Co), cuda_device) / np.sqrt(9 * C)
+    b = 0.1 * _randn(rng, (Co,), cuda_device)
+    n = ops.conv2d_fused_s2.launches
+    got = ops.conv2d_fused_s2(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert ops.conv2d_fused_s2.launches == n + 1
+    want = ops.conv3x3_s2_plain(x.double(), w.double(), b.double(), relu)
+    assert got.shape == (B, H // 2, W // 2, Co)
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=S2_RTOL * want.abs().max().item())
+
+
+def test_conv2d_s2_gradient_is_autograd_of_the_plain_version(cuda_device):
+    """The backward is cuDNN's VJP of the plain conv: held against float64
+    with TF32 off (in TF32 it is ~1e-3 off)."""
+    rng = np.random.default_rng(21)
+    args = [_randn(rng, s, cuda_device) for s in
+            ((2, 20, 48, 16), (3, 3, 16, 24), (24,))]
+    g = _randn(rng, (2, 10, 24, 24), cuda_device)
+    got = [a.clone().requires_grad_(True) for a in args]
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ops.conv2d_fused_s2(*got, True).backward(g)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = [a.double().requires_grad_(True) for a in args]
+    ops.conv3x3_s2_plain(*want, True).backward(g.double())
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.grad.double(), r.grad, rtol=0,
+                                   atol=1e-5 * r.grad.abs().max().item())
+
+
+def test_conv2d_s2_rejects_what_the_kernel_does_not_take(cuda_device):
+    rng = np.random.default_rng(22)
+    x = _randn(rng, (1, 8, 12, 8), cuda_device)
+    w = _randn(rng, (3, 3, 8, 4), cuda_device)
+    b = _randn(rng, (4,), cuda_device)
+    with pytest.raises(ValueError, match="even"):
+        ops.conv2d_fused_s2(x[:, :7].contiguous(), w, b)
+    with pytest.raises(TypeError, match="float32"):
+        ops.conv2d_fused_s2(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError, match="w \\[3, 3, 8, Co\\]"):
+        ops.conv2d_fused_s2(x, w[:, :, :4].contiguous(), b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.conv2d_fused_s2(x, w.cpu(), b)
+
+
+# --- the row gather (csrc/row_gather.cu) -----------------------------------
+
+def test_row_gather_matches_plain(cuda_device):
+    rng = np.random.default_rng(23)
+    img = _randn(rng, (8640, 64), cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 8640, (5000, 64)).astype(
+        np.int32)).to(cuda_device)
+    n = ops.take_rows.launches
+    got = ops.take_rows(img, idx)
+    torch.cuda.synchronize()
+    assert ops.take_rows.launches == n + 1
+    assert torch.equal(got, ops.take_rows_plain(img, idx))
+    assert torch.equal(got, torch.gather(img, 0, idx.long()))
+
+
+def test_row_gather_probe_runs_on_the_card(cuda_device):
+    from stereoformer_tpu_torch.scripts import gather_probe
+
+    n = ops.take_rows.launches
+    out = gather_probe.main([])
+    assert out.device.type == "cuda" and out.shape == (8640, 64)
+    assert ops.take_rows.launches == n + 1
+
+
+def test_row_gather_refuses_an_index_out_of_range(cuda_device):
+    rng = np.random.default_rng(24)
+    img = _randn(rng, (10, 4), cuda_device)
+    for bad in (10, -1):
+        idx = torch.zeros((3, 4), dtype=torch.int32, device=cuda_device)
+        idx[1, 2] = bad
+        n = ops.take_rows.launches
+        with pytest.raises(IndexError, match="in \\[0, 10\\)"):
+            ops.take_rows(img, idx)
+        assert ops.take_rows.launches == n
+    with pytest.raises(ValueError, match="int32"):
+        ops.take_rows(img, torch.zeros((3, 4), dtype=torch.int64,
+                                       device=cuda_device))

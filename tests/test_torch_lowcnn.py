@@ -207,6 +207,8 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.ops.deform",
             "stereoformer_tpu_torch.ops.dw_conv",
             "stereoformer_tpu_torch.ops.fused_conv",
+            "stereoformer_tpu_torch.ops.gather",
+            "stereoformer_tpu_torch.scripts.gather_probe",
             "stereoformer_tpu_torch.ops.upsample",
             "stereoformer_tpu_torch.nn.blocks",
             "stereoformer_tpu_torch.nn.raft",

@@ -301,8 +301,12 @@ def test_registry_and_seeded_weights(refinement):
 
 
 def test_unported_refinement_raises():
+    """Every refinement of the JAX family is ported now; what is not yet
+    (bf16) raises, and so does an unknown refinement."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        LowCNN(refinement="fixed")
+        LowCNN(refinement="learned", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown refinement"):
+        LowCNN(refinement="learned_bogus")
 
 
 def test_eval_and_infer_steps_take_the_refined_disparity(jax_runs, batch):
