@@ -7,14 +7,16 @@ Needs one CUDA device and nvcc; imports nothing of JAX. Phases, in order;
 any failure exits nonzero and prints no result:
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. build every CUDA kernel from csrc/, one nvcc per source, all at once;
+2. build every CUDA kernel from csrc/, one nvcc per source, all at once,
+   and print each entry function's registers and spills as ptxas gives them;
 3. each kernel against its plain PyTorch version at the main paths' shapes
    and at edge inputs, with the tolerance stated: the two forward kernels,
    local_soft_argmin's backward kernel, corr_band's backward (torch ops)
    against autograd of its plain version, conv2d_fused in every variant,
-   conv2d_dw against float64 sums at RAFT's four training shapes, the
-   fused conv's backward (conv2d_fused for dx, conv2d_dw for dw, torch ops
-   for the rest) in all six variants against autograd of its plain version,
+   conv2d_dw against float64 sums at RAFT's four training shapes (and
+   bit-equal to itself on a second call), the fused conv's backward
+   (conv2d_fused for dx, conv2d_dw for dw, torch ops for the rest) in all
+   six variants against autograd of its plain version,
    deform_sample (with the wrapper's matmul) against the plain windowed
    form in float64 at the learned bounds' eval and train shapes, an odd W,
    dilation 2, offsets beyond the window, integer offsets and Co = 6, 32,
@@ -72,12 +74,13 @@ any failure exits nonzero and prints no result:
    with bias at the same shape (TF32 on and off), at the four RAFT eval
    shapes, and as the dx conv at the four RAFT training shapes beside
    cuDNN's conv2d_input; for conv2d_dw, at the four training shapes, beside
-   cuDNN's conv2d_weight (TF32 on and off); for deform_sample at the
-   learned bounds' eval and train shapes, beside the wrapper with its
-   matmul and torchvision's deform_conv2d where torchvision imports; for
-   conv2d_s2 at RAFT's six stride-2 sites beside one F.conv2d with stride 2
-   (TF32 off and on); for row_gather at the probe's shape beside
-   torch.gather;
+   cuDNN's conv2d_weight (TF32 on and off), its 3xTF32 bound, its share of
+   that bound and its ratio to cuDNN's float32 time (as for conv2d_s2);
+   for deform_sample at the learned bounds' eval and train shapes, beside
+   the wrapper with its matmul and torchvision's deform_conv2d where
+   torchvision imports; for conv2d_s2 at RAFT's six stride-2 sites beside
+   one F.conv2d with stride 2 (TF32 off and on); for row_gather at the
+   probe's shape beside torch.gather;
 13. parity of the card against the port on the CPU (TF32 off): LowCNN_gru
    at 64x256, the eval forward and one train step (loss, gradient norm,
    updated parameters); LowCNN_dynamic_supervised at 64x256 likewise
@@ -170,8 +173,10 @@ RAFT_S2_CONVS = {
     "cnet layer2": (2, 576, 960, 64, 96), "cnet layer3": (2, 288, 480, 96, 128),
     "cnet layer4": (2, 144, 240, 128, 128),
     "cnet layer5": (2, 72, 120, 128, 128)}
-# the JAX test's shape, an output that no 8 x 32 tile divides (17 x 33), and
-# C, Co that are no multiple of 4
+# the JAX test's shape (an output of 10 x 24: a tail of 2 rows at 4-row
+# tiles, Co short of one 32-channel block), an output that no 4 x 32 tile
+# divides (17 x 33), and C, Co that are no multiple of 4 (C short of one
+# 8-channel chunk)
 EDGE_S2_CONVS = [(2, 20, 48, 16, 24), (1, 34, 66, 96, 128), (2, 18, 70, 6, 10)]
 # the LowCNN family's models: name -> (outputs of a forward, launches in one
 # eval forward); a train step adds one local_soft_argmin_bwd per forward
@@ -360,10 +365,13 @@ def main() -> int:
     print(f"build: {build_s:.1f} s for {len(kernels.KERNELS)} kernels",
           flush=True)
     record["build_s"] = build_s
-    for name, log in kernels.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    record["ptxas"] = {}
+    for name in kernels.KERNELS:
+        record["ptxas"][name] = usage = kernels.ptxas_usage(name)
+        for entry, u in usage.items():
+            print(f"  {name}: {entry} {u.get('registers')} registers, "
+                  f"spills {u.get('spill_stores')} B stored, "
+                  f"{u.get('spill_loads')} B loaded", flush=True)
 
     rng = np.random.default_rng(0)
     err = check_kernels(ops, rng)
@@ -578,10 +586,11 @@ EDGE_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 64, 64), (1, 17, 45, 64, 64),
 
 def check_dw_kernel(ops, rng) -> float:
     """Phase 3, conv2d_dw: against float64 sums (the plain version on
-    float64 copies) at RAFT's four training shapes and at edge shapes;
-    returns the largest absolute error."""
-    # float32 sums of a block's pixels, the blocks' partials added in
-    # float64: relative to the largest |dw|
+    float64 copies) at RAFT's four training shapes and at edge shapes, and
+    bit-equal to itself on a second call; returns the largest absolute
+    error."""
+    # 3xTF32 products summed in float32 over a block's pixels, the blocks'
+    # partials added in float64: relative to the largest |dw|
     rtol = 2e-5
     shapes = [(*v, v[3]) for v in RAFT_TRAIN_CONVS.values()]
     worst = 0.0
@@ -595,7 +604,13 @@ def check_dw_kernel(ops, rng) -> float:
         e = compare(f"conv2d_dw {shape} (largest |dw| {scale:.1f})", got,
                     want, rtol * scale)
         worst = max(worst, e)
+        # the partials are summed in a fixed order: a second call gives the
+        # same bits
+        if not torch.equal(ops.conv2d_dw(x, g), got):
+            raise SmokeFailure(f"conv2d_dw {shape}: two calls differ")
         del x, g, got, want
+    print("  conv2d_dw: two calls on the same inputs gave the same bits at "
+          "every shape", flush=True)
     return worst
 
 
@@ -790,8 +805,10 @@ def check_s2_kernel(ops, rng) -> float:
     float32 with TF32 off) against float64 autograd. Returns the largest
     absolute error of y."""
     torch.backends.cudnn.allow_tf32 = False
-    # float32 sums of 9 C products in another order than float64's:
-    # relative to the largest |y| (or gradient)
+    # 3xTF32 products (each float32 operand split into a TF32 big part and a
+    # small rest), summed per 8-channel chunk on the tensor cores and folded
+    # into float32 totals, in another order than float64's: relative to the
+    # largest |y| (or gradient)
     rtol = 1e-5
     worst = 0.0
     print("conv2d_s2 vs plain in float64 (TF32 off):", flush=True)
@@ -1092,31 +1109,37 @@ def raft_eval_phase(ops, rng, batch: int, record,
     return launches
 
 
-def raft_train_phase(ops, record) -> dict:
-    """Phase 10: the RAFT train step at full size; returns its launch counts
-    per step."""
+def raft_train_setup():
+    """The RAFT train protocol on the card: RAFT_Stereo with random weights
+    from the torch seed as it stands, AMSGrad at RAFT_LR, the sequence loss
+    over ITERS iterations and one batch of RAFT_TRAIN_B pairs at
+    RAFT_TRAIN_H x RAFT_TRAIN_W from seed 4. Returns (model, tx, state,
+    step, data). ``scripts/time_raft_step.py`` times the same protocol."""
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.train import (
         Amsgrad,
         TrainState,
-        compute_loss,
         make_train_step,
     )
+
+    model = get_model("RAFT_Stereo", device="cuda")
+    tx = Amsgrad(RAFT_LR)
+    state = TrainState.create(model, tx)
+    step = make_train_step(tx, "sequence", iters=ITERS)
+    data = train_batch(4, RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W)
+    return model, tx, state, step, data
+
+
+def raft_train_phase(ops, record) -> dict:
+    """Phase 10: the RAFT train step at full size; returns its launch counts
+    per step."""
+    from stereoformer_tpu_torch.train import compute_loss
 
     Bt, Ht, Wt = RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W
     print(f"RAFT_Stereo train step {Ht}x{Wt} B={Bt} iters={ITERS} sequence "
           f"loss AMSGrad lr {RAFT_LR:g} float32:", flush=True)
     torch.backends.cudnn.allow_tf32 = True
-    model = get_model("RAFT_Stereo", device="cuda")
-    tx = Amsgrad(RAFT_LR)
-    state = TrainState.create(model, tx)
-    step = make_train_step(tx, "sequence", iters=ITERS)
-    trng = np.random.default_rng(4)
-    data = {"img_left": randn(trng, Bt, Ht, Wt, 3),
-            "img_right": randn(trng, Bt, Ht, Wt, 3),
-            "gt_disp": torch.from_numpy(
-                (40 + 10 * trng.standard_normal((Bt, Ht, Wt, 1)))
-                .astype(np.float32)).cuda()}
+    model, tx, state, step, data = raft_train_setup()
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
@@ -1447,12 +1470,42 @@ def dx_times(ops, rng) -> dict:
     return times
 
 
+def tf32x3_bound_ms(nbytes: float, nops: float) -> float:
+    """The bound of a 3xTF32 design: the bytes at the HBM rate, or three
+    TF32 products per float32 product at the TF32 tensor-core rate."""
+    return max(nbytes / HBM_BYTES_PER_S, 3 * nops / TF32_FLOPS_PER_S) * 1e3
+
+
+def print_conv_row(name, where, row, nops, library) -> None:
+    """Print one site of conv2d_dw or conv2d_s2 and add its share of the
+    3xTF32 bound and its ratio to cuDNN's float32 call to ``row``."""
+    row["share_of_design_bound"] = row["bound_tf32x3_ms"] / row["ms"]
+    row["ratio_to_cudnn_f32"] = row["ms"] / row["library_ms"]
+    extra = (f" (the profiler: {row['profiler_ms']:.3f} ms)"
+             if "profiler_ms" in row else "")
+    print(f"  {name} {where} {row['shape']}: {row['ms']:.4f} ms on the device "
+          f"({nops / row['ms'] / 1e9:.1f} TFLOP/s){extra}; bounds "
+          f"{row['bound_ms']:.4f} ms float32 by {row['bound_by']}, "
+          f"{row['bound_tf32x3_ms']:.4f} ms 3xTF32, "
+          f"{row['bound_tf32_ms']:.4f} ms one TF32 pass, "
+          f"{100 * row['share_of_design_bound']:.1f}% of the 3xTF32 bound; "
+          f"{row['call_ms']:.4f} ms per wrapper call; plain "
+          f"{row['plain_ms']:.4f} ms; cuDNN {library} {row['library_ms']:.4f} "
+          f"ms (TF32 off, kernel/cuDNN {row['ratio_to_cudnn_f32']:.3f}), "
+          f"{row['library_tf32_ms']:.4f} ms (TF32 on)", flush=True)
+
+
 def dw_row(ops, rng, err, launches, record) -> dict:
     """Phase 12, conv2d_dw at RAFT's four training shapes: its device time
     (both kernels), the plain version's (nine float32 einsums), cuDNN's
-    conv2d_weight for the same gradient (TF32 off and on), and the bound:
-    x and g read, dw written, or float32 operations."""
+    conv2d_weight for the same gradient (TF32 off and on), and the bounds:
+    x and g read, dw written, or float32 operations at the float32 rate
+    (``bound_ms``), three TF32 products per float32 product at the TF32
+    rate (the kernel's design, ``bound_tf32x3_ms``) and one TF32 product at
+    that rate (``bound_tf32_ms``)."""
     from torch.nn.grad import conv2d_weight
+
+    from stereoformer_tpu_torch import kernels
 
     torch.backends.cudnn.allow_tf32 = False
     times = {}
@@ -1473,7 +1526,9 @@ def dw_row(ops, rng, err, launches, record) -> dict:
                "plain_ms": graph_ms(lambda: ops.conv2d_dw_plain(x, g), 3),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3)}
+               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+               "bound_tf32_ms": max(t_bytes,
+                                    nops / TF32_FLOPS_PER_S * 1e3)}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
@@ -1481,13 +1536,7 @@ def dw_row(ops, rng, err, launches, record) -> dict:
                 lambda: conv2d_weight(xc, (C, C, 3, 3), gc, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
-        print(f"  conv2d_dw {where} {row['shape']}: {row['ms']:.3f} ms on the "
-              f"device ({nops / row['ms'] / 1e9:.1f} TFLOP/s), bound "
-              f"{row['bound_ms']:.3f} ms float32 by {row['bound_by']}, "
-              f"{row['bound_tf32_ms']:.3f} ms TF32; {row['call_ms']:.3f} ms "
-              f"per wrapper call; plain {row['plain_ms']:.3f} ms; cuDNN "
-              f"conv2d_weight {row['library_ms']:.3f} ms (TF32 off), "
-              f"{row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        print_conv_row("conv2d_dw", where, row, nops, "conv2d_weight")
         del x, g, xc, gc
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"]["conv2d_dw"] = times
@@ -1502,7 +1551,11 @@ def dw_row(ops, rng, err, launches, record) -> dict:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_tf32_ms": main["library_tf32_ms"],
-        "bound_tf32_ms": main["bound_tf32_ms"], "shape": main["shape"],
+        "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+        "bound_tf32_ms": main["bound_tf32_ms"],
+        "share_of_design_bound": main["share_of_design_bound"],
+        "ratio_to_cudnn_f32": main["ratio_to_cudnn_f32"],
+        "shape": main["shape"], "ptxas": kernels.ptxas_usage("conv2d_dw"),
     }
 
 
@@ -1599,8 +1652,14 @@ def s2_row(ops, rng, err, launches, record) -> dict:
     """Phase 12, conv2d_s2 at RAFT's six stride-2 sites: the kernel's device
     time, the plain version's (cuDNN, TF32 off), one F.conv2d with stride 2
     and bias (TF32 off and on), and the bounds: x read, w and b read, y
-    written, or float32 operations (and those at the TF32 rate)."""
+    written, or float32 operations at the float32 rate (``bound_ms``) and
+    three TF32 products per float32 product at the TF32 rate (the kernel's
+    design, ``bound_tf32x3_ms``) and one TF32 product at that rate
+    (``bound_tf32_ms``); the blocks of each site's grid."""
     import torch.nn.functional as F
+
+    from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.fused_conv import s2_blocks
 
     torch.backends.cudnn.allow_tf32 = False
     times = {}
@@ -1626,7 +1685,10 @@ def s2_row(ops, rng, err, launches, record) -> dict:
                    lambda: ops.conv3x3_s2_plain(x, w, b), 5),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3)}
+               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+               "bound_tf32_ms": max(t_bytes,
+                                    nops / TF32_FLOPS_PER_S * 1e3),
+               "blocks": s2_blocks(B_, H_, W_, Co)}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
@@ -1634,14 +1696,8 @@ def s2_row(ops, rng, err, launches, record) -> dict:
                 lambda: F.conv2d(xc, wc, b, stride=2, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
-        print(f"  conv2d_s2 {where} {row['shape']}: {row['ms']:.3f} ms on the "
-              f"device ({nops / row['ms'] / 1e9:.1f} TFLOP/s), bound "
-              f"{row['bound_ms']:.3f} ms float32 by {row['bound_by']}, "
-              f"{row['bound_tf32_ms']:.3f} ms TF32; {row['call_ms']:.3f} ms "
-              f"per wrapper call (the profiler: {row['profiler_ms']:.3f} ms "
-              f"on the device); plain {row['plain_ms']:.3f} ms; cuDNN "
-              f"F.conv2d stride 2 + bias {row['library_ms']:.3f} ms (TF32 "
-              f"off), {row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        print_conv_row("conv2d_s2", where, row, nops,
+                       "F.conv2d stride 2 + bias")
         del x, w, b, xc, wc
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"]["conv2d_s2"] = times
@@ -1656,7 +1712,11 @@ def s2_row(ops, rng, err, launches, record) -> dict:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_tf32_ms": main["library_tf32_ms"],
-        "bound_tf32_ms": main["bound_tf32_ms"], "shape": main["shape"],
+        "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+        "bound_tf32_ms": main["bound_tf32_ms"],
+        "share_of_design_bound": main["share_of_design_bound"],
+        "ratio_to_cudnn_f32": main["ratio_to_cudnn_f32"],
+        "shape": main["shape"], "ptxas": kernels.ptxas_usage("conv2d_s2"),
     }
 
 

@@ -1,5 +1,5 @@
 // Weight gradient of a stride-1 3x3 SAME convolution on Hopper (sm_90a),
-// float32.
+// float32 by 3xTF32 on the tensor cores.
 //
 // Replaces the TPU kernel stereoformer_tpu/ops/pallas/dw_conv.py::
 // conv2d_dw_pallas (body `_kernel`), which the fused conv's backward calls
@@ -11,143 +11,210 @@
 // What bounds it on the H100: operations. At RAFT's training site with the
 // most work (the feature net's layer1, x and g [8,320,720,64]) one call is
 // a GEMM [9C x M] x [M x Co] with M = 1.84 M pixels: 136 GFLOP against 944 MB
-// read, about 144 flops per byte, far above the card's float32 balance (20
-// flops per byte). The output is tiny (9 x 64 x 64), so the whole problem is
-// the long reduction over M. The design keeps the FMA pipes fed from
-// registers and reads x and g from device memory a few times at most.
+// read, about 144 flops per byte. In float32 FMA that is 2.03 ms at the
+// card's 67 TFLOP/s; on the TF32 tensor cores, three products per float32
+// product (tf32x3.cuh), 0.82 ms at 495 TFLOP/s.
 //
-// Design: split-K over pixels. Block (s, k) takes the s-th of nsplit equal
-// runs of 2 x 32 pixel tiles and the k-th chunk of 32 input channels, and
-// keeps all 9 taps x 32 channels x Co of dw for them in registers across its
-// run. Per tile it stages the 4 x 34 halo tile of x (its 32 channels,
-// pixel-major, zeros outside the image) and the 2 x 32 x Co tile of g (zeros
-// past the image's edge) in shared memory. A thread owns one tap row di, 4
-// input channels and 8 output channels (two float4 runs Co/2 apart, so a
-// warp's g loads are contiguous), and all three column taps dj: it walks the
-// tile's pixels along each row with a sliding window of three x columns, so
-// per pixel it loads one float4 of x and two of g and does 96 FMAs. Each block
-// writes its partial dw to a workspace; a second kernel sums the nsplit
-// partials of each element in double precision in a fixed order, so the
-// result is deterministic and takes no float atomics.
+// Design: for each tap row di, dw[di] is the GEMM
+//     dW[(dj, c), co] = sum_pix Xcol[(dj, c), pix] * G[pix, co],
+// M = 3 x 32 rows for a chunk of 32 input channels, N = Co, K = pixels,
+// split over pixels. Block (di * C/32 + chunk, s) takes tap row di, the
+// chunk's 32 channels, all Co outputs and the s-th of nsplit equal runs of
+// 2 x 40 pixel tiles (the blocks of one run share their tiles in L2). Per
+// tile it stages, double-buffered with cp.async (tile k+1 loads while tile
+// k's MMAs run), the 2 x 42 x-halo of its 32 channels (rows h + di - 1,
+// zeros outside the image; 40 floats a pixel, so the A-fragment loads hit
+// 32 banks) and the 2 x 40 x Co tile of g (zeros past the image; Co + 8
+// floats a pixel, likewise). Warps are 2 (M) x Co/32 (N); a warp owns 48
+// rows x 32 columns of dW: three m16 tiles (one dj and 16 channels each)
+// and four n8 tiles, so each element it loads and splits feeds three or
+// four MMAs. A k-step is 8 pixels of one row: the A fragment is x at
+// those pixels shifted by dj, the B fragment g at them, split to big and
+// small at load and multiplied three times (mma_tf32x3). A tile's 10
+// k-steps sum into fragments from zero, which are then added to float32
+// totals (tf32x3.cuh, `fold`). Each block writes its partial dW to a
+// workspace; a second kernel sums the nsplit partials of each element in
+// double precision in a fixed order, so the result is deterministic and
+// takes no float atomics. The wrapper (ops/dw_conv.py::dw_plan) picks
+// nsplit so that the grid fills the card in whole waves.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int TH = 2;            // pixel rows per tile
-constexpr int TW = 32;           // pixel columns per tile
-constexpr int KC = 32;           // input channels per block
-constexpr int TC = 4;            // input channels per thread (one float4)
-constexpr int TN = 8;            // output channels per thread
-constexpr int XW = TW + 2;       // halo tile columns
-constexpr int XROW = XW * KC;    // floats per halo row, pixel-major
-constexpr int CGRP = KC / TC;    // channel groups
+using tf32x3::FragA;
+using tf32x3::FragB;
+
+constexpr int TH = 2;             // pixel rows per tile
+constexpr int TW = 40;            // pixel columns per tile
+constexpr int TP = TH * TW;       // pixels per tile
+constexpr int KSTEPS = TP / 8;    // k-steps (8 pixels of one row) per tile
+constexpr int KC = 32;            // input channels per block
+constexpr int XW = TW + 2;        // halo columns
+constexpr int XS = KC + 8;        // floats per staged x pixel (bank spread)
+constexpr int XST = TH * XW * XS; // floats of one staged x tile
 
 template <int CO>
 struct Shape {
-  static constexpr int COG = CO / TN;          // output channel groups
-  static constexpr int NT = 3 * CGRP * COG;    // threads: 192 or 288
-  static constexpr int MINB = NT <= 192 ? 2 : 1;
+  static constexpr int GS = CO + 8;          // floats per staged g pixel
+  static constexpr int GST = TP * GS;        // floats of one staged g tile
+  static constexpr int STAGE = XST + GST;
+  static constexpr int SMEM = 2 * STAGE * (int)sizeof(float);
+  static constexpr int WN = CO / 32;         // warps along N
+  static constexpr int NT = 32 * 2 * WN;     // threads: 128 or 192
+  // resident blocks per SM, 12 warps either way (ops/dw_conv.py:
+  // _BLOCKS_PER_SM); registers and shared memory allow no more
+  static constexpr int MINB = CO == 64 ? 3 : 2;
+  static_assert(NT == 2 * CO, "stage: a thread copies one quad of g");
 };
+
+// stage tile `tile` of tap row di and channels c0.. into xs, gs. A thread
+// copies one channel quad of a fixed set of pixels, so the index arithmetic
+// is done once per tile.
+template <int CO>
+__device__ __forceinline__ void stage(const float* __restrict__ x,
+                                      const float* __restrict__ g,
+                                      float* xs, float* gs, int tile, int di,
+                                      int c0, int H, int W, int C,
+                                      int tiles_h, int tiles_w) {
+  constexpr int GS = Shape<CO>::GS;
+  constexpr int NT = Shape<CO>::NT;
+  const int b = tile / (tiles_h * tiles_w);
+  const int rem = tile % (tiles_h * tiles_w);
+  const int y0 = (rem / tiles_w) * TH;
+  const int x0 = (rem % tiles_w) * TW;
+  const long long img = (long long)b * H * W;
+  {
+    // x: the TH x XW halo, rows y0 + di - 1 .., columns x0 - 1 ..
+    constexpr int PSTEP = NT / (KC / 4);
+    const int q4 = threadIdx.x % (KC / 4);
+    const int p0 = threadIdx.x / (KC / 4);
+#pragma unroll
+    for (int k = 0; k < (TH * XW + PSTEP - 1) / PSTEP; ++k) {
+      const int p = p0 + k * PSTEP;
+      if (p < TH * XW) {
+        const int gy = y0 + di - 1 + p / XW;
+        const int gx = x0 - 1 + p % XW;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const float* src =
+            ok ? x + (img + (long long)gy * W + gx) * C + c0 + 4 * q4 : x;
+        tf32x3::cp_async16(xs + p * XS + 4 * q4, src, ok ? 16 : 0);
+      }
+    }
+  }
+  {
+    // g: NT = 2 CO threads, so a thread takes one quad of pixels
+    // p0, p0 + 8, ..: tile row k / (TW/8), column p0 + 8 (k % (TW/8))
+    const int q4 = threadIdx.x % (CO / 4);
+    const int p0 = threadIdx.x / (CO / 4);   // 0..7
+    const float* src0 = g + (img + (long long)y0 * W + x0 + p0) * CO + 4 * q4;
+    float* dst0 = gs + p0 * GS + 4 * q4;
+#pragma unroll
+    for (int k = 0; k < TP / 8; ++k) {
+      const int r = k / (TW / 8), dx = 8 * (k % (TW / 8));
+      const bool ok = y0 + r < H && x0 + p0 + dx < W;
+      const float* src = ok ? src0 + (r * W + dx) * CO : g;
+      tf32x3::cp_async16(dst0 + 8 * k * GS, src, ok ? 16 : 0);
+    }
+  }
+}
 
 template <int CO>
 __global__ void __launch_bounds__(Shape<CO>::NT, Shape<CO>::MINB)
 dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
           float* __restrict__ part, int H, int W, int C, int tiles_h,
           int tiles_w, int ntiles) {
-  constexpr int NT = Shape<CO>::NT;
-  constexpr int COG = Shape<CO>::COG;
-  __shared__ __align__(16) float xs[(TH + 2) * XROW];   // [row][col][KC]
-  __shared__ __align__(16) float gs[TH * TW * CO];      // [row][col][CO]
+  constexpr int GS = Shape<CO>::GS;
+  constexpr int STAGE = Shape<CO>::STAGE;
+  extern __shared__ __align__(16) float smem[];   // 2 x [x tile, g tile]
 
-  const int split = blockIdx.x;
-  const int c0 = blockIdx.y * KC;
-  const int cog = threadIdx.x % COG;
-  const int cgrp = (threadIdx.x / COG) % CGRP;
-  const int di = threadIdx.x / (COG * CGRP);
-  const int t_begin = (int)((long long)ntiles * split / gridDim.x);
-  const int t_end = (int)((long long)ntiles * (split + 1) / gridDim.x);
+  const int nchunk = C / KC;
+  const int di = blockIdx.x / nchunk;
+  const int c0 = (blockIdx.x % nchunk) * KC;
+  const int split = blockIdx.y;
+  const int t_begin = (int)((long long)ntiles * split / gridDim.y);
+  const int t_end = (int)((long long)ntiles * (split + 1) / gridDim.y);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp & 1;           // rows 48 wm .. 48 wm + 47 of dW
+  const int n0 = (warp >> 1) * 32;   // its 32 output channels
 
-  float acc[3][TC][TN];
+  // m16 tile i of this warp: dj = mt / 2, channels (mt % 2) * 16 ..
+  int xoff[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int c = 0; c < TC; ++c)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[j][c][n] = 0.f;
+  for (int i = 0; i < 3; ++i) {
+    const int mt = wm * 3 + i;
+    xoff[i] = (tig + (mt >> 1)) * XS + (mt & 1) * 16 + gid;
+  }
+  const int goff = tig * GS + n0 + gid;
 
+  float acc[3][4][4], tot[3][4][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
+
+  if (t_begin < t_end)
+    stage<CO>(x, g, smem, smem + XST, t_begin, di, c0, H, W, C, tiles_h,
+              tiles_w);
+  tf32x3::cp_async_commit();
+  int buf = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
-    const int b = tile / (tiles_h * tiles_w);
-    const int rem = tile % (tiles_h * tiles_w);
-    const int y0 = (rem / tiles_w) * TH;
-    const int x0 = (rem % tiles_w) * TW;
-    const long long img = (long long)b * H * W;
-    __syncthreads();   // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < (TH + 2) * XW * (KC / 4); idx += NT) {
-      const int q = idx % (KC / 4);
-      const int p = idx / (KC / 4);
-      const int gy = y0 + p / XW - 1;
-      const int gx = x0 + p % XW - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = *reinterpret_cast<const float4*>(
-            x + (img + (long long)gy * W + gx) * C + c0 + 4 * q);
-      reinterpret_cast<float4*>(xs)[idx] = v;
+    if (tile + 1 < t_end) {
+      float* nxt = smem + (buf ^ 1) * STAGE;
+      stage<CO>(x, g, nxt, nxt + XST, tile + 1, di, c0, H, W, C, tiles_h,
+                tiles_w);
     }
-    for (int idx = threadIdx.x; idx < TH * TW * CO / 4; idx += NT) {
-      const int q = idx % (CO / 4);
-      const int p = idx / (CO / 4);
-      const int gy = y0 + p / TW;
-      const int gx = x0 + p % TW;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy < H && gx < W)
-        v = *reinterpret_cast<const float4*>(
-            g + (img + (long long)gy * W + gx) * CO + 4 * q);
-      reinterpret_cast<float4*>(gs)[idx] = v;
-    }
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();   // this tile's copies have landed
     __syncthreads();
-
-#pragma unroll 1
-    for (int r = 0; r < TH; ++r) {
-      // output row r reads halo row r + di; column px reads halo columns
-      // px, px+1, px+2 for dj = 0, 1, 2
-      const float* xr = xs + (r + di) * XROW + cgrp * TC;
-      const float* gr = gs + r * TW * CO + cog * 4;
-      float4 w0 = *reinterpret_cast<const float4*>(xr);
-      float4 w1 = *reinterpret_cast<const float4*>(xr + KC);
+    const float* xs = smem + buf * STAGE;
+    const float* gs = xs + XST;
+#pragma unroll 2
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int r = ks / (TW / 8);
+      const int px0 = (ks % (TW / 8)) * 8;
+      // B: g at pixels px0 + tig (+4) of row r, channels n0 + 8j + gid
+      const float* gp = gs + (r * TW + px0) * GS + goff;
+      FragB fb[4];
 #pragma unroll
-      for (int px = 0; px < TW; ++px) {
-        const float4 w2 = *reinterpret_cast<const float4*>(xr + (px + 2) * KC);
-        const float4 ga = *reinterpret_cast<const float4*>(gr + px * CO);
-        const float4 gb = *reinterpret_cast<const float4*>(gr + px * CO + CO / 2);
-        const float gv[TN] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-        const float xv[3][TC] = {{w0.x, w0.y, w0.z, w0.w},
-                                 {w1.x, w1.y, w1.z, w1.w},
-                                 {w2.x, w2.y, w2.z, w2.w}};
+      for (int j = 0; j < 4; ++j) fb[j].set(gp[8 * j], gp[4 * GS + 8 * j]);
+      // A: x at halo columns px0 + tig + dj (+4) of row r, channels
+      // gid (+8) of the m-tile's 16
+      const float* xp = xs + (r * XW + px0) * XS;
+      FragA fa[3];
 #pragma unroll
-        for (int j = 0; j < 3; ++j)
-#pragma unroll
-          for (int c = 0; c < TC; ++c)
-#pragma unroll
-            for (int n = 0; n < TN; ++n)
-              acc[j][c][n] = fmaf(xv[j][c], gv[n], acc[j][c][n]);
-        w0 = w1;
-        w1 = w2;
+      for (int i = 0; i < 3; ++i) {
+        const float* a = xp + xoff[i];
+        fa[i].set({a[0], a[8], a[4 * XS], a[4 * XS + 8]});
       }
+      tf32x3::mma_tf32x3(acc, fa, fb);
     }
+    tf32x3::fold(tot, acc);
+    __syncthreads();   // the buffer is consumed before it is refilled
+    buf ^= 1;
   }
 
-  // the block's partial: part[split][di*3 + dj][c0 + cgrp*TC + c][co]
+  // the block's partial: part[split][di*3 + dj][c0 + row][co]
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
+  for (int i = 0; i < 3; ++i) {
+    const int mt = wm * 3 + i;
+    const int dj = mt >> 1;
+    const int row = c0 + (mt & 1) * 16 + gid;
 #pragma unroll
-    for (int c = 0; c < TC; ++c) {
-      float* dst = part + (((long long)split * 9 + di * 3 + j) * C + c0 +
-                           cgrp * TC + c) * CO + cog * 4;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[j][c][0], acc[j][c][1], acc[j][c][2], acc[j][c][3]);
-      *reinterpret_cast<float4*>(dst + CO / 2) =
-          make_float4(acc[j][c][4], acc[j][c][5], acc[j][c][6], acc[j][c][7]);
+    for (int j = 0; j < 4; ++j) {
+      float* dst = part +
+                   (((long long)split * 9 + di * 3 + dj) * C + row) * CO +
+                   n0 + 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(tot[i][j][0], tot[i][j][1]);
+      *reinterpret_cast<float2*>(dst + 8 * CO) =
+          make_float2(tot[i][j][2], tot[i][j][3]);
     }
   }
 }
@@ -165,12 +232,17 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
 template <int CO>
 int launch(const float* x, const float* g, float* part, float* dw, int B,
            int H, int W, int C, int nsplit, cudaStream_t stream) {
+  const int set = tf32x3::allow_smem((const void*)dw_kernel<CO>,
+                                     Shape<CO>::SMEM);
+  if (set) return set;
   const int tiles_h = (H + TH - 1) / TH;
   const int tiles_w = (W + TW - 1) / TW;
   const long long ntiles = (long long)B * tiles_h * tiles_w;
-  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dw_kernel<CO><<<dim3(nsplit, C / KC), Shape<CO>::NT, 0, stream>>>(
-      x, g, part, H, W, C, tiles_h, tiles_w, (int)ntiles);
+  if (ntiles > 0x7fffffffLL || nsplit > 65535)
+    return (int)cudaErrorInvalidValue;
+  dw_kernel<CO><<<dim3(3 * (C / KC), nsplit), Shape<CO>::NT,
+                  Shape<CO>::SMEM, stream>>>(x, g, part, H, W, C, tiles_h,
+                                             tiles_w, (int)ntiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = 9 * C * CO;
@@ -183,7 +255,7 @@ int launch(const float* x, const float* g, float* part, float* dw, int B,
 // x [B,H,W,C], g [B,H,W,Co], dw [3,3,C,Co]: float32, contiguous, 16-byte
 // aligned; part: scratch of nsplit * 9 * C * Co floats. C a multiple of 32,
 // Co 64 or 96 (RAFT's routed sites); nsplit >= 1 blocks share the pixels of
-// each channel chunk.
+// each (tap row, channel chunk).
 // Returns cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int conv2d_dw(const float* x, const float* g, float* part,
                          float* dw, int B, int H, int W, int C, int Co,

@@ -1,4 +1,5 @@
-// Fused stride-2 3x3 SAME convolution on Hopper (sm_90a), float32.
+// Fused stride-2 3x3 SAME convolution on Hopper (sm_90a), float32 by 3xTF32
+// on the tensor cores.
 //
 // Replaces the TPU kernel stereoformer_tpu/ops/pallas/conv2d.py::_forward_s2
 // (body `_kernel_s2`, public `conv2d_fused_s2`). With x [B,H,W,C] NHWC (H and
@@ -9,57 +10,135 @@
 //
 // What bounds it on the H100: operations. At RAFT's first stride-2 site
 // ([4,576,960,64] -> 96) one call is 61 GFLOP against 0.78 GB moved, about
-// 78 flops per byte, above the card's float32 balance (67 TFLOP/s over
-// 3.35 TB/s = 20 flops per byte). So, as in the stride-1 kernel
-// (conv2d_fused.cu), the FMA pipes are fed from registers and shared memory.
+// 78 flops per byte: 0.91 ms in float32 FMA at 67 TFLOP/s, 0.37 ms on the
+// TF32 tensor cores with three products per float32 product (tf32x3.cuh).
 //
-// Design: an implicit GEMM in float32 FMA. The Pallas kernel splits x into
-// four row/column phases outside the kernel and packs the taps into four
-// phase matmuls, because Mosaic cannot read strided rows or columns from
-// VMEM. A GPU can: a block stages the (2*8+1) x (2*32+1) input window of an
-// 8 x 32 output tile, 8 input channels at a time, in shared memory, and
-// each thread reads its taps with plain indexed loads. The window's even
-// and odd columns are stored apart, so that the 32 lanes (one output column
-// each) read 32 consecutive words for every tap and hit no bank twice. A
-// block computes 32 output channels (blockIdx.x walks Co in slices of 32,
-// fastest, so the blocks that share a window run together and find it in
-// L2); a warp owns 16 of them for 4 output rows, with its 64 sums in
-// registers. Per input channel a thread reads its 9 x 3 window values once
-// and each tap's weight row as broadcast float4s, then does 576 FMAs. Input
-// channels past C and output channels past Co are staged as zeros, so any C
-// and Co work. Bias and ReLU fuse into the epilogue.
+// Design: the forward implicit GEMM Y[pix, Co] = Xcol[pix, 9C] W[9C, Co] on
+// mma.sync m16n8k8 in 3xTF32. The Pallas kernel splits x into four
+// row/column phases outside the kernel and packs the taps into four phase
+// matmuls, because Mosaic cannot read strided rows or columns from VMEM. A
+// GPU can: a block takes 4 x 32 output pixels and 32 output channels
+// (at each of RAFT's six stride-2 sites at least 144 blocks for the 132
+// SMs), and walks C in chunks of 8. Per chunk it stages, double-buffered
+// with cp.async, the 9 x 65 input window of its pixels and the chunk's
+// 9 x 8 x 32 weights. The window's even and odd columns are stored apart
+// (col_pos), so a tap's 16 consecutive output columns read 16 consecutive
+// window pixels; each pixel holds its 8 channels, the two float4 halves
+// swapped on every other 4-pixel group, so the A-fragment loads (8 pixels
+// x 4 channels a warp) hit 32 banks. A warp owns one output row: two m16 tiles (32 columns) x four
+// n8 tiles (32 channels). A k-step is one tap's 8 channels: the A fragment
+// is the window at that tap, the B fragment its weights, split to big and
+// small at load and multiplied three times (mma_tf32x3). A chunk's 9
+// k-steps sum into fragments from zero, which are then added to float32
+// totals (tf32x3.cuh, `fold`). Channels past C and past Co are staged as
+// zeros, so any C and Co work. Bias and ReLU fuse into the epilogue.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int TH = 8;               // output rows per block
-constexpr int TW = 32;              // output columns per block (one per lane)
-constexpr int RPT = 4;              // output rows per thread
-constexpr int RG = TH / RPT;        // row groups per block
-constexpr int TN = 16;              // output channels per thread (per warp)
+using tf32x3::FragA;
+using tf32x3::FragB;
+
+constexpr int TH = 4;               // output rows per block
+constexpr int TW = 32;              // output columns per block
 constexpr int CB = 32;              // output channels per block
-constexpr int CG = CB / TN;         // channel groups per block
-constexpr int NT = CG * RG * 32;    // threads per block
 constexpr int KC = 8;               // input channels per staged chunk
-constexpr int IH = 2 * TH + 1;      // window rows
 constexpr int IWE = TW + 1;         // window columns 0, 2, ..., 2*TW
 constexpr int IROW = IWE + TW;      // then columns 1, 3, ..., 2*TW-1
-constexpr int IPLANE = IH * IROW;   // one channel of the window
+constexpr int WS = CB + 8;          // floats per staged weight row
+constexpr int WST = 9 * KC * WS;    // floats of one chunk's weights
+constexpr int IH = 2 * TH + 1;      // window rows
+constexpr int NP = IH * IROW;       // window pixels
+constexpr int XST = NP * KC;        // floats of one staged window
+constexpr int STAGE = XST + WST;    // floats of one stage
+// two stages, then the window's pixel offsets (`offsets`)
+constexpr int SMEM = (2 * STAGE + NP) * (int)sizeof(float);
+constexpr int NT = 32 * TH;         // one warp per output row
+// resident blocks per SM: 12 warps (registers allow no more)
+constexpr int MINB = 3;
 
 // The position of window column q in a staged row: even columns first.
 __device__ __forceinline__ int col_pos(int q) {
   return (q & 1) ? IWE + (q >> 1) : (q >> 1);
 }
 
+// the float offset of channel quad q4 (0 or 1) of window pixel p: the two
+// quads swap on every other group of 4 pixels
+__device__ __forceinline__ int xq(int p, int q4) {
+  return p * KC + ((q4 ^ ((p >> 2) & 1)) << 2);
+}
+
+// offsets[p]: where window pixel p starts in the image xb (its row times
+// W plus its column, times C), or -1 outside the image; the same for every
+// channel chunk, so computed once per block
+__device__ __forceinline__ void window_offsets(int* offsets, int gy0,
+                                               int gx0, int H, int W, int C) {
+  for (int p = threadIdx.x; p < NP; p += NT) {
+    const int pos = p % IROW;
+    const int gy = gy0 + p / IROW;
+    const int gx = gx0 + (pos < IWE ? 2 * pos : 2 * (pos - IWE) + 1);
+    offsets[p] =
+        gy >= 0 && gy < H && gx >= 0 && gx < W ? (gy * W + gx) * C : -1;
+  }
+}
+
 template <bool VEC>
-__global__ void __launch_bounds__(NT, 3)
+__device__ __forceinline__ void stage(const float* __restrict__ xb,
+                                      const float* __restrict__ w,
+                                      const int* offsets, float* xs,
+                                      float* ws, int c0, int cb0, int C,
+                                      int Co) {
+  if (VEC) {
+    // C % 4 == 0 and Co % 4 == 0: 16-byte pieces; NT is even, so a thread
+    // keeps its channel quad
+    const int q4 = threadIdx.x & 1, c = c0 + 4 * q4;
+    for (int p = threadIdx.x >> 1; p < NP; p += NT / 2) {
+      const int off = offsets[p];
+      const bool ok = off >= 0 && c < C;
+      tf32x3::cp_async16(xs + xq(p, q4), ok ? xb + off + c : xb,
+                         ok ? 16 : 0);
+    }
+    for (int idx = threadIdx.x; idx < 9 * KC * (CB / 4); idx += NT) {
+      const int n4 = idx % (CB / 4);
+      const int row = idx / (CB / 4);   // tap * KC + kk
+      const int c = c0 + row % KC, o = cb0 + 4 * n4;
+      const bool ok = c < C && o < Co;
+      const float* src =
+          ok ? w + ((long long)(row / KC) * C + c) * Co + o : w;
+      tf32x3::cp_async16(ws + row * WS + 4 * n4, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < NP * KC; idx += NT) {
+      const int cc = idx % KC;
+      const int p = idx / KC;
+      const int off = offsets[p], c = c0 + cc;
+      const bool ok = off >= 0 && c < C;
+      tf32x3::cp_async4(xs + xq(p, cc >> 2) + (cc & 3),
+                        ok ? xb + off + c : xb, ok ? 4 : 0);
+    }
+    for (int idx = threadIdx.x; idx < 9 * KC * CB; idx += NT) {
+      const int n = idx % CB;
+      const int row = idx / CB;
+      const int c = c0 + row % KC, o = cb0 + n;
+      const bool ok = c < C && o < Co;
+      const float* src =
+          ok ? w + ((long long)(row / KC) * C + c) * Co + o : w;
+      tf32x3::cp_async4(ws + row * WS + n, src, ok ? 4 : 0);
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT, MINB)
 conv3x3_s2_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ bias, float* __restrict__ y,
                   int H, int W, int C, int Ho, int Wo, int Co, int tiles_w,
                   int relu) {
-  __shared__ __align__(16) float xs[KC * IPLANE];   // [KC][IH][IROW]
-  __shared__ __align__(16) float ws[9 * KC * CB];   // [tap][KC][CB]
+  // 2 x [window, weights], then the window's pixel offsets
+  extern __shared__ __align__(16) float smem[];
 
   const int cb0 = blockIdx.x * CB;
   const int tile = blockIdx.y;
@@ -68,151 +147,138 @@ conv3x3_s2_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int ox0 = (tile % tiles_w) * TW;
   const int gy0 = 2 * oy0 - 1;      // the window's first input row
   const int gx0 = 2 * ox0 - 1;      // and column
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cg = warp % CG;
-  const int r0 = (warp / CG) * RPT;
-  const int co0 = cb0 + cg * TN;
   const long long img = (long long)b * H * W;
+  const int lane = threadIdx.x & 31;
+  const int row = threadIdx.x >> 5;   // the warp's output row in the tile
+  const int gid = lane >> 2, tig = lane & 3;
 
-  float acc[RPT][TN];
+  // [n8 tile pair jp][m16 tile h][tile jj of the pair]: n8 tile 2 jp + jj
+  float acc[2][2][2][4], tot[2][2][2][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int jp = 0; jp < 2; ++jp)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) acc[i][n] = 0.f;
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[jp][h][jj][e] = tot[jp][h][jj][e] = 0.f;
 
+  const float* xb = x + img * C;
+  int* offsets = reinterpret_cast<int*>(smem + 2 * STAGE);
+  window_offsets(offsets, gy0, gx0, H, W, C);
+  __syncthreads();
+  stage<VEC>(xb, w, offsets, smem, smem + XST, 0, cb0, C, Co);
+  tf32x3::cp_async_commit();
+  int buf = 0;
   for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();   // the previous chunk is consumed
-    if (VEC) {
-      // C % 4 == 0: four channels of one pixel per load
-      for (int idx = threadIdx.x; idx < IH * IROW * (KC / 4); idx += NT) {
-        const int q4 = idx % (KC / 4);
-        const int p = idx / (KC / 4);
-        const int r = p / IROW, q = p % IROW;
-        const int gy = gy0 + r, gx = gx0 + q, c = c0 + 4 * q4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C)
-          v = *reinterpret_cast<const float4*>(
-              x + ((img + (long long)gy * W + gx) * C + c));
-        float* dst = xs + 4 * q4 * IPLANE + r * IROW + col_pos(q);
-        dst[0] = v.x;
-        dst[IPLANE] = v.y;
-        dst[2 * IPLANE] = v.z;
-        dst[3 * IPLANE] = v.w;
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < IH * IROW * KC; idx += NT) {
-        const int cc = idx % KC;
-        const int p = idx / KC;
-        const int r = p / IROW, q = p % IROW;
-        const int gy = gy0 + r, gx = gx0 + q, c = c0 + cc;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C)
-          v = x[(img + (long long)gy * W + gx) * C + c];
-        xs[cc * IPLANE + r * IROW + col_pos(q)] = v;
-      }
+    if (c0 + KC < C) {
+      float* nxt = smem + (buf ^ 1) * STAGE;
+      stage<VEC>(xb, w, offsets, nxt, nxt + XST, c0 + KC, cb0, C, Co);
     }
-    // the chunk's weights for this block's output channels, zero past C, Co
-    for (int idx = threadIdx.x; idx < 9 * KC * CB; idx += NT) {
-      const int n = idx % CB;
-      const int cc = (idx / CB) % KC;
-      const int tap = idx / (CB * KC);
-      const int c = c0 + cc, o = cb0 + n;
-      ws[idx] = (c < C && o < Co) ? w[((long long)tap * C + c) * Co + o] : 0.f;
-    }
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();   // this chunk's copies have landed
     __syncthreads();
-
-#pragma unroll 1
-    for (int c = 0; c < KC; ++c) {
-      // window rows 2*r0 .. 2*r0 + 2*RPT; columns 2*lane + kx
-      const float* xr = xs + c * IPLANE + 2 * r0 * IROW;
-      float in[2 * RPT + 1][3];
+    const float* xs = smem + buf * STAGE;
+    const float* ws = xs + XST;
 #pragma unroll
-      for (int i = 0; i < 2 * RPT + 1; ++i) {
-        in[i][0] = xr[i * IROW + lane];
-        in[i][1] = xr[i * IROW + IWE + lane];
-        in[i][2] = xr[i * IROW + lane + 1];
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      // A: window row 2 row + ky, output columns j = 16h + gid (+8) at tap
+      // kx (window column 2j + kx: 16 more columns, 16 more positions),
+      // channels tig (+4)
+      const int p = (2 * row + ky) * IROW + col_pos(2 * gid + kx);
+      FragA fa[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* lo = xs + xq(p + 16 * h, 0) + tig;
+        const float* hi = xs + xq(p + 16 * h, 1) + tig;
+        fa[h].set({lo[0], lo[8 * KC], hi[0], hi[8 * KC]});
       }
+      // B: weights of channels tig (+4), output channels 8j + gid, two n8
+      // tiles at a time
+      const float* wp = ws + (tap * KC + tig) * WS + gid;
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+      for (int jp = 0; jp < 2; ++jp) {
+        FragB fb[2];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4* wr = reinterpret_cast<const float4*>(
-              ws + ((ky * 3 + kx) * KC + c) * CB + cg * TN);
-          float wv[TN];
+        for (int jj = 0; jj < 2; ++jj)
+          fb[jj].set(wp[16 * jp + 8 * jj], wp[4 * WS + 16 * jp + 8 * jj]);
+        tf32x3::mma_tf32x3(acc[jp], fa, fb);
+      }
+    }
 #pragma unroll
-          for (int n4 = 0; n4 < TN / 4; ++n4) {
-            const float4 q = wr[n4];
-            wv[4 * n4] = q.x;
-            wv[4 * n4 + 1] = q.y;
-            wv[4 * n4 + 2] = q.z;
-            wv[4 * n4 + 3] = q.w;
-          }
+    for (int jp = 0; jp < 2; ++jp) tf32x3::fold(tot[jp], acc[jp]);
+    __syncthreads();   // the buffer is consumed before it is refilled
+    buf ^= 1;
+  }
+
+  // epilogue: bias, ReLU, store the pixels and channels in range
+  const int oy = oy0 + row;
+  if (oy >= Ho) return;
+  const bool pairs = Co % 2 == 0;
 #pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float a = in[2 * i + ky][kx];
+  for (int j = 0; j < 4; ++j) {
+    const int co = cb0 + 8 * j + 2 * tig;
+    if (co >= Co) continue;
+    const bool two = co + 1 < Co;
+    const float b0 = bias[co], b1 = two ? bias[co + 1] : 0.f;
 #pragma unroll
-            for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(a, wv[n], acc[i][n]);
-          }
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ox = ox0 + 16 * h + 8 * half + gid;
+        if (ox >= Wo) continue;
+        const float* t = tot[j >> 1][h][j & 1];
+        float v0 = t[2 * half] + b0;
+        float v1 = t[2 * half + 1] + b1;
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        float* o = y + (((long long)b * Ho + oy) * Wo + ox) * Co + co;
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
         }
       }
     }
   }
+}
 
-  // epilogue: bias, ReLU, store the channels below Co
-  if (co0 >= Co) return;
-  const int nco = min(TN, Co - co0);
-  float bv[TN];
-#pragma unroll
-  for (int n = 0; n < TN; ++n) bv[n] = n < nco ? bias[co0 + n] : 0.f;
-  const int ox = ox0 + lane;
-  const bool vec_out = nco == TN && Co % 4 == 0;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int oy = oy0 + r0 + i;
-    if (oy >= Ho || ox >= Wo) continue;
-    float* o = y + (((long long)b * Ho + oy) * Wo + ox) * Co + co0;
-    float v[TN];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      v[n] = acc[i][n] + bv[n];
-      if (relu) v[n] = fmaxf(v[n], 0.f);
-    }
-    if (vec_out) {
-#pragma unroll
-      for (int n4 = 0; n4 < TN / 4; ++n4)
-        reinterpret_cast<float4*>(o)[n4] =
-            make_float4(v[4 * n4], v[4 * n4 + 1], v[4 * n4 + 2], v[4 * n4 + 3]);
-    } else {
-#pragma unroll
-      for (int n = 0; n < TN; ++n)
-        if (n < nco) o[n] = v[n];
-    }
-  }
+template <bool VEC>
+int launch(const float* x, const float* w, const float* bias, float* y,
+           int B, int H, int W, int C, int Co, int relu, cudaStream_t s) {
+  const int Ho = H / 2, Wo = W / 2;
+  const int tiles_w = (Wo + TW - 1) / TW;
+  const long long tiles = (long long)((Ho + TH - 1) / TH) * tiles_w;
+  if (tiles > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int err =
+      tf32x3::allow_smem((const void*)conv3x3_s2_kernel<VEC>, SMEM);
+  if (err) return err;
+  const dim3 grid((Co + CB - 1) / CB, (unsigned)tiles, B);
+  conv3x3_s2_kernel<VEC><<<grid, NT, SMEM, s>>>(x, w, bias, y, H, W, C, Ho,
+                                                 Wo, Co, tiles_w, relu);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [B,H,W,C], w [3,3,C,Co], bias [Co], y [B,H/2,W/2,Co]: float32,
-// contiguous, 16-byte aligned; H and W even; any C and Co.
+// contiguous, 16-byte aligned; H and W even, H * W * C < 2^31 (offsets in
+// one image are ints); any C and Co.
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
 extern "C" int conv2d_s2_forward(const float* x, const float* w,
                                  const float* bias, float* y, int B, int H,
                                  int W, int C, int Co, int relu,
                                  void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || H % 2 || W % 2)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || H % 2 || W % 2 ||
+      (long long)H * W * C > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int Ho = H / 2, Wo = W / 2;
-  const int tiles_w = (Wo + TW - 1) / TW;
-  const long long tiles = (long long)((Ho + TH - 1) / TH) * tiles_w;
-  if (tiles > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Co + CB - 1) / CB, (unsigned)tiles, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (C % 4 == 0)
-    conv3x3_s2_kernel<true><<<grid, NT, 0, s>>>(x, w, bias, y, H, W, C, Ho,
-                                                Wo, Co, tiles_w, relu);
-  else
-    conv3x3_s2_kernel<false><<<grid, NT, 0, s>>>(x, w, bias, y, H, W, C, Ho,
-                                                 Wo, Co, tiles_w, relu);
-  return (int)cudaGetLastError();
+  if (C % 4 == 0 && Co % 4 == 0)
+    return launch<true>(x, w, bias, y, B, H, W, C, Co, relu, s);
+  return launch<false>(x, w, bias, y, B, H, W, C, Co, relu, s);
 }

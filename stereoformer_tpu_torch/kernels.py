@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library of
 its own with a plain C interface, and loaded with ``ctypes``. The libraries
 go to ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so a later process reuses them. ``build`` compiles
-every source that is not built yet in parallel, one ``nvcc`` per source;
-``launch`` builds at first use. Nothing is built or loaded at import.
+source, the headers in ``csrc/`` and the flags, so a later process reuses
+them; ptxas's report (registers, spills) is kept beside each library.
+``build`` compiles every source that is not built yet in parallel, one
+``nvcc`` per source; ``launch`` builds at first use. Nothing is built or
+loaded at import.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,9 +56,13 @@ build_log: dict = {}   # name -> nvcc's output (ptxas registers and spills)
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name][0]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library of kernel ``name``, named by a hash of its source, every
+    header in ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha1((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:
@@ -89,10 +96,47 @@ def build(names=None) -> float:
         if proc.returncode:
             failed.append(f"{n} (nvcc exit {proc.returncode}):\n{build_log[n]}")
         else:
+            _library_path(n).with_suffix(".log").write_text(build_log[n])
             os.replace(tmp, _library_path(n))   # atomic if processes race
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def _entry_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol:
+    ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = mangled
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group())
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if rest.startswith("I"):
+        args = re.findall(r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])
+        name += "<" + ",".join(args) + ">"
+    return name
+
+
+def ptxas_usage(name: str) -> dict:
+    """Registers and spill bytes of each entry function of kernel ``name``,
+    as ptxas reported them when its library was built (``build_log``, or
+    the log kept beside the library; empty if neither exists): entry ->
+    {"registers", "spill_stores", "spill_loads"}."""
+    log = build_log.get(name)
+    if log is None and _library_path(name).with_suffix(".log").exists():
+        log = _library_path(name).with_suffix(".log").read_text()
+    usage, entry = {}, None
+    for line in (log or "").splitlines():
+        if (m := re.search(r"Compiling entry function '(\w+)'", line)):
+            entry = _entry_name(m.group(1))
+            usage[entry] = {}
+        elif entry and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[entry].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            usage[entry]["registers"] = int(m.group(1))
+    return usage
 
 
 def _function(name: str):

@@ -17,6 +17,8 @@ the fused conv.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -26,6 +28,19 @@ from .. import kernels
 _KERNEL_C = (64, 96)
 # input channels per block (csrc/conv2d_dw.cu: KC)
 _CHUNK = 32
+# blocks of each template resident on one SM (csrc/conv2d_dw.cu: MINB)
+_BLOCKS_PER_SM = {64: 3, 96: 2}
+
+
+def dw_plan(C: int, sms: int) -> tuple:
+    """(nsplit, blocks) of the kernel's grid for C = Co on a card with
+    ``sms`` SMs: each run of pixel tiles has 3 * C/32 blocks (tap row,
+    channel chunk), and nsplit is the fewest runs whose blocks fill the
+    card's resident slots in whole waves."""
+    slots = sms * _BLOCKS_PER_SM[C]
+    per_split = 3 * (C // _CHUNK)
+    nsplit = slots // math.gcd(slots, per_split)
+    return nsplit, nsplit * per_split
 
 
 def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -56,10 +71,8 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"conv2d_dw: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
             f"Co={Co}")
-    # two blocks per SM over all the channel chunks: every block gets the
-    # same number of pixel tiles, and the partials stay a few tens of MB
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit = max(1, 2 * sms // (C // _CHUNK))
+    nsplit, _ = dw_plan(C, sms)
     part = x.new_empty((nsplit, 9, C, Co))
     dw = x.new_empty((3, 3, C, Co))
     kernels.launch("conv2d_dw", x.device, x.data_ptr(), g.data_ptr(),

@@ -216,6 +216,18 @@ def conv3x3_s2_plain(x, w, b, relu=False):
     return torch.relu(y) if relu else y
 
 
+# the stride-2 kernel's block (csrc/conv2d_s2.cu: TH, TW, CB): output rows,
+# output columns and output channels
+_S2_TILE_H, _S2_TILE_W, _S2_CB = 4, 32, 32
+
+
+def s2_blocks(B: int, H: int, W: int, Co: int) -> int:
+    """The blocks of the stride-2 kernel's grid for x [B, H, W, .] and Co
+    outputs."""
+    return (B * -(-(H // 2) // _S2_TILE_H) * -(-(W // 2) // _S2_TILE_W)
+            * -(-Co // _S2_CB))
+
+
 def _launch_s2(x, w, b, relu):
     kernels.check_inputs("conv2d_s2", x, w, b)
     B, H, W, C = x.shape
@@ -224,6 +236,9 @@ def _launch_s2(x, w, b, relu):
         raise ValueError(
             f"conv2d_s2: the kernel takes w [3, 3, {C}, Co] and b [Co], got "
             f"{tuple(w.shape)} and {tuple(b.shape)}")
+    if H * W * C >= 2 ** 31:
+        raise ValueError(
+            f"conv2d_s2: the kernel takes H * W * C < 2^31, got {H * W * C}")
     y = x.new_empty((B, H // 2, W // 2, Co))
     kernels.launch("conv2d_s2", x.device, x.data_ptr(), w.data_ptr(),
                    b.data_ptr(), y.data_ptr(), B, H, W, C, Co, int(relu))

@@ -254,9 +254,10 @@ DW_RTOL = 1e-5
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
-                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96)],
+                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96),
+                                   (4, 160, 360, 96, 96)],
                          ids=["main-width", "edge-C96", "H-tail-C64",
-                              "tails-C96"])
+                              "tails-C96", "raft-cnet-layer2"])
 def test_conv2d_dw_matches_plain(cuda_device, shape):
     B, H, W, C, Co = shape
     rng = np.random.default_rng(9)
@@ -270,6 +271,19 @@ def test_conv2d_dw_matches_plain(cuda_device, shape):
     assert got.shape == (3, 3, C, Co) and got.dtype == torch.float32
     torch.testing.assert_close(got.double(), want, rtol=0,
                                atol=DW_RTOL * want.abs().max().item())
+
+
+def test_conv2d_dw_is_deterministic(cuda_device):
+    """The partials are summed in a fixed order: two calls on the same
+    inputs give the same bits."""
+    rng = np.random.default_rng(10)
+    for C in (64, 96):
+        x = _randn(rng, (2, 40, 90, C), cuda_device)
+        g = _randn(rng, (2, 40, 90, C), cuda_device)
+        first = ops.conv2d_dw(x, g)
+        second = ops.conv2d_dw(x, g)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 # the backward's gradients against autograd of the plain version on
@@ -486,9 +500,10 @@ S2_RTOL = 1e-5
 
 
 @pytest.mark.parametrize("shape", [(2, 20, 48, 16, 24), (2, 144, 240, 128, 128),
-                                   (1, 34, 70, 6, 10), (1, 18, 66, 96, 128)],
+                                   (1, 34, 70, 6, 10), (1, 18, 66, 96, 128),
+                                   (2, 72, 120, 128, 128)],
                          ids=["jax-test", "raft-cnet-down1a", "odd-C-Co",
-                              "tile-tails"])
+                              "tile-tails", "raft-cnet-layer5"])
 @pytest.mark.parametrize("relu", [False, True], ids=["bare", "relu"])
 def test_conv2d_s2_matches_plain(cuda_device, shape, relu):
     B, H, W, C, Co = shape
