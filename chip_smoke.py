@@ -70,12 +70,13 @@ any failure exits nonzero and prints no result:
    row-gather probe (stereoformer_tpu_torch.scripts.gather_probe): one
    launch per call;
 12. each kernel's device time beside its bound and its plain version's;
-   for conv2d_fused also its TF32 bound and cuDNN's time for one F.conv2d
+   for the three 3xTF32 conv kernels also their 3xTF32 and one-pass TF32
+   bounds, their share of the 3xTF32 bound, their ratio to cuDNN's float32
+   time and their registers and spills: conv2d_fused beside one F.conv2d
    with bias at the same shape (TF32 on and off), at the four RAFT eval
    shapes, and as the dx conv at the four RAFT training shapes beside
-   cuDNN's conv2d_input; for conv2d_dw, at the four training shapes, beside
-   cuDNN's conv2d_weight (TF32 on and off), its 3xTF32 bound, its share of
-   that bound and its ratio to cuDNN's float32 time (as for conv2d_s2);
+   cuDNN's conv2d_input; conv2d_dw, at the four training shapes, beside
+   cuDNN's conv2d_weight (TF32 on and off);
    for deform_sample at the learned bounds' eval and train shapes, beside
    the wrapper with its matmul and torchvision's deform_conv2d where
    torchvision imports; for conv2d_s2 at RAFT's six stride-2 sites beside
@@ -528,8 +529,10 @@ def check_conv_kernel(ops, rng) -> float:
     (cuDNN with TF32 off) at RAFT's four shapes and at edge shapes; returns
     the largest absolute error of y."""
     torch.backends.cudnn.allow_tf32 = False
-    # float32 sums of 9 C products in another order (input channel, then
-    # tap), and fmaf in the prologue: relative to the largest |y|
+    # 3xTF32 products summed per 8-channel chunk on the tensor cores and
+    # folded into float32 totals, in another order than cuDNN's (input
+    # channel chunk, then tap), and fmaf in the prologue: relative to the
+    # largest |y|
     y_rtol = 1e-5
     # moments: per-block float32 sums added in float64, against float64
     # sums of the plain output; S1 and S2 relative to their largest value,
@@ -1362,8 +1365,14 @@ def conv_row(ops, rng, err, launches, record) -> dict:
     context net's prologue), the plain version's (its conv in cuDNN with
     TF32 off, float32 as the kernel), cuDNN's F.conv2d with bias (TF32 off
     and on), and the bounds: bytes (x read, y written) or float32
-    operations, and the operations at the TF32 rate."""
+    operations at the float32 rate (``bound_ms``), three TF32 products per
+    float32 product at the TF32 rate (the kernel's design,
+    ``bound_tf32x3_ms``) and one TF32 product (``bound_tf32_ms``); the
+    blocks of each site's grid."""
     import torch.nn.functional as F
+
+    from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
     torch.backends.cudnn.allow_tf32 = False
     times = {}
@@ -1385,22 +1394,18 @@ def conv_row(ops, rng, err, launches, record) -> dict:
                    lambda: ops.conv3x3_plain(x, w, b, **kw), 5),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
                "bound_tf32_ms": max(t_bytes,
-                                    nops / TF32_FLOPS_PER_S * 1e3)}
+                                    nops / TF32_FLOPS_PER_S * 1e3),
+               "blocks": fused_blocks(B_, H_, W_, C)}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
             row[key] = graph_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
-        print(f"  conv2d_fused {variant} {where} {row['shape']}: "
-              f"{row['ms']:.3f} ms on the device ({nops / row['ms'] / 1e9:.1f}"
-              f" TFLOP/s), bound {row['bound_ms']:.3f} ms float32 by "
-              f"{row['bound_by']}, {row['bound_tf32_ms']:.3f} ms TF32; "
-              f"{row['call_ms']:.3f} ms per wrapper call; plain "
-              f"{row['plain_ms']:.3f} ms; cuDNN F.conv2d+bias "
-              f"{row['library_ms']:.3f} ms (TF32 off), "
-              f"{row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        print_conv_row(f"conv2d_fused {variant}", where, row, nops,
+                       "F.conv2d+bias")
         del x, w, b, s, t, r, xc, wc
     dx = dx_times(ops, rng)
     torch.backends.cudnn.allow_tf32 = True
@@ -1417,8 +1422,12 @@ def conv_row(ops, rng, err, launches, record) -> dict:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library_tf32_ms": main["library_tf32_ms"],
-        "bound_tf32_ms": main["bound_tf32_ms"], "shape": main["shape"],
-        "variant": main["variant"], "dx": dx["fnet layer1"],
+        "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+        "bound_tf32_ms": main["bound_tf32_ms"],
+        "share_of_design_bound": main["share_of_design_bound"],
+        "ratio_to_cudnn_f32": main["ratio_to_cudnn_f32"],
+        "shape": main["shape"], "variant": main["variant"],
+        "dx": dx["fnet layer1"], "ptxas": kernels.ptxas_usage("conv2d_fused"),
     }
 
 
@@ -1426,8 +1435,11 @@ def dx_times(ops, rng) -> dict:
     """Phase 12, conv2d_fused as the backward's dx conv at RAFT's four
     training shapes (the cotangent with the flipped, io-transposed weights
     and no bias): its device time, the plain version's, cuDNN's
-    conv2d_input for the same gradient (TF32 off and on), and the bounds."""
+    conv2d_input for the same gradient (TF32 off and on), and the bounds
+    (float32, 3xTF32 and one TF32 pass, as in ``conv_row``)."""
     from torch.nn.grad import conv2d_input
+
+    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
     times = {}
     for where, (B_, H_, W_, C) in RAFT_TRAIN_CONVS.items():
@@ -1451,7 +1463,11 @@ def dx_times(ops, rng) -> dict:
                "plain_ms": graph_ms(
                    lambda: ops.conv3x3_plain(g, w_rot, zero), 5),
                "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+               "bound_tf32_ms": max(t_bytes,
+                                    nops / TF32_FLOPS_PER_S * 1e3),
+               "blocks": fused_blocks(B_, H_, W_, C)}
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             key = "library_tf32_ms" if tf32 else "library_ms"
@@ -1459,13 +1475,8 @@ def dx_times(ops, rng) -> dict:
                 lambda: conv2d_input((B_, C, H_, W_), wc, gc, padding=1), 10)
         torch.backends.cudnn.allow_tf32 = False
         times[where] = row
-        print(f"  conv2d_fused as dx {where} {row['shape']}: {row['ms']:.3f} "
-              f"ms on the device ({nops / row['ms'] / 1e9:.1f} TFLOP/s), "
-              f"bound {row['bound_ms']:.3f} ms by {row['bound_by']}; "
-              f"{row['call_ms']:.3f} ms per wrapper call; plain "
-              f"{row['plain_ms']:.3f} ms; cuDNN conv2d_input "
-              f"{row['library_ms']:.3f} ms (TF32 off), "
-              f"{row['library_tf32_ms']:.3f} ms (TF32 on)", flush=True)
+        print_conv_row("conv2d_fused as dx", where, row, nops,
+                       "conv2d_input")
         del g, w, w_rot, gc, wc
     return times
 
@@ -1477,8 +1488,9 @@ def tf32x3_bound_ms(nbytes: float, nops: float) -> float:
 
 
 def print_conv_row(name, where, row, nops, library) -> None:
-    """Print one site of conv2d_dw or conv2d_s2 and add its share of the
-    3xTF32 bound and its ratio to cuDNN's float32 call to ``row``."""
+    """Print one site of a 3xTF32 conv kernel (conv2d_fused, conv2d_dw,
+    conv2d_s2) and add its share of the 3xTF32 bound and its ratio to
+    cuDNN's float32 call to ``row``."""
     row["share_of_design_bound"] = row["bound_tf32x3_ms"] / row["ms"]
     row["ratio_to_cudnn_f32"] = row["ms"] / row["library_ms"]
     extra = (f" (the profiler: {row['profiler_ms']:.3f} ms)"

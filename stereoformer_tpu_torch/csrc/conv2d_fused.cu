@@ -1,4 +1,5 @@
-// Fused stride-1 3x3 SAME convolution on Hopper (sm_90a), float32.
+// Fused stride-1 3x3 SAME convolution on Hopper (sm_90a), float32 by 3xTF32
+// on the tensor cores.
 //
 // Replaces the TPU kernel stereoformer_tpu/ops/pallas/conv2d.py::_forward
 // (body `_kernel`) and with it its four entry points conv2d_fused,
@@ -11,217 +12,304 @@
 //
 // What bounds it on the H100: operations. At RAFT's full-resolution layer1
 // ([4,576,960,64] -> 64) one call is 163 GFLOP against 283 MB moved, about
-// 580 flops per byte, far above the card's float32 balance (67 TFLOP/s over
-// 3.35 TB/s = 20 flops per byte). So the design keeps the FMA pipes fed from
-// registers and shared memory, and reads each input from device memory about
-// once.
+// 580 flops per byte: 2.43 ms in float32 FMA at 67 TFLOP/s, 0.99 ms on the
+// TF32 tensor cores with three products per float32 product (tf32x3.cuh).
 //
-// Design: an implicit GEMM in float32 FMA (M = pixels, N = Co, K = 9 C). A
-// block computes an 8 x 32 tile of output pixels of one image for all Co
-// channels. It walks C in chunks of 8 input channels: each chunk stages the
-// 10 x 34 halo tile of the input (prologue applied, zeros outside the image)
-// channel-major in shared memory, and the chunk's 9 x 8 x Co weights. A warp
-// owns 16 output channels and 4 rows; its lane is the output column. Per
-// input channel a thread reads the 6 x 3 input values its 4 x 9 taps need
-// once, and each weight row as a broadcast float4, then does 576 FMAs from
-// registers. Bias, residual and ReLU fuse into the epilogue. The moments are
-// reduced without float atomics, in a fixed order: a butterfly over the warp's
-// lanes, then the block's two row groups, written as one partial per block;
-// a second kernel sums a sample's partials in double precision, in a fixed
-// order, so the result is deterministic and m2 - m1^2 keeps its digits.
+// Design: the forward implicit GEMM Y[pix, Co] = Xcol[pix, 9C] W[9C, Co] on
+// mma.sync m16n8k8 in 3xTF32, the mainloop of conv2d_s2.cu at stride 1. A
+// block takes 4 x 32 output pixels of one image and 32 output channels (at
+// each of RAFT's eight sites at least 5760 blocks for the 132 SMs; a tile's
+// 2 or 3 channel blocks are neighbours in the grid) and walks C in chunks
+// of 8. Per chunk it stages, double-buffered with cp.async, the
+// 6 x 34 input window of its pixels and the chunk's 9 x 8 x 32 weights. Each
+// window pixel holds its 8 channels, the two float4 halves swapped on every
+// other 4-pixel group (`xq`), so the A-fragment loads (8 consecutive pixels
+// x 4 channels a warp) hit 32 banks. A warp owns one output row: two m16
+// tiles (32 columns) x four n8 tiles (32 channels). A k-step is one tap's 8
+// channels: the A fragment is the window at that tap, the B fragment its
+// weights, split to big and small at load and multiplied three times
+// (mma_tf32x3). A chunk's 9 k-steps sum into fragments from zero, which are
+// then added to float32 totals (tf32x3.cuh, `fold`).
+//
+// The prologue: cp.async cannot transform data in flight, so once a chunk
+// has landed each thread rewrites the window pixels it copied itself (after
+// cp.async.wait_group its own copies are visible to it, so no extra barrier)
+// as relu(x s + t), in-image pixels only: padding stays 0. That is one
+// shared-memory read and write of each staged value per chunk (about 3
+// float4 per thread), where applying it at fragment load would repeat it for
+// each of the 9 taps that read a pixel. Its scales and shifts are loaded one
+// chunk ahead (1.5% at [4,576,960,64] on an H100 against loading them just
+// before use).
+//
+// The weights are split at fragment load, as the A operand is, though the
+// block's 4 warps load the same weights: splitting them once per block
+// while staging (big and small kept in shared memory) measured 3.6% slower
+// at [4,576,960,64] on an H100: it saves the warps' split instructions but
+// reads twice the weight bytes from shared memory per MMA.
+//
+// Epilogue: bias, residual (float2 loads), ReLU and float2 stores from the
+// C fragment layout. The moments of the stored values are reduced without
+// float atomics, in a fixed order: each thread sums its 4 pixels per
+// channel, a shuffle butterfly over the 8 lanes that share a channel pair,
+// then the block's 4 warps in turn in shared memory, written as one partial
+// per (tile, channel block); a second kernel sums a sample's partials in
+// double precision, in a fixed order, so the result is deterministic and
+// m2 - m1^2 keeps its digits. Pixels past H or W are neither stored nor
+// counted (their MMA rows hold 0 + b).
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int TH = 8;              // output rows per block
-constexpr int TW = 32;             // output columns per block (one per lane)
-constexpr int RPT = 4;             // output rows per thread
-constexpr int KC = 8;              // input channels per staged chunk
-constexpr int TN = 16;             // output channels per thread (per warp)
-constexpr int IH = TH + 2;         // halo tile rows
-constexpr int IW = TW + 2;         // halo tile columns
-constexpr int IPLANE = IH * IW;    // one channel of the halo tile
-constexpr int RG = TH / RPT;       // row groups per block
+using tf32x3::FragA;
+using tf32x3::FragB;
 
-template <int CO>
-struct Shape {
-  static constexpr int CG = CO / TN;          // channel groups (warps per row group)
-  static constexpr int NT = CG * RG * 32;     // threads per block
-  static constexpr int MINB = NT >= 384 ? 1 : 512 / NT;
-};
+constexpr int TH = 4;               // output rows per block
+constexpr int TW = 32;              // output columns per block
+constexpr int CB = 32;              // output channels per block
+constexpr int KC = 8;               // input channels per staged chunk
+constexpr int IW = TW + 2;          // window columns
+constexpr int IH = TH + 2;          // window rows
+constexpr int NP = IH * IW;         // window pixels
+constexpr int XST = NP * KC;        // floats of one staged window
+constexpr int WS = CB + 8;          // floats per staged weight row
+constexpr int WST = 9 * KC * WS;    // floats of one chunk's weights
+constexpr int STAGE = XST + WST;    // floats of one stage
+// two stages, then the window's pixel offsets (`offsets`)
+constexpr int SMEM = (2 * STAGE + NP) * (int)sizeof(float);
+constexpr int NT = 32 * TH;         // one warp per output row
+// resident blocks per SM: 12 warps, as conv2d_s2.cu
+constexpr int MINB = 3;
 
-template <int CO>
-__global__ void __launch_bounds__(Shape<CO>::NT, Shape<CO>::MINB)
+static_assert(TH * 2 * CB <= 2 * STAGE, "moment scratch fits in a stage");
+
+// the float offset of channel quad q4 (0 or 1) of window pixel p: the two
+// quads swap on every other group of 4 pixels
+__device__ __forceinline__ int xq(int p, int q4) {
+  return p * KC + ((q4 ^ ((p >> 2) & 1)) << 2);
+}
+
+// offsets[p]: where window pixel p starts in the image xb (its row times
+// W plus its column, times C), or -1 outside the image; the same for every
+// channel chunk, so computed once per block
+__device__ __forceinline__ void window_offsets(int* offsets, int gy0,
+                                               int gx0, int H, int W, int C) {
+  for (int p = threadIdx.x; p < NP; p += NT) {
+    const int gy = gy0 + p / IW, gx = gx0 + p % IW;
+    offsets[p] =
+        gy >= 0 && gy < H && gx >= 0 && gx < W ? (gy * W + gx) * C : -1;
+  }
+}
+
+// A thread copies channel quad (threadIdx.x & 1) of window pixels
+// threadIdx.x / 2, + NT/2, ...: the same pixels in every chunk, which is
+// what lets it apply the prologue to them without a barrier.
+__device__ __forceinline__ void stage(const float* __restrict__ xb,
+                                      const float* __restrict__ w,
+                                      const int* offsets, float* xs,
+                                      float* ws, int c0, int cb0, int C,
+                                      int Co) {
+  const int q4 = threadIdx.x & 1, c = c0 + 4 * q4;
+  for (int p = threadIdx.x >> 1; p < NP; p += NT / 2) {
+    const int off = offsets[p];
+    tf32x3::cp_async16(xs + xq(p, q4), off >= 0 ? xb + off + c : xb,
+                       off >= 0 ? 16 : 0);
+  }
+  for (int idx = threadIdx.x; idx < 9 * KC * (CB / 4); idx += NT) {
+    const int n4 = idx % (CB / 4);
+    const int row = idx / (CB / 4);   // tap * KC + kk
+    tf32x3::cp_async16(
+        ws + row * WS + 4 * n4,
+        w + ((long long)(row / KC) * C + c0 + row % KC) * Co + cb0 + 4 * n4,
+        16);
+  }
+}
+
+// relu(v * s + t) on the window pixels this thread staged, in the image only
+__device__ __forceinline__ void prologue(float* xs, const int* offsets,
+                                         float4 s, float4 t) {
+  const int q4 = threadIdx.x & 1;
+  for (int p = threadIdx.x >> 1; p < NP; p += NT / 2) {
+    if (offsets[p] < 0) continue;
+    float4* v = reinterpret_cast<float4*>(xs + xq(p, q4));
+    float4 a = *v;
+    a.x = fmaxf(fmaf(a.x, s.x, t.x), 0.f);
+    a.y = fmaxf(fmaf(a.y, s.y, t.y), 0.f);
+    a.z = fmaxf(fmaf(a.z, s.z, t.z), 0.f);
+    a.w = fmaxf(fmaf(a.w, s.w, t.w), 0.f);
+    *v = a;
+  }
+}
+
+__global__ void __launch_bounds__(NT, MINB)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, const float* __restrict__ s,
                const float* __restrict__ t, const float* __restrict__ res,
                float* __restrict__ y, float* __restrict__ part, int H, int W,
-               int C, int tiles_w, int relu) {
-  constexpr int NT = Shape<CO>::NT;
-  constexpr int CG = Shape<CO>::CG;
-  __shared__ __align__(16) float xs[KC * IPLANE];     // [KC][IH][IW]
-  __shared__ __align__(16) float ws[9 * KC * CO];     // [tap][KC][CO]
+               int C, int Co, int tiles_w, int tiles, int relu) {
+  // 2 x [window, weights], then the window's pixel offsets
+  extern __shared__ __align__(16) float smem[];
 
+  // a tile's channel blocks are neighbours in the grid, so they run
+  // together and share the window's reads
+  const int ncb = Co / CB;
+  const int cb0 = (blockIdx.x % ncb) * CB;
+  const int tile = blockIdx.x / ncb;
   const int b = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int y0 = (tile / tiles_w) * TH;
-  const int x0 = (tile % tiles_w) * TW;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cg = warp % CG;
-  const int rg = warp / CG;
-  const int co0 = cg * TN;
-  const int r0 = rg * RPT;
+  const int oy0 = (tile / tiles_w) * TH;
+  const int ox0 = (tile % tiles_w) * TW;
   const long long img = (long long)b * H * W;
+  const int lane = threadIdx.x & 31;
+  const int row = threadIdx.x >> 5;   // the warp's output row in the tile
+  const int gid = lane >> 2, tig = lane & 3;
 
-  float acc[RPT][TN];
+  // [n8 tile pair jp][m16 tile h][tile jj of the pair]: n8 tile 2 jp + jj
+  float acc[2][2][2][4], tot[2][2][2][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int jp = 0; jp < 2; ++jp)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) acc[i][n] = 0.f;
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[jp][h][jj][e] = tot[jp][h][jj][e] = 0.f;
 
+  const float* xb = x + img * C;
+  // this thread's channel quad of the prologue's scales and shifts, loaded
+  // one chunk ahead so that their latency hides behind a chunk's MMAs
+  const long long sq = (long long)b * C + 4 * (threadIdx.x & 1);
+  float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), tv = sv;
+  if (s != nullptr) {
+    sv = *reinterpret_cast<const float4*>(s + sq);
+    tv = *reinterpret_cast<const float4*>(t + sq);
+  }
+  int* offsets = reinterpret_cast<int*>(smem + 2 * STAGE);
+  window_offsets(offsets, oy0 - 1, ox0 - 1, H, W, C);
+  __syncthreads();
+  stage(xb, w, offsets, smem, smem + XST, 0, cb0, C, Co);
+  tf32x3::cp_async_commit();
+  int buf = 0;
   for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();   // the previous chunk is consumed
-    // the halo tile, channel-major; zeros outside the image, prologue inside
-    for (int idx = threadIdx.x; idx < IPLANE * (KC / 4); idx += NT) {
-      const int q = idx % (KC / 4);
-      const int p = idx / (KC / 4);
-      const int gy = y0 + p / IW - 1;
-      const int gx = x0 + p % IW - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const int c = c0 + 4 * q;
-        v = *reinterpret_cast<const float4*>(
-            x + ((img + (long long)gy * W + gx) * C + c));
-        if (s != nullptr) {
-          const float* sb = s + (long long)b * C + c;
-          const float* tb = t + (long long)b * C + c;
-          v.x = fmaxf(fmaf(v.x, sb[0], tb[0]), 0.f);
-          v.y = fmaxf(fmaf(v.y, sb[1], tb[1]), 0.f);
-          v.z = fmaxf(fmaf(v.z, sb[2], tb[2]), 0.f);
-          v.w = fmaxf(fmaf(v.w, sb[3], tb[3]), 0.f);
-        }
-      }
-      float* dst = xs + 4 * q * IPLANE + p;
-      dst[0] = v.x;
-      dst[IPLANE] = v.y;
-      dst[2 * IPLANE] = v.z;
-      dst[3 * IPLANE] = v.w;
+    if (c0 + KC < C) {
+      float* nxt = smem + (buf ^ 1) * STAGE;
+      stage(xb, w, offsets, nxt, nxt + XST, c0 + KC, cb0, C, Co);
     }
-    // the chunk's weights: for each tap, KC contiguous rows of CO
-    for (int idx = threadIdx.x; idx < 9 * KC * CO / 4; idx += NT) {
-      const int tap = idx / (KC * CO / 4);
-      const int rem = idx % (KC * CO / 4);
-      reinterpret_cast<float4*>(ws)[idx] = *reinterpret_cast<const float4*>(
-          w + ((long long)tap * C + c0) * CO + 4 * rem);
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<1>();   // this chunk's copies have landed
+    float* xs = smem + buf * STAGE;
+    if (s != nullptr) {
+      prologue(xs, offsets, sv, tv);
+      if (c0 + KC < C) {
+        sv = *reinterpret_cast<const float4*>(s + sq + c0 + KC);
+        tv = *reinterpret_cast<const float4*>(t + sq + c0 + KC);
+      }
     }
     __syncthreads();
-
-#pragma unroll 1
-    for (int c = 0; c < KC; ++c) {
-      float in[RPT + 2][3];
-      const float* xr = xs + c * IPLANE + r0 * IW + lane;
+    const float* ws = xs + XST;
 #pragma unroll
-      for (int i = 0; i < RPT + 2; ++i)
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      // A: window row row + ky, output columns j = 16h + gid (+8) at tap
+      // kx (window column j + kx), channels tig (+4)
+      const int p = (row + ky) * IW + gid + kx;
+      FragA fa[2];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) in[i][j] = xr[i * IW + j];
+      for (int h = 0; h < 2; ++h) {
+        const float* lo = xs + xq(p + 16 * h, 0) + tig;
+        const float* hi = xs + xq(p + 16 * h, 1) + tig;
+        fa[h].set({lo[0], lo[8 * KC], hi[0], hi[8 * KC]});
+      }
+      // B: weights of channels tig (+4), output channels 8j + gid, two n8
+      // tiles at a time
+      const float* wp = ws + (tap * KC + tig) * WS + gid;
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+      for (int jp = 0; jp < 2; ++jp) {
+        FragB fb[2];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4* wr = reinterpret_cast<const float4*>(
-              ws + ((ky * 3 + kx) * KC + c) * CO + co0);
-          float wv[TN];
-#pragma unroll
-          for (int n4 = 0; n4 < TN / 4; ++n4) {
-            const float4 q = wr[n4];
-            wv[4 * n4] = q.x;
-            wv[4 * n4 + 1] = q.y;
-            wv[4 * n4 + 2] = q.z;
-            wv[4 * n4 + 3] = q.w;
-          }
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float a = in[i + ky][kx];
-#pragma unroll
-            for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(a, wv[n], acc[i][n]);
-          }
-        }
+        for (int jj = 0; jj < 2; ++jj)
+          fb[jj].set(wp[16 * jp + 8 * jj], wp[4 * WS + 16 * jp + 8 * jj]);
+        tf32x3::mma_tf32x3(acc[jp], fa, fb);
       }
     }
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) tf32x3::fold(tot[jp], acc[jp]);
+    __syncthreads();   // the buffer is consumed before it is refilled
+    buf ^= 1;
   }
 
-  // epilogue: bias, residual, ReLU, store; the moments of the stored values
-  float bv[TN];
+  // epilogue: bias, residual, ReLU, store the pixels in range; the moments
+  // of the stored values (thread: channels 8j + 2 tig (+1), its 4 pixels)
+  const int oy = oy0 + row;
+  float m1[4][2], m2[4][2];
 #pragma unroll
-  for (int n = 0; n < TN; ++n) bv[n] = bias[co0 + n];
-  float m1[TN], m2[TN];
+  for (int j = 0; j < 4; ++j) {
+    const int co = cb0 + 8 * j + 2 * tig;
+    const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+    m1[j][0] = m1[j][1] = m2[j][0] = m2[j][1] = 0.f;
 #pragma unroll
-  for (int n = 0; n < TN; ++n) m1[n] = m2[n] = 0.f;
-  const int gx = x0 + lane;
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int gy = y0 + r0 + i;
-    if (gy >= H || gx >= W) continue;
-    const long long o = (img + (long long)gy * W + gx) * CO + co0;
-    float v[TN];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) v[n] = acc[i][n] + bv[n];
-    if (res != nullptr) {
-#pragma unroll
-      for (int n4 = 0; n4 < TN / 4; ++n4) {
-        const float4 r = *reinterpret_cast<const float4*>(res + o + 4 * n4);
-        v[4 * n4] += r.x;
-        v[4 * n4 + 1] += r.y;
-        v[4 * n4 + 2] += r.z;
-        v[4 * n4 + 3] += r.w;
+      for (int half = 0; half < 2; ++half) {
+        const int ox = ox0 + 16 * h + 8 * half + gid;
+        if (oy >= H || ox >= W) continue;
+        const float* tt = tot[j >> 1][h][j & 1];
+        float v0 = tt[2 * half] + bv.x;
+        float v1 = tt[2 * half + 1] + bv.y;
+        const long long o = (img + (long long)oy * W + ox) * Co + co;
+        if (res != nullptr) {
+          const float2 r = *reinterpret_cast<const float2*>(res + o);
+          v0 += r.x;
+          v1 += r.y;
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<float2*>(y + o) = make_float2(v0, v1);
+        m1[j][0] += v0;
+        m1[j][1] += v1;
+        m2[j][0] = fmaf(v0, v0, m2[j][0]);
+        m2[j][1] = fmaf(v1, v1, m2[j][1]);
       }
-    }
-    if (relu) {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) v[n] = fmaxf(v[n], 0.f);
-    }
-#pragma unroll
-    for (int n4 = 0; n4 < TN / 4; ++n4)
-      *reinterpret_cast<float4*>(y + o + 4 * n4) =
-          make_float4(v[4 * n4], v[4 * n4 + 1], v[4 * n4 + 2], v[4 * n4 + 3]);
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      m1[n] += v[n];
-      m2[n] = fmaf(v[n], v[n], m2[n]);
     }
   }
   if (part == nullptr) return;
 
-  // butterfly over the lanes (every lane ends with the warp's sums)
+  // butterfly over gid (lane bits 2-4): every lane of a tig ends with the
+  // warp's sums of its channels
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = 4; off < 32; off <<= 1) {
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      m1[n] += __shfl_xor_sync(0xffffffffu, m1[n], off);
-      m2[n] += __shfl_xor_sync(0xffffffffu, m2[n], off);
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m1[j][e] += __shfl_xor_sync(0xffffffffu, m1[j][e], off);
+        m2[j][e] += __shfl_xor_sync(0xffffffffu, m2[j][e], off);
+      }
   }
-  __syncthreads();   // xs is free: every thread has left the main loop
-  float* red = xs;   // [RG][2][CO]
-  if (lane == 0) {
+  // the stages are free: the main loop ends with a barrier
+  float* red = smem;   // [TH][2][CB]
+  if (gid == 0) {
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      red[(rg * 2) * CO + co0 + n] = m1[n];
-      red[(rg * 2 + 1) * CO + co0 + n] = m2[n];
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[(row * 2) * CB + 8 * j + 2 * tig + e] = m1[j][e];
+        red[(row * 2 + 1) * CB + 8 * j + 2 * tig + e] = m2[j][e];
+      }
   }
   __syncthreads();
-  for (int v = threadIdx.x; v < 2 * CO; v += NT) {
+  if (threadIdx.x < 2 * CB) {
+    const int k = threadIdx.x / CB, n = threadIdx.x % CB;   // moment, channel
     float sum = 0.f;
 #pragma unroll
-    for (int g = 0; g < RG; ++g) sum += red[g * 2 * CO + v];
-    part[((long long)b * gridDim.x + tile) * 2 * CO + v] = sum;
+    for (int r = 0; r < TH; ++r) sum += red[(r * 2 + k) * CB + n];
+    part[(((long long)b * tiles + tile) * 2 + k) * Co + cb0 + n] = sum;
   }
 }
-
-static_assert(RG * 2 * 96 <= KC * IPLANE, "moment scratch fits in xs");
 
 // Sum each sample's per-block partials [B][tiles][2*Co] in double, in a
 // fixed order: thread (v, k) takes tiles k, k+32, ...; then one thread per v
@@ -249,29 +337,14 @@ __global__ void moments_kernel(const float* __restrict__ part,
     s2[(long long)b * Co + v - Co] = (float)total;
 }
 
-template <int CO>
-int launch(const float* x, const float* w, const float* bias, const float* s,
-           const float* t, const float* res, float* y, float* part, float* s1,
-           float* s2, int B, int H, int W, int C, int relu,
-           cudaStream_t stream) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles = ((H + TH - 1) / TH) * tiles_w;
-  conv3x3_kernel<CO><<<dim3(tiles, B), Shape<CO>::NT, 0, stream>>>(
-      x, w, bias, s, t, res, y, part, H, W, C, tiles_w, relu);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || part == nullptr) return (int)err;
-  moments_kernel<<<dim3((2 * CO + 31) / 32, B), dim3(32, 32), 0, stream>>>(
-      part, s1, s2, tiles, CO);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x [B,H,W,C], w [3,3,C,Co], bias [Co], y [B,H,W,Co]: float32, contiguous,
-// 16-byte aligned. s, t [B,C] (the prologue), res [B,H,W,Co] (the residual)
-// and part, s1, s2 (the moments: scratch of B * ceil(H/8) * ceil(W/32) * 2 *
-// Co floats, and S1, S2 [B,Co]) may each be null to leave that part out. C a
-// multiple of 8; Co 64 or 96 (RAFT's routed sites).
+// 16-byte aligned; H * W * C < 2^31 (offsets in one image are ints). s, t
+// [B,C] (the prologue), res [B,H,W,Co] (the residual) and part, s1, s2 (the
+// moments: scratch of B * ceil(H/4) * ceil(W/32) * 2 * Co floats, and S1,
+// S2 [B,Co]) may each be null to leave that part out. C a multiple of 8; Co
+// 64 or 96 (RAFT's routed sites).
 // Returns cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int conv2d_fused_forward(const float* x, const float* w,
                                     const float* bias, const float* s,
@@ -279,14 +352,21 @@ extern "C" int conv2d_fused_forward(const float* x, const float* w,
                                     float* part, float* s1, float* s2, int B,
                                     int H, int W, int C, int Co, int relu,
                                     void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % KC ||
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || C % KC ||
+      (Co != 64 && Co != 96) || (long long)H * W * C > 0x7fffffffLL ||
       (s == nullptr) != (t == nullptr) ||
       (part != nullptr && (s1 == nullptr || s2 == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const int err = tf32x3::allow_smem((const void*)conv3x3_kernel, SMEM);
+  if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Co) {
-    case 64: return launch<64>(x, w, bias, s, t, res, y, part, s1, s2, B, H, W, C, relu, st);
-    case 96: return launch<96>(x, w, bias, s, t, res, y, part, s1, s2, B, H, W, C, relu, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles = ((H + TH - 1) / TH) * tiles_w;
+  conv3x3_kernel<<<dim3((Co / CB) * tiles, B), NT, SMEM, st>>>(
+      x, w, bias, s, t, res, y, part, H, W, C, Co, tiles_w, tiles, relu);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return (int)e;
+  moments_kernel<<<dim3((2 * Co + 31) / 32, B), dim3(32, 32), 0, st>>>(
+      part, s1, s2, tiles, Co);
+  return (int)cudaGetLastError();
 }

@@ -46,11 +46,22 @@ import torch.nn.functional as F
 from .. import kernels
 from .dw_conv import conv2d_dw
 
-# the kernel's output tile (csrc/conv2d_fused.cu: TH, TW); one moment
-# partial per tile
-_TILE_H, _TILE_W = 8, 32
-# the output widths RAFT routes to the kernel (one template each)
+# the kernel's block (csrc/conv2d_fused.cu: TH, TW, CB): output rows,
+# output columns and output channels of one 3xTF32 implicit-GEMM tile; one
+# moment partial per tile and channel block
+_TILE_H, _TILE_W, _CB = 4, 32, 32
+# the output widths RAFT routes to the kernel
 _KERNEL_CO = (64, 96)
+
+
+def fused_tiles(H: int, W: int) -> int:
+    """The output tiles of the fused conv's grid for one image of H x W."""
+    return -(-H // _TILE_H) * -(-W // _TILE_W)
+
+
+def fused_blocks(B: int, H: int, W: int, Co: int) -> int:
+    """The blocks of the fused conv's grid for y [B, H, W, Co]."""
+    return B * fused_tiles(H, W) * -(-Co // _CB)
 
 
 def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
@@ -91,11 +102,13 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
         raise ValueError(f"conv2d_fused: residual must be {(B, H, W, Co)}")
     if s is not None and (s.shape != (B, C) or t.shape != (B, C)):
         raise ValueError(f"conv2d_fused: s and t must be [{B}, {C}]")
+    if H * W * C >= 2 ** 31:
+        raise ValueError(
+            f"conv2d_fused: the kernel takes H * W * C < 2^31, got {H * W * C}")
     y = x.new_empty((B, H, W, Co))
     part = s1 = s2 = None
     if with_stats:
-        tiles = -(-H // _TILE_H) * -(-W // _TILE_W)
-        part = x.new_empty((B, tiles, 2, Co))
+        part = x.new_empty((B, fused_tiles(H, W), 2, Co))
         s1, s2 = x.new_empty((B, Co)), x.new_empty((B, Co))
 
     def ptr(a):

@@ -156,9 +156,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         ops.local_soft_argmin(vol, _randn(rng, (1, 2, 30, 40), cuda_device))
 
 
-# float32 sums of 9*C products: the kernel's order (input channel, then tap)
-# against cuDNN's with TF32 off, and fmaf in the prologue against a
-# multiply and an add; relative to the output's largest magnitude
+# float32 sums of 9*C products: the kernel's 3xTF32 products (each operand
+# split into a TF32 big and small part) summed per 8-channel chunk on the
+# tensor cores and folded into float32 totals, against cuDNN with TF32 off,
+# and fmaf in the prologue against a multiply and an add; relative to the
+# output's largest magnitude
 CONV_RTOL = 1e-5
 # the moments, relative to each moment's magnitude: the kernel sums per
 # block in float32 and across blocks in float64, the plain version in float64
@@ -178,9 +180,10 @@ def _conv_inputs(rng, shape, device):
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
-                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96)],
+                                   (2, 19, 40, 64, 64), (1, 9, 33, 96, 96),
+                                   (1, 35, 70, 64, 64)],
                          ids=["main-width", "edge-C96", "H-tail-C64",
-                              "tails-C96"])
+                              "tails-C96", "tails-4x32-C64"])
 @pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
                                      "stats", "prologue-stats"])
 def test_conv2d_fused_matches_plain(cuda_device, shape, variant):
@@ -211,6 +214,19 @@ def test_conv2d_fused_matches_plain(cuda_device, shape, variant):
     for g, m in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, m, rtol=MOMENT_RTOL,
                                    atol=MOMENT_RTOL * m.abs().max().item())
+
+
+def test_conv2d_fused_is_deterministic(cuda_device):
+    """The moments are reduced without atomics, in a fixed order: two
+    calls on the same inputs give the same bits in y, S1 and S2."""
+    rng = np.random.default_rng(11)
+    for shape in ((2, 35, 70, 64, 64), (1, 37, 53, 96, 96)):
+        x, w, b, s, t, _ = _conv_inputs(rng, shape, cuda_device)
+        first = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+        second = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+        torch.cuda.synchronize()
+        for a, c in zip(first, second):
+            assert torch.equal(a, c)
 
 
 def test_conv2d_fused_prologue_padding_is_zero(cuda_device):

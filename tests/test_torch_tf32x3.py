@@ -9,8 +9,11 @@ the parts in float32: three products hold the kernels' float32 tolerances
 against float64, one TF32 product does not. The tensor core also truncates
 each sum it accumulates; emulated with round-toward-zero adds, a long sum
 drifts past DW_RTOL unless each tile's sum is folded into a float32 total,
-as the kernels do. Also on the CPU: the kernels' grids on the card, and
-their build hash over the headers.
+as the kernels do. The stride-1 fused conv is emulated whole, as its kernel
+sums it: prologue, 3xTF32 k-steps with truncating adds folded per 8-channel
+chunk, bias, and the moments of the result. Also on the CPU: the kernels'
+grids on the card, the fused conv's moment scratch, and their build hash
+over the headers.
 """
 
 import numpy as np
@@ -19,9 +22,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stereoformer_tpu_torch import kernels, ops  # noqa: E402
+from stereoformer_tpu_torch.ops import fused_conv  # noqa: E402
 from stereoformer_tpu_torch.ops.dw_conv import dw_plan  # noqa: E402
-from stereoformer_tpu_torch.ops.fused_conv import s2_blocks  # noqa: E402
-from test_torch_kernels import DW_RTOL, S2_RTOL  # noqa: E402
+from stereoformer_tpu_torch.ops.fused_conv import (  # noqa: E402
+    fused_blocks,
+    s2_blocks,
+)
+from test_torch_kernels import (  # noqa: E402
+    CONV_RTOL,
+    DW_RTOL,
+    MOMENT_RTOL,
+    S2_RTOL,
+)
 
 # RAFT's sites: the stride-2 convs at eval, B=2, 576x960 (B, H, W, C, Co)
 # and conv2d_dw's at the train step, B=4, 320x720 (B, H, W, C = Co)
@@ -30,6 +42,10 @@ RAFT_S2_SITES = [(4, 576, 960, 64, 96), (4, 288, 480, 96, 128),
                  (2, 144, 240, 128, 128), (2, 72, 120, 128, 128)]
 RAFT_DW_SITES = [(8, 320, 720, 64), (4, 320, 720, 64), (8, 160, 360, 96),
                  (4, 160, 360, 96)]
+# the stride-1 fused conv's sites (B, H, W, C = Co): the forward at eval,
+# B=2, 576x960, and the backward's dx at the train step, B=4, 320x720
+RAFT_FUSED_SITES = [(4, 576, 960, 64), (2, 576, 960, 64), (4, 288, 480, 96),
+                    (2, 288, 480, 96)] + RAFT_DW_SITES
 H100_SMS = 132
 
 
@@ -199,3 +215,94 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     assert after != before and after.parent == build
     (csrc / "probe.cu").write_text('#include "probe.cuh"\n// edited\n')
     assert kernels._library_path("probe") != after
+
+
+def _fused_gemm_operands(z, w):
+    """The fused conv's implicit GEMM for one image: z [H, W, C] (the
+    prologue's output), w [3, 3, C, Co] -> Xcol [H W, 9 C] and W [9 C, Co]
+    with K in the kernel's order: 8-channel chunk, then tap, then channel."""
+    H, W, C = z.shape
+    zp = np.pad(z, ((1, 1), (1, 1), (0, 0)))
+    taps = np.stack([zp[ky:ky + H, kx:kx + W] for ky in range(3)
+                     for kx in range(3)], axis=2)            # [H, W, 9, C]
+    xcol = taps.reshape(H, W, 9, C // 8, 8).transpose(0, 1, 3, 2, 4)
+    wk = w.reshape(9, C // 8, 8, -1).transpose(1, 0, 2, 3)
+    return xcol.reshape(H * W, 9 * C), wk.reshape(9 * C, -1)
+
+
+@pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 96, 96)],
+                         ids=["19x40-C64", "9x33-C96"])
+def test_fused_conv_in_three_tf32_products_holds_the_float32_tolerance(shape):
+    """y = conv3x3(relu(x s + t), w) + b for one image, as the kernel sums
+    it: the prologue in float32, 3xTF32 k-steps of 8 channels with
+    truncating adds, folded into float32 totals after each chunk's 9 taps,
+    then the bias. It holds CONV_RTOL against float64, one TF32 pass does
+    not; the moments of that y, summed per 4 x 32 tile in float32 and
+    across tiles in float64, hold MOMENT_RTOL."""
+    H, W, C, Co = shape
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, H, W, C)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, Co)) / np.sqrt(9 * C)).astype(
+        np.float32)
+    b = (0.1 * rng.standard_normal(Co)).astype(np.float32)
+    s = rng.uniform(0.5, 1.5, (1, C)).astype(np.float32)
+    t = (0.5 * rng.standard_normal((1, C))).astype(np.float32)
+    want = ops.conv3x3_plain(*(_t(a).double() for a in (x, w, b)),
+                             s=_t(s).double(), t=_t(t).double())[0].numpy()
+    tol = CONV_RTOL * np.abs(want).max()
+    # fmaf(x, s, t): the float64 product is exact, one rounding to float32
+    z = np.maximum((x[0].astype(np.float64) * s[0] + t[0]).astype(np.float32),
+                   np.float32(0))
+    xcol, wk = _fused_gemm_operands(z, w)
+    y = (mma_sum(xcol, wk, fold_every=9) + b).reshape(H, W, Co)
+    assert np.abs(y - want).max() <= tol
+    one = tf32_rna(xcol).astype(np.float64) @ tf32_rna(wk).astype(np.float64)
+    assert np.abs((one + b).reshape(H, W, Co) - want).max() > 10 * tol
+    # the kernel's moments: float32 sums per 4 x 32 tile, then float64
+    Hp, Wp = -(-H // 4) * 4, -(-W // 32) * 32
+    tiles = np.pad(y, ((0, Hp - H), (0, Wp - W), (0, 0))).reshape(
+        Hp // 4, 4, Wp // 32, 32, Co)
+    for got, ref in ((tiles, want), (tiles * tiles, want * want)):
+        part = got.sum((1, 3), dtype=np.float32)
+        got_m = part.astype(np.float64).sum((0, 1))
+        ref_m = ref.sum((0, 1))
+        np.testing.assert_allclose(got_m, ref_m, rtol=MOMENT_RTOL,
+                                   atol=MOMENT_RTOL * np.abs(ref_m).max())
+
+
+@pytest.mark.parametrize("site", RAFT_FUSED_SITES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}x{s[3]}"
+                              for s in RAFT_FUSED_SITES])
+def test_fused_grid_puts_a_block_on_every_sm(site):
+    B, H, W, Co = site
+    blocks = fused_blocks(B, H, W, Co)
+    # 4 x 32 output pixels and 32 output channels a block
+    assert blocks == B * -(-H // 4) * -(-W // 32) * (Co // 32)
+    assert blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("shape", [(2, 19, 40, 64, 96), (1, 37, 53, 96, 64)],
+                         ids=["H-tail-C64-96", "tails-C96-64"])
+def test_fused_moment_scratch_has_one_partial_per_block(shape, monkeypatch):
+    """The wrapper sizes the moments' scratch [B, tiles, 2, Co] by the
+    kernel's tile: B * tiles * (Co / 32) is the grid of fused_blocks. The
+    allocations are recorded and the launch replaced, so no card is
+    needed."""
+    B, H, W, C, Co = shape
+    shapes, launched = [], []
+    new_empty = torch.Tensor.new_empty
+
+    def recording_new_empty(self, size, *args, **kwargs):
+        shapes.append(tuple(size))
+        return new_empty(self, size, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "new_empty", recording_new_empty)
+    monkeypatch.setattr(kernels, "check_inputs", lambda *a: None)
+    monkeypatch.setattr(kernels, "launch", lambda *a: launched.append(a))
+    x = torch.zeros(B, H, W, C)
+    w, b = torch.zeros(3, 3, C, Co), torch.zeros(Co)
+    fused_conv._launch(x, w, b, None, None, None, False, True)
+    assert launched and launched[0][-6:] == (B, H, W, C, Co, 0)
+    part = [sh for sh in shapes if len(sh) == 4 and sh[2] == 2]
+    assert len(part) == 1 and part[0][0] == B and part[0][3] == Co
+    assert B * part[0][1] * (Co // 32) == fused_blocks(B, H, W, Co)
