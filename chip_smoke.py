@@ -11,7 +11,10 @@ any failure exits nonzero and prints no result:
    and print each entry function's registers and spills as ptxas gives them;
 3. each kernel against its plain PyTorch version at the main paths' shapes
    and at edge inputs, with the tolerance stated: the two forward kernels,
-   local_soft_argmin's backward kernel, corr_band's backward (torch ops)
+   local_soft_argmin's backward kernel (also at D in {50, 96, 256} with S in
+   {21, 33, 128}, past the old kernels' limits, with 1, 2 and 4 lanes a
+   pixel, and bit-equal to itself on a second call), corr_band (also at D in {50, 96, 256}, with W below D and W
+   that no 32-pixel tile divides), corr_band's backward (torch ops)
    against autograd of its plain version, conv2d_fused in every variant,
    conv2d_dw against float64 sums at RAFT's four training shapes (and
    bit-equal to itself on a second call), the fused conv's backward
@@ -52,6 +55,11 @@ any failure exits nonzero and prints no result:
    ("equal" loss) and LowCNN_gru2 ("sequence") train steps at 320x640, B=4
    (corr_band / local_soft_argmin / its backward 1/1/1 and 1/12/12 per
    step, a falling loss over 5 steps, peak memory);
+8b. LowCNN_gru(max_disp=400, num_samples=32), D = 50 and S = 33, on the
+   card against the port on the CPU at 64x256 (TF32 off): the eval forward
+   and one train step (loss, gradient norm, updated parameters); then
+   LowCNN_gru(max_disp=768) eval at 576x960, B=8, as in phase 4 (D = 96:
+   launch counts, finiteness and range, ms/batch);
 9. RAFT_Stereo eval through get_model at 576x960, B=2 and B=8, 12 GRU
    iterations, test_mode, float32, random weights from seed 0: 14 launches
    of conv2d_fused per forward (7 in each encoder), shapes and finiteness,
@@ -69,7 +77,8 @@ any failure exits nonzero and prints no result:
    convs in the model, as they stay XLA convs in the JAX package), and the
    row-gather probe (stereoformer_tpu_torch.scripts.gather_probe): one
    launch per call;
-12. each kernel's device time beside its bound and its plain version's;
+12. each kernel's device time beside its bound and its plain version's
+   (corr_band, local_soft_argmin and its backward also at D = 96, S = 33);
    for the three 3xTF32 conv kernels also their 3xTF32 and one-pass TF32
    bounds, their share of the 3xTF32 bound, their ratio to cuDNN's float32
    time and their registers and spills: conv2d_fused beside one F.conv2d
@@ -402,6 +411,11 @@ def main() -> int:
         ops, 4, record, "LowCNN_ada", "equal", profile_it=True)
     launches["LowCNN_gru2_train_step"] = train_phase(
         ops, 4, record, "LowCNN_gru2", "sequence", profile_it=True)
+    # 8b. D = 50 and S = 33, past what the kernels took before
+    record["wide_range_parity_vs_cpu"] = parity_vs_cpu(
+        seed=4, max_disp=400, num_samples=32)
+    launches["LowCNN_gru_max_disp_768_eval"] = eval_phase(
+        ops, rng, record, key="max_disp_768_eval", max_disp=768)
     for batch in RAFT_BATCHES:
         launches["raft_eval"] = raft_eval_phase(
             ops, rng, batch, record, profile_it=batch == RAFT_BATCHES[0])
@@ -452,12 +466,18 @@ def check_kernels(ops, rng) -> dict:
 
     # float32 dots over C in another order than the plain version's
     corr_tol = 1e-5
-    for shape in ((B, H8, W8, C), (4, *T8, C), (1, 4, 10, 64),
-                  (2, 5, 97, 40), (1, 2, 300, 64)):
+    # the main path's D = 24 at its two shapes and at edge widths; then D
+    # past the old kernel's 64: spans of 32 disparities in further blocks,
+    # W below D, and W that no 32-pixel tile divides
+    for shape, d in (((B, H8, W8, C), D), ((4, *T8, C), D), ((1, 4, 10, 64), D),
+                     ((2, 5, 97, 40), D), ((1, 2, 300, 64), D),
+                     ((2, 8, W8, C), 50), ((1, 4, 40, 64), 96),
+                     ((1, 3, 97, 36), 96), ((1, 2, 300, 64), 256),
+                     ((1, 2, 200, 64), 256)):
         left, right = randn(rng, *shape), randn(rng, *shape)
-        e = compare(f"corr_band {shape}",
-                    ops.correlation_volume(left, right, D),
-                    ops.correlation_volume_plain(left, right, D), corr_tol)
+        e = compare(f"corr_band {shape} D={d}",
+                    ops.correlation_volume(left, right, d),
+                    ops.correlation_volume_plain(left, right, d), corr_tol)
         err["corr_band"] = max(err["corr_band"], e)
     # disparities in px up to ~26; exp and division in another order
     local_tol = 1e-4
@@ -481,6 +501,51 @@ def check_kernels(ops, rng) -> dict:
                 compare(f"local_soft_argmin_bwd dcand {shape}", cands.grad,
                         want_c, bwd_tol))
         err["local_soft_argmin_bwd"] = max(err["local_soft_argmin_bwd"], e)
+    # past the old kernels' limits (D > 48 or S > 32) candidates reach D + 2
+    # px and values and gradients grow with them: relative to each output's
+    # largest magnitude (the absolute tolerances above are ~5e-6 and ~1.5e-5
+    # of it at D = 24; tests/test_torch_refine_kernels.py emulates the
+    # kernels' order within 3e-7 of it up to D = 256, S = 128)
+    local_rel = 5e-6
+    rel = {"local_soft_argmin": 0.0, "local_soft_argmin_bwd": 0.0}
+    # 4 lanes a pixel at (2, 30, 61); the eval shape and half of it take 1
+    # and 2 (the kernels pick them by the pixel count)
+    for shape, d, s in [((2, 30, 61), d, s) for d in (50, 96, 256)
+                        for s in (21, 33, 128)] + [
+                            ((B, H8, W8), 96, 33), ((B // 2, H8, W8), 96, 33)]:
+        vol = randn(rng, *shape, d).requires_grad_(True)
+        cands = torch.from_numpy(edge_candidates(rng, shape + (s,), d))
+        cands = cands.to(dev).requires_grad_(True)
+        g = randn(rng, *shape, 1)
+        out = ops.local_soft_argmin(vol, cands)
+        out.backward(g)
+        want = ops.local_soft_argmin_plain(vol.detach(), cands.detach())
+        want_v, want_c = ops.local_soft_argmin_backward_plain(
+            vol.detach(), cands.detach(), g)
+        for name, part, got, w in (
+                ("local_soft_argmin", "", out, want),
+                ("local_soft_argmin_bwd", " dvol", vol.grad, want_v),
+                ("local_soft_argmin_bwd", " dcand", cands.grad, want_c)):
+            scale = w.abs().max().item()
+            e = compare(f"{name}{part} {shape} D={d} S={s}", got, w,
+                        local_rel * scale) / scale
+            rel[name] = max(rel[name], e)
+    # no atomics in the backward: a second call gives the same bits
+    for shape, d, s in (((4, *T8), D, S), ((4, *T8), 96, 33)):
+        vol = randn(rng, *shape, d).requires_grad_(True)
+        cands = torch.from_numpy(edge_candidates(rng, shape + (s,), d))
+        cands = cands.to(dev).requires_grad_(True)
+        g = randn(rng, *shape, 1)
+        out = ops.local_soft_argmin(vol, cands)
+        first = torch.autograd.grad(out, (vol, cands), g, retain_graph=True)
+        second = torch.autograd.grad(out, (vol, cands), g)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        print(f"  local_soft_argmin_bwd {shape} D={d} S={s}: bit-equal on a "
+              f"second call {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise SmokeFailure("local_soft_argmin_bwd is not deterministic")
+    err["rel_past_old_limits"] = rel
 
     # corr_band's backward (torch ops) against autograd of the plain version
     left = randn(rng, 4, *T8, C).requires_grad_(True)
@@ -873,15 +938,16 @@ def check_gather_kernel(ops, rng) -> float:
 
 
 def eval_phase(ops, rng, record, name: str = "LowCNN_gru",
-               key: str = "eval") -> dict:
-    """Phases 4, 6 and 8: the eval forward of LowCNN model ``name`` at
-    full size; returns its launch counts."""
+               key: str = "eval", **model_kw) -> dict:
+    """Phases 4, 6, 8 and 8b: the eval forward of LowCNN model ``name``
+    (built with ``model_kw``) at full size; returns its launch counts."""
     from stereoformer_tpu_torch.models import get_model
 
-    H8, W8, D = H // 8, W // 8, 24
+    H8, W8, D = H // 8, W // 8, model_kw.get("max_disp", 192) // 8
     outputs, counts = LOWCNN[name]
-    print(f"{name} eval {H}x{W} B={B} iters={ITERS} float32:", flush=True)
-    model = get_model(name, device="cuda")
+    print(f"{name}{model_kw or ''} eval {H}x{W} B={B} iters={ITERS} "
+          f"float32:", flush=True)
+    model = get_model(name, device="cuda", **model_kw)
     left = randn(rng, B, H, W, 3)
     right = randn(rng, B, H, W, 3)
 
@@ -1250,7 +1316,8 @@ def gather_probe_path(ops, record) -> dict:
 def kernel_rows(ops, rng, err, launches, record) -> list:
     """Phase 12: each kernel at its main path's shapes: device time per
     launch (and per call of its wrapper, host overhead included), the plain
-    version's device time, the bound."""
+    version's device time, the bound; rows 1-3 also at D = 96 (S = 33),
+    past the old kernels' limits."""
     from stereoformer_tpu_torch import kernels
 
     dev = torch.device("cuda")
@@ -1258,28 +1325,28 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
     eval_shape = (B, H // 8, W // 8)
     train_shape = (4, TRAIN_H // 8, TRAIN_W // 8)
 
-    def corr_work(shape):
+    def corr_work(shape, d, _):
         feats_l, feats_r = randn(rng, *shape, C), randn(rng, *shape, C)
         npix = int(np.prod(shape))
-        band = shape[0] * shape[1] * (D * shape[2] - D * (D - 1) // 2)
-        kern = lambda: ops.correlation_volume(feats_l, feats_r, D)  # noqa: E731
-        return ((2 * npix * C + npix * D) * 4, 2 * C * band, kern,
-                lambda: ops.correlation_volume_plain(feats_l, feats_r, D),
+        band = shape[0] * shape[1] * (d * shape[2] - d * (d - 1) // 2)
+        kern = lambda: ops.correlation_volume(feats_l, feats_r, d)  # noqa: E731
+        return ((2 * npix * C + npix * d) * 4, 2 * C * band, kern,
+                lambda: ops.correlation_volume_plain(feats_l, feats_r, d),
                 50, 5, kern)
 
-    def local_work(shape):
-        vol = randn(rng, *shape, D)
-        cands = torch.from_numpy(edge_candidates(rng, shape + (S,), D)).to(dev)
+    def local_work(shape, d, s):
+        vol = randn(rng, *shape, d)
+        cands = torch.from_numpy(edge_candidates(rng, shape + (s,), d)).to(dev)
         npix = int(np.prod(shape))
         # ~20 operations per candidate: clip, floor, two hat taps, max, exp,
         # sums (csrc/local_soft_argmin.cu)
         kern = lambda: ops.local_soft_argmin(vol, cands)  # noqa: E731
-        return (npix * (D + S + 1) * 4, 20 * npix * S, kern,
+        return (npix * (d + s + 1) * 4, 20 * npix * s, kern,
                 lambda: ops.local_soft_argmin_plain(vol, cands), 200, 20, kern)
 
-    def bwd_work(shape):
-        vol = randn(rng, *shape, D).requires_grad_(True)
-        cands = torch.from_numpy(edge_candidates(rng, shape + (S,), D)).to(dev)
+    def bwd_work(shape, d, s):
+        vol = randn(rng, *shape, d).requires_grad_(True)
+        cands = torch.from_numpy(edge_candidates(rng, shape + (s,), d)).to(dev)
         cands.requires_grad_(True)
         g = randn(rng, *shape, 1)
         out = ops.local_soft_argmin(vol, cands)
@@ -1291,30 +1358,36 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
             # autograd backward cannot be captured from a side stream)
             kernels.launch("local_soft_argmin_bwd", dev, vol.data_ptr(),
                            cands.data_ptr(), g.data_ptr(), dvol.data_ptr(),
-                           dcand.data_ptr(), npix, D, S)
+                           dcand.data_ptr(), npix, d, s)
 
         # reads vol, cand, g; writes dvol, dcand. ~35 operations per
         # candidate: the forward's, then the softmax VJP and four hat terms
-        return (npix * (2 * D + 2 * S + 1) * 4, 35 * npix * S,
+        # (the kernel's gather of dvol tests D hats per candidate more)
+        return (npix * (2 * d + 2 * s + 1) * 4, 35 * npix * s,
                 lambda: torch.autograd.grad(out, (vol, cands), g,
                                             retain_graph=True),
                 lambda: ops.local_soft_argmin_backward_plain(
                     vol.detach(), cands.detach(), g), 200, 20, launch)
 
-    # the forward kernels at the eval shapes (slice 1's main path) and at
-    # the train shapes; the backward at the train shapes and the eval shapes
-    work = {"corr_band": (corr_work, eval_shape, train_shape),
-            "local_soft_argmin": (local_work, eval_shape, train_shape),
-            "local_soft_argmin_bwd": (bwd_work, train_shape, eval_shape)}
+    # the forward kernels at the eval shapes (slice 1's main path), at the
+    # train shapes and at the eval shapes with D = 96, S = 33; the backward
+    # at the train shapes, the eval shapes and the train shapes with D = 96
+    work = {"corr_band": (corr_work, eval_shape, train_shape, eval_shape),
+            "local_soft_argmin": (local_work, eval_shape, train_shape,
+                                  eval_shape),
+            "local_soft_argmin_bwd": (bwd_work, train_shape, eval_shape,
+                                      train_shape)}
     rows, extra = [], {}
-    for name, (make, main_shape, other_shape) in work.items():
+    for name, (make, main_shape, other_shape, wide_shape) in work.items():
         times = {}
-        for shape in (main_shape, other_shape):
-            nbytes, nops, kern, plain, reps, plain_reps, timed = make(shape)
+        for shape, d, s in ((main_shape, D, S), (other_shape, D, S),
+                            (wide_shape, 96, 33)):
+            nbytes, nops, kern, plain, reps, plain_reps, timed = make(
+                shape, d, s)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / F32_FLOPS_PER_S * 1e3
             # each timed function launches its own kernel only
-            times[shape] = {
+            times[(shape, d, s)] = t = {
                 "ms": graph_ms(timed, reps),
                 "call_ms": time_ms(kern, reps),
                 "plain_ms": graph_ms(plain, plain_reps),
@@ -1322,12 +1395,12 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "mb": nbytes / 1e6,
             }
-            t = times[shape]
-            print(f"  {name} {shape}: {t['ms'] * 1e3:.1f} us on the device "
-                  f"(bound {t['bound_ms'] * 1e3:.2f} us, {t['mb']:.2f} MB), "
-                  f"{t['call_ms'] * 1e3:.1f} us per wrapper call, plain "
-                  f"{t['plain_ms'] * 1e3:.1f} us", flush=True)
-        main = times[main_shape]
+            print(f"  {name} {shape} D={d} S={s}: {t['ms'] * 1e3:.1f} us on "
+                  f"the device (bound {t['bound_ms'] * 1e3:.2f} us, "
+                  f"{t['mb']:.2f} MB), {t['call_ms'] * 1e3:.1f} us per "
+                  f"wrapper call, plain {t['plain_ms'] * 1e3:.1f} us",
+                  flush=True)
+        main = times[(main_shape, D, S)]
         route, source, replaces = KERNELS[name]
         rows.append({
             "name": name, "route": route, "source": source,
@@ -1339,7 +1412,8 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": list(main_shape),
         })
-        extra[name] = {str(list(k)): v for k, v in times.items()}
+        extra[name] = {f"{list(k[0])} D={k[1]} S={k[2]}": v
+                       for k, v in times.items()}
     record["kernel_times"] = extra
 
     # corr_band's backward, plain torch ops, at the train shapes: reads L, R
@@ -1802,7 +1876,8 @@ def moderate_weights(name: str, **kwargs) -> dict:
 def train_step_parity(name: str, sd: dict, batch: dict, iters: int,
                       param_tol: float, min_share: float,
                       loss: str = "sequence",
-                      grad_norm_rtol: float = 1e-3) -> dict:
+                      grad_norm_rtol: float = 1e-3,
+                      model_kw: dict | None = None) -> dict:
     """One train step (AMSGrad lr 1e-3) of model ``name`` from ``sd`` on the
     card and on the CPU, TF32 off: loss, EPE and gradient norm, and the
     updated parameters. AMSGrad's first step moves each parameter by ~lr
@@ -1818,7 +1893,7 @@ def train_step_parity(name: str, sd: dict, batch: dict, iters: int,
 
     stepped = {}
     for where in ("cpu", "cuda"):
-        m = get_model(name, device=where)
+        m = get_model(name, device=where, **(model_kw or {}))
         m.load_state_dict(sd)
         tx = Amsgrad(LR)
         state, metrics = make_train_step(tx, loss, iters=iters)(
@@ -1868,16 +1943,16 @@ def train_step_parity(name: str, sd: dict, batch: dict, iters: int,
     return parity
 
 
-def parity_vs_cpu() -> dict:
-    """Phase 13: the card against the port on the CPU at 64x256, TF32 off,
-    moderate weights (``moderate_weights``): the eval forward and one train
-    step."""
+def parity_vs_cpu(seed: int = 2, **model_kw) -> dict:
+    """Phase 13 (phase 8b with ``model_kw``): LowCNN_gru on the card
+    against the port on the CPU at 64x256, TF32 off, moderate weights
+    (``moderate_weights``): the eval forward and one train step."""
     from stereoformer_tpu_torch.models import get_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sd = moderate_weights("LowCNN_gru")
-    srng = np.random.default_rng(2)
+    sd = moderate_weights("LowCNN_gru", **model_kw)
+    srng = np.random.default_rng(seed)
     li, ri = (torch.from_numpy(srng.standard_normal((2, 64, 256, 3),
                                                     dtype=np.float32))
               for _ in range(2))
@@ -1886,12 +1961,13 @@ def parity_vs_cpu() -> dict:
 
     small = {}
     for where in ("cpu", "cuda"):
-        m = get_model("LowCNN_gru", device=where)
+        m = get_model("LowCNN_gru", device=where, **model_kw)
         m.load_state_dict(sd)
         with torch.inference_mode():
             o = m(li.to(where), ri.to(where), iters=ITERS)
         small[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
-    print("card vs CPU port at 64x256, TF32 off:", flush=True)
+    print(f"LowCNN_gru{model_kw or ''}, card vs CPU port at 64x256, TF32 "
+          f"off:", flush=True)
     parity = {
         # f32 on both, sums in other orders; the last disparity has been
         # through 12 GRU steps
@@ -1902,7 +1978,7 @@ def parity_vs_cpu() -> dict:
     }
     parity.update(train_step_parity(
         "LowCNN_gru", sd, {"img_left": li, "img_right": ri, "gt_disp": gt},
-        iters=2, param_tol=1e-6, min_share=0.95))
+        iters=2, param_tol=1e-6, min_share=0.95, model_kw=model_kw))
     torch.backends.cudnn.allow_tf32 = True
     return parity
 

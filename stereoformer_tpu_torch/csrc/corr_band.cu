@@ -12,30 +12,37 @@
 // main path's C = 256, D = 24 that is ~21 bytes moved per multiply-add, far
 // below the card's float32 rate, so the kernel is bytes-bound.
 //
-// Design: one block per (b, h, tile of TW = 128 pixels along W); warp g
-// owns disparities 8g .. 8g+7 and lane l the pixels 4l .. 4l+3 of the tile,
-// so each thread keeps 4 x 8 sums in registers. Per group of 4 channels a
-// thread reads 4 L rows and the 11 R rows those 32 outputs need, as 16-byte
-// loads from shared memory: 15 loads for 128 multiply-adds, where one
-// output per thread would need 9 loads for 8. Channels are staged CK = 32
-// at a time, two stages deep: cp.async copies the next chunk of the L tile
-// [TW, CK] and the R slab [TW + D - 1, CK] (pixels w0-D+1 .. w0+TW-1; rows
-// outside the image are zero-filled, which also makes every w < d output
-// exactly 0) while the block computes on the current one. Each 128-byte row
-// keeps its eight 16-byte chunks in an order XOR-ed with (row / 4) % 8, so
-// the 8 lanes of a quarter-warp, 4 rows apart, read 8 different chunks: no
-// bank conflicts, no padding. The outputs of a thread's pixel are 8
-// consecutive floats of the volume, written as two 16-byte stores.
+// Design: one block per (b, h, tile of TW = 32 pixels along W, span of up
+// to 32 disparities); the spans of a large D are further blocks, so
+// neither the block nor its shared memory grows with D. Warp g of the block
+// owns 8 disparities of the span; its lane (i, k) = (lane % 8, lane / 8)
+// owns pixels 4i .. 4i+3 of the tile and the channel quads q = k, k+4, ...
+// of each staged chunk, so each thread keeps 4 x 8 partial sums in
+// registers and the four lanes k of a pixel group split the channels. Per
+// channel quad a thread reads 4 L rows and the 11 R rows its 32 outputs
+// need, as 16-byte loads from shared memory. Channels are staged CK = 32 at
+// a time, NST = 4 stages deep: cp.async copies chunk k + 3 of the L tile
+// [TW, CK] and the R slab [TW + span - 1, CK] (rows outside the image are
+// zero-filled, which also makes every w < d output exactly 0) while the
+// block computes on chunk k. Each 128-byte row keeps its eight 16-byte
+// chunks in an order XOR-ed with (row / 4) % 8, so the 8 lanes of a
+// quarter-warp (one k, rows 4 apart) read 8 different chunks: no bank
+// conflicts, no padding. At the end the four lanes k of a pixel group sum
+// their partials by two XOR shuffles in a fixed order, each keeping one
+// pixel, and write its 8 consecutive outputs as two 16-byte stores.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WT = 4;          // pixels per thread
-constexpr int TW = 32 * WT;    // pixels per block
-constexpr int DT = 8;          // disparities per thread (per warp)
-constexpr int CK = 32;         // channels per stage: one 128-byte row
-constexpr int D_MAX = 64;      // 8 warps: the block's thread bound below
+constexpr int WT = 4;           // pixels per thread
+constexpr int KS = 4;           // lanes that split a pixel group's channels
+constexpr int TW = 32 / KS * WT;   // pixels per block: 32
+constexpr int DT = 8;           // disparities per warp
+constexpr int NW = 4;           // most warps per block
+constexpr int CK = 32;          // channels per stage: one 128-byte row
+constexpr int NST = 4;          // stages
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -58,105 +65,127 @@ __device__ __forceinline__ int slot(int r, int q) {
   return r * CK + ((q ^ ((r >> 2) & 7)) << 2);
 }
 
-__global__ void __launch_bounds__(32 * (D_MAX / DT))
+// floats of one stage for a span of `span` disparities: L tile, R slab
+__host__ __device__ inline int stage_floats(int span) {
+  return (TW + TW + span - 1) * CK;
+}
+
+__global__ void __launch_bounds__(32 * NW)
 corr_band_kernel(const float* __restrict__ left,
                  const float* __restrict__ right, float* __restrict__ out,
-                 int W, int C, int D) {
+                 int W, int C, int D, int tiles) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int rlen = TW + D - 1;             // R slab rows
-  const int stage = (TW + rlen) * CK;      // floats per stage: L tile, R slab
+  const int span = (blockDim.x >> 5) * DT;   // disparities of the block
+  const int rlen = TW + span - 1;            // R slab rows
+  const int stage = stage_floats(span);
 
-  const int w0 = blockIdx.x * TW;
+  const int w0 = (blockIdx.x % tiles) * TW;
+  const int dspan = (blockIdx.x / tiles) * span;   // the span's first d
   const long long row = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * W;
   const float* lrow = left + row * C;
   const float* rrow = right + row * C;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int d0 = (tid >> 5) * DT;
+  const int lane = tid & 31, i = lane & 7, k = lane >> 3;
+  const int dw = (tid >> 5) * DT;            // the warp's first d in the span
   const int nchunks = (C + CK - 1) / CK;
+  // R slab row 0 is pixel w0 - dspan - (span - 1)
+  const int rbase = w0 - dspan - (span - 1);
 
-  auto load = [&](int s, int c0) {
-    float* ls = smem + s * stage;
-    for (int i = tid; i < (TW + rlen) * (CK / 4); i += blockDim.x) {
-      const int r = i / (CK / 4), q = i % (CK / 4);
+  auto load = [&](int c0) {
+    float* ls = smem + ((c0 / CK) % NST) * stage;
+    for (int n = tid; n < (TW + rlen) * (CK / 4); n += blockDim.x) {
+      const int r = n / (CK / 4), q = n % (CK / 4);
       const bool is_l = r < TW;
       const int rr = is_l ? r : r - TW;
-      const int w = is_l ? w0 + rr : w0 - (D - 1) + rr;
+      const int w = is_l ? w0 + rr : rbase + rr;
       const int c = c0 + 4 * q;
       const bool ok = w >= 0 && w < W && c < C;
       const float* base = is_l ? lrow : rrow;
       cp_async16(ls + (is_l ? 0 : TW * CK) + slot(rr, q),
                  ok ? base + (long long)w * C + c : base, ok ? 16 : 0);
     }
-    cp_async_commit();
   };
 
   float acc[WT][DT];
 #pragma unroll
-  for (int i = 0; i < WT; ++i)
+  for (int a = 0; a < WT; ++a)
 #pragma unroll
-    for (int k = 0; k < DT; ++k) acc[i][k] = 0.f;
+    for (int b = 0; b < DT; ++b) acc[a][b] = 0.f;
 
-  // R row of output (pixel 4*lane + i, disparity d0 + k) in the slab:
-  // j0 + i - k + DT - 1. For the last warp's d >= D (when DT does not
-  // divide D) rows reach at most DT - 1 below the slab, into the L tile:
-  // still shared memory, and those sums are never stored.
-  const int j0 = WT * lane + D - 1 - d0 - (DT - 1);
-  load(0, 0);
+  // R row of output (pixel 4i + a, disparity dspan + dw + b) in the slab:
+  // 4i + a - dw - b + span - 1 = j0 + a - b + DT - 1, within [0, rlen)
+  const int j0 = WT * i + span - 1 - dw - (DT - 1);
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nchunks) load(s * CK);
+    cp_async_commit();
+  }
   for (int k0 = 0; k0 < nchunks; ++k0) {
-    if (k0 + 1 < nchunks) {
-      load((k0 + 1) & 1, (k0 + 1) * CK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* ls = smem + (k0 & 1) * stage;
+    cp_async_wait<NST - 2>();   // chunk k0 has landed
+    __syncthreads();            // ... for every thread; chunk k0 - 1 is done
+    if (k0 + NST - 1 < nchunks) load((k0 + NST - 1) * CK);
+    cp_async_commit();
+    const float* ls = smem + (k0 % NST) * stage;
     const float* rs = ls + TW * CK;
-#pragma unroll 2
-    for (int q = 0; q < CK / 4; ++q) {
+#pragma unroll
+    for (int qk = 0; qk < CK / 4 / KS; ++qk) {
+      const int q = k + KS * qk;
       float4 l[WT], r[WT + DT - 1];
 #pragma unroll
-      for (int i = 0; i < WT; ++i)
-        l[i] = *reinterpret_cast<const float4*>(ls + slot(WT * lane + i, q));
+      for (int a = 0; a < WT; ++a)
+        l[a] = *reinterpret_cast<const float4*>(ls + slot(WT * i + a, q));
 #pragma unroll
       for (int t = 0; t < WT + DT - 1; ++t)
         r[t] = *reinterpret_cast<const float4*>(rs + slot(j0 + t, q));
 #pragma unroll
-      for (int i = 0; i < WT; ++i)
+      for (int a = 0; a < WT; ++a)
 #pragma unroll
-        for (int k = 0; k < DT; ++k) {
-          const float4 a = l[i], b = r[i - k + DT - 1];
-          float s = acc[i][k];
-          s = fmaf(a.x, b.x, s);
-          s = fmaf(a.y, b.y, s);
-          s = fmaf(a.z, b.z, s);
-          s = fmaf(a.w, b.w, s);
-          acc[i][k] = s;
+        for (int b = 0; b < DT; ++b) {
+          const float4 x = l[a], y = r[a - b + DT - 1];
+          float s = acc[a][b];
+          s = fmaf(x.x, y.x, s);
+          s = fmaf(x.y, y.y, s);
+          s = fmaf(x.z, y.z, s);
+          s = fmaf(x.w, y.w, s);
+          acc[a][b] = s;
         }
     }
-    __syncthreads();   // the next load overwrites this stage
   }
 
-  const float fc = (float)C;
+  // sum the four lanes k of a pixel group; lane k keeps pixel 4i + k:
+  // first over k's bit 1 (pixels {0,1} or {2,3} kept), then over bit 0
+  const bool hi = k & 2, lo = k & 1;
+  float part[2][DT], res[DT];
 #pragma unroll
-  for (int i = 0; i < WT; ++i) {
-    const int w = w0 + WT * lane + i;
-    if (w >= W) continue;
-    float* o = out + (row + w) * D + d0;
-    if (d0 + DT <= D && (D & 3) == 0) {
-      reinterpret_cast<float4*>(o)[0] =
-          make_float4(acc[i][0] / fc, acc[i][1] / fc,
-                      acc[i][2] / fc, acc[i][3] / fc);
-      reinterpret_cast<float4*>(o)[1] =
-          make_float4(acc[i][4] / fc, acc[i][5] / fc,
-                      acc[i][6] / fc, acc[i][7] / fc);
-    } else {
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int k = 0; k < DT; ++k)
-        if (d0 + k < D) o[k] = acc[i][k] / fc;
+    for (int b = 0; b < DT; ++b) {
+      const float send = hi ? acc[a][b] : acc[a + 2][b];
+      const float keep = hi ? acc[a + 2][b] : acc[a][b];
+      part[a][b] = keep + __shfl_xor_sync(FULL, send, 16);
     }
+#pragma unroll
+  for (int b = 0; b < DT; ++b) {
+    const float send = lo ? part[0][b] : part[1][b];
+    const float keep = lo ? part[1][b] : part[0][b];
+    res[b] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+
+  const int w = w0 + WT * i + k;
+  const int d0 = dspan + dw;
+  if (w >= W || d0 >= D) return;
+  const float fc = (float)C;
+  float* o = out + (row + w) * D + d0;
+  if (d0 + DT <= D && (D & 3) == 0) {
+    reinterpret_cast<float4*>(o)[0] =
+        make_float4(res[0] / fc, res[1] / fc, res[2] / fc, res[3] / fc);
+    reinterpret_cast<float4*>(o)[1] =
+        make_float4(res[4] / fc, res[5] / fc, res[6] / fc, res[7] / fc);
+  } else {
+#pragma unroll
+    for (int b = 0; b < DT; ++b)
+      if (d0 + b < D) o[b] = res[b] / fc;
   }
 }
 
@@ -164,23 +193,28 @@ corr_band_kernel(const float* __restrict__ left,
 
 // left, right: float32 [B, H, W, C] contiguous, C a multiple of 4, 16-byte
 // aligned; out: float32 [B, H, W, D] contiguous; stream: a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
+// Returns the error of the shared-memory setting or cudaGetLastError() after
+// the launch (0 when it was accepted).
 extern "C" int corr_band_forward(const float* left, const float* right,
                                  float* out, int B, int H, int W, int C,
                                  int D, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 4 != 0 || D <= 0 ||
-      D > D_MAX || H > 65535 || B > 65535)
+      H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int groups = (D + DT - 1) / DT;
-  const size_t smem = 2 * (size_t)(2 * TW + D - 1) * CK * sizeof(float);
+  const int warps = min(NW, (D + DT - 1) / DT);
+  const int span = warps * DT;
+  const long long tiles = (W + TW - 1) / TW;
+  const long long blocks = tiles * ((D + span - 1) / span);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)NST * stage_floats(span) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         corr_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((W + TW - 1) / TW, H, B);
-  corr_band_kernel<<<grid, 32 * groups, smem, (cudaStream_t)stream>>>(
-      left, right, out, W, C, D);
+  const dim3 grid((unsigned)blocks, H, B);
+  corr_band_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      left, right, out, W, C, D, (int)tiles);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .local_volume import D_MAX
 
 
 def correlation_volume_plain(left: torch.Tensor, right: torch.Tensor,
@@ -56,10 +57,10 @@ class _CorrBand(torch.autograd.Function):
                 f"corr_band: left and right must be [B, H, W, C] of one "
                 f"shape, got {tuple(left.shape)} and {tuple(right.shape)}")
         B, H, W, C = left.shape
-        if C % 4 or not 0 < max_disp <= 64:
+        if C % 4 or not 0 < max_disp <= D_MAX:
             raise ValueError(
                 f"corr_band: the kernel takes C a multiple of 4 and "
-                f"0 < max_disp <= 64, got C={C}, max_disp={max_disp}")
+                f"0 < max_disp <= {D_MAX}, got C={C}, max_disp={max_disp}")
         out = torch.empty((B, H, W, max_disp), dtype=torch.float32,
                           device=left.device)
         kernels.launch("corr_band", left.device, left.data_ptr(),

@@ -22,6 +22,11 @@ import torch
 from .. import kernels
 from .softargmin import disparity_variance
 
+# the most volume bins and candidates the kernels take: a block's shared
+# rows, 32 pixels x (D + 3 S + 2) floats at most in the backward, stay
+# within the H100's 227 KB (max_disp up to 8192, num_samples up to 127)
+D_MAX, S_MAX = 1024, 128
+
 
 def make_candidates(lower: torch.Tensor, upper: torch.Tensor,
                     cur_disp: torch.Tensor, num_samples: int,
@@ -113,10 +118,10 @@ class _LocalSoftArgmin(torch.autograd.Function):
                 f"and {tuple(candidates.shape)}")
         B, H, W, D = volume.shape
         S = candidates.shape[-1]
-        if S > 32 or D > 48:
+        if S > S_MAX or D > D_MAX:
             raise ValueError(
-                f"local_soft_argmin: the kernel takes S <= 32 and D <= 48, "
-                f"got S={S}, D={D}")
+                f"local_soft_argmin: the kernel takes S <= {S_MAX} and "
+                f"D <= {D_MAX}, got S={S}, D={D}")
         out = torch.empty((B, H, W, 1), dtype=torch.float32,
                           device=volume.device)
         kernels.launch("local_soft_argmin", volume.device, volume.data_ptr(),

@@ -24,6 +24,13 @@ LOCAL_TOL = 1e-4
 # gradients of O(1) cotangents times candidates up to ~26 px, summed in
 # another order than the plain version's dense [S, D] contraction
 LOCAL_BWD_TOL = 1e-4
+# past the old kernels' limits (D > 48 or S > 32) candidates reach D + 2 px
+# and values and gradients grow with them, so both are held relative to
+# each output's largest magnitude (the two absolute tolerances above are
+# ~5e-6 and ~1.5e-5 of it at the main path's D = 24, S = 21; the kernels'
+# order, emulated in tests/test_torch_refine_kernels.py, stays within
+# 3e-7 of it up to D = 256, S = 128)
+LOCAL_REL_TOL = 5e-6
 
 
 @pytest.fixture
@@ -38,9 +45,9 @@ def _randn(rng, shape, device):
         rng.standard_normal(shape).astype(np.float32)).to(device)
 
 
-def _edge_candidates(rng, shape, device):
-    cands = rng.uniform(-2, 26, shape).astype(np.float32)
-    special = np.array([0.0, 23.0, 5.0, 4.5, 6.0, -1.0, 24.0, 11.0],
+def _edge_candidates(rng, shape, device, D=24):
+    cands = rng.uniform(-2, D + 2, shape).astype(np.float32)
+    special = np.array([0.0, D - 1.0, 5.0, 4.5, 6.0, -1.0, D, 11.0],
                        np.float32)
     pick = rng.random(shape) < 0.3
     cands[pick] = rng.choice(special, size=int(pick.sum()))
@@ -72,6 +79,103 @@ def test_local_soft_argmin_matches_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert got.shape == shape + (1,)
     torch.testing.assert_close(got, want, rtol=0, atol=LOCAL_TOL)
+
+
+@pytest.mark.parametrize("shape,D", [((2, 8, 120, 256), 50),
+                                     ((1, 3, 40, 64), 96),
+                                     ((1, 2, 97, 36), 96),
+                                     ((1, 2, 300, 64), 256)],
+                         ids=["D50", "W<D96", "ragged-W-D96", "D256"])
+def test_corr_band_matches_plain_past_the_old_limit(cuda_device, shape, D):
+    """D > 64, where the old kernel refused: spans of 32 disparities in
+    further blocks, a W below D and a W that no 32-pixel tile divides."""
+    rng = np.random.default_rng(8)
+    left = _randn(rng, shape, cuda_device)
+    right = _randn(rng, shape, cuda_device)
+    got = ops.correlation_volume(left, right, D)
+    want = ops.correlation_volume_plain(left, right, D)
+    torch.cuda.synchronize()
+    assert got.shape == shape[:3] + (D,)
+    torch.testing.assert_close(got, want, rtol=0, atol=CORR_TOL)
+
+
+@pytest.mark.parametrize("shape,D,S", [((2, 9, 37), 50, 21),
+                                       ((2, 9, 37), 50, 33),
+                                       ((2, 9, 37), 96, 33),
+                                       ((2, 9, 37), 256, 128),
+                                       ((4, 72, 120), 96, 33),
+                                       ((8, 72, 120), 96, 33)],
+                         ids=["D50-S21", "D50-S33", "D96-S33", "D256-S128",
+                              "2-lanes-D96", "1-lane-D96"])
+def test_local_soft_argmin_matches_plain_past_the_old_limits(cuda_device,
+                                                             shape, D, S):
+    """Forward and backward kernels where the old ones refused (D > 48 or
+    S > 32), with edge candidates, relative to each output's largest
+    magnitude (LOCAL_REL_TOL); the kernels take 4, 2 or 1 lanes a pixel
+    by the pixel count."""
+    rng = np.random.default_rng(9)
+    vol = _randn(rng, shape + (D,), cuda_device).requires_grad_(True)
+    cands = _edge_candidates(rng, shape + (S,), cuda_device, D)
+    cands.requires_grad_(True)
+    g = _randn(rng, shape + (1,), cuda_device)
+    out = ops.local_soft_argmin(vol, cands)
+    out.backward(g)
+    want = ops.local_soft_argmin_plain(vol.detach(), cands.detach())
+    want_v, want_c = ops.local_soft_argmin_backward_plain(
+        vol.detach(), cands.detach(), g)
+    torch.cuda.synchronize()
+    for got, w in ((out, want), (vol.grad, want_v), (cands.grad, want_c)):
+        torch.testing.assert_close(
+            got, w, rtol=0, atol=LOCAL_REL_TOL * w.abs().max().item())
+
+
+@pytest.mark.parametrize("D,S", [(24, 21), (96, 33)])
+def test_local_soft_argmin_backward_is_deterministic(cuda_device, D, S):
+    """No atomics: a second call gives the same bits."""
+    rng = np.random.default_rng(10)
+    shape = (4, 40, 80)
+    vol = _randn(rng, shape + (D,), cuda_device).requires_grad_(True)
+    cands = _edge_candidates(rng, shape + (S,), cuda_device, D)
+    cands.requires_grad_(True)
+    g = _randn(rng, shape + (1,), cuda_device)
+    out = ops.local_soft_argmin(vol, cands)
+    first = torch.autograd.grad(out, (vol, cands), g, retain_graph=True)
+    second = torch.autograd.grad(out, (vol, cands), g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_lowcnn_gru_with_a_wide_range_matches_the_cpu(cuda_device):
+    """LowCNN_gru(max_disp=400, num_samples=32), D = 50 and S = 33, which
+    the old kernels refused: eval on the card against the port on the CPU
+    at 64x256, 12 GRU steps, TF32 off, the same seeded weights with the
+    convs scaled as chip_smoke.py's ``moderate_weights`` scales them (so
+    the softmaxes are neither flat nor one-hot)."""
+    from stereoformer_tpu_torch.models import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    left, right = (torch.from_numpy(rng.standard_normal(
+        (2, 64, 256, 3)).astype(np.float32)) for _ in range(2))
+    kw = dict(max_disp=400, num_samples=32)
+    cpu = get_model("LowCNN_gru", device="cpu", **kw)
+    cpu.load_state_dict({k: v * np.sqrt(1.25 / 2.0) if v.dim() == 4 else v
+                         for k, v in cpu.state_dict().items()})
+    card = get_model("LowCNN_gru", device=cuda_device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    n = ops.local_soft_argmin.launches
+    with torch.inference_mode():
+        want = cpu(left, right, iters=12)
+        got = card(left.to(cuda_device), right.to(cuda_device), iters=12)
+    torch.backends.cudnn.allow_tf32 = True
+    assert ops.local_soft_argmin.launches == n + 12
+    # float32 on both sides, sums in other orders (chip_smoke.py's parity
+    # phase): 1e-3 px at the volume's soft-argmin, 5e-3 after the GRU steps
+    torch.testing.assert_close(got["disp_low"].cpu(), want["disp_low"],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["disparities"][-1].cpu(),
+                               want["disparities"][-1], rtol=0, atol=5e-3)
 
 
 def test_wrappers_count_launches(cuda_device):
@@ -145,15 +249,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     odd = _randn(rng, (1, 2, 30, 18), cuda_device)
     with pytest.raises(ValueError, match="multiple of 4"):
         ops.correlation_volume(odd, odd, 24)
-    with pytest.raises(ValueError, match="max_disp <= 64"):
-        ops.correlation_volume(feat, feat, 65)
+    with pytest.raises(ValueError, match="max_disp <= 1024"):
+        ops.correlation_volume(feat, feat, 1025)
     flat = _randn(rng, (2 * 30 * 16 + 1,), cuda_device)
     shifted = flat[1:].view(1, 2, 30, 16)     # contiguous, 4 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.correlation_volume(shifted, shifted, 24)
     vol = _randn(rng, (1, 2, 30, 24), cuda_device)
-    with pytest.raises(ValueError, match="S <= 32"):
-        ops.local_soft_argmin(vol, _randn(rng, (1, 2, 30, 40), cuda_device))
+    with pytest.raises(ValueError, match="S <= 128"):
+        ops.local_soft_argmin(vol, _randn(rng, (1, 2, 30, 129), cuda_device))
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ops.local_soft_argmin(_randn(rng, (1, 2, 30, 1025), cuda_device),
+                              _randn(rng, (1, 2, 30, 21), cuda_device))
 
 
 # float32 sums of 9*C products: the kernel's 3xTF32 products (each operand
