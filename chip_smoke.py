@@ -20,9 +20,12 @@ any failure exits nonzero and prints no result:
    bit-equal to itself on a second call), the fused conv's backward
    (conv2d_fused for dx, conv2d_dw for dw, torch ops for the rest) in all
    six variants against autograd of its plain version,
-   deform_sample (with the wrapper's matmul) against the plain windowed
-   form in float64 at the learned bounds' eval and train shapes, an odd W,
-   dilation 2, offsets beyond the window, integer offsets and Co = 6, 32,
+   deform_sample (the fused kernel: x, offsets, mask and weight in) against
+   the plain windowed form in float64 at the learned bounds' eval and train
+   shapes, an odd W, dilation 2, offsets beyond the window, integer offsets,
+   Co = 5, 6, 24, 32, C = 6, 40, 64, 128, windows 1, 3, 8 and 24 (the last
+   too wide for a halo in shared memory), tile edges and k = 5, and
+   bit-equal to itself on a second call,
    conv2d_s2 with and without ReLU against the plain version in float64 at
    RAFT's six stride-2 sites and edge shapes, with its gradient, and
    row_gather bit-equal to its plain version at the probe's shape, an index
@@ -87,8 +90,9 @@ any failure exits nonzero and prints no result:
    cuDNN's conv2d_input; conv2d_dw, at the four training shapes, beside
    cuDNN's conv2d_weight (TF32 on and off);
    for deform_sample at the learned bounds' eval and train shapes, beside
-   the wrapper with its matmul and torchvision's deform_conv2d where
-   torchvision imports; for conv2d_s2 at RAFT's six stride-2 sites beside
+   torchvision's deform_conv2d where torchvision imports, and the time of
+   the deformable conv's backward (autograd of the plain windowed form) at
+   the train shape; for conv2d_s2 at RAFT's six stride-2 sites beside
    one F.conv2d with stride 2 (TF32 off and on); for row_gather at the
    probe's shape beside torch.gather;
 13. parity of the card against the port on the CPU (TF32 off): LowCNN_gru
@@ -803,60 +807,74 @@ def check_conv_backward(ops, rng) -> dict:
     return worst
 
 
-# deform_sample's checks: (B, H, W, C, Co), padding, dilation, and the
-# offsets' scale (uniform in +-scale px) or "integer" (0, +-1, +-2, 3)
+# deform_sample's checks: (B, H, W, C, Co), padding, dilation, the offsets'
+# scale (uniform in +-scale px) or "integer" (0, +-1, +-2, 3), the window
+# and the kernel size
 DEFORM_CASES = {
-    "eval shape": (DEFORM_SHAPES["eval"], 1, 1, 1.8),
-    "train shape": (DEFORM_SHAPES["train"], 1, 1, 1.8),
-    "odd W, Co 6": ((2, 13, 17, 8, 6), 1, 1, 1.8),
-    "dilation 2": ((2, 40, 79, 16, 16), 2, 2, 1.8),
-    "offsets beyond the window": ((4, 40, 80, 16, 16), 1, 1, 5.0),
-    "integer offsets": ((4, 40, 80, 16, 16), 1, 1, "integer"),
-    "Co 32": ((2, 40, 80, 16, 32), 1, 1, 1.8),
+    "eval shape": (DEFORM_SHAPES["eval"], 1, 1, 1.8, 2, 3),
+    "train shape": (DEFORM_SHAPES["train"], 1, 1, 1.8, 2, 3),
+    "odd W, Co 6": ((2, 13, 17, 8, 6), 1, 1, 1.8, 2, 3),
+    "dilation 2": ((2, 40, 79, 16, 16), 2, 2, 1.8, 2, 3),
+    "offsets beyond the window": ((4, 40, 80, 16, 16), 1, 1, 5.0, 2, 3),
+    "integer offsets": ((4, 40, 80, 16, 16), 1, 1, "integer", 2, 3),
+    "Co 32": ((2, 40, 80, 16, 32), 1, 1, 1.8, 2, 3),
+    "C 64, window 1": ((2, 40, 80, 64, 64), 1, 1, 1.3, 1, 3),
+    "C 128, window 3": ((2, 40, 80, 128, 128), 1, 1, 3.5, 3, 3),
+    "window 8": ((2, 40, 80, 16, 16), 1, 1, 9.0, 8, 3),
+    "window 24, no halo": ((1, 12, 40, 16, 16), 1, 1, 26.0, 24, 3),
+    "tile edges": ((3, 17, 33, 16, 16), 1, 1, 1.8, 2, 3),
+    "C 40, Co 24": ((2, 20, 50, 40, 24), 1, 1, 1.8, 2, 3),
+    "C 6, Co 5": ((2, 13, 17, 6, 5), 1, 1, 1.8, 2, 3),
+    "k 5, Co 32": ((1, 20, 40, 8, 32), 2, 1, 1.8, 2, 5),
 }
 
 
-def deform_inputs(rng, shape, scale):
-    """x, offsets, mask and weight [9 C, Co] (scaled by 1/sqrt(9 C)) for
-    deform_conv_fused on the card."""
+def deform_inputs(rng, shape, scale, k=3):
+    """x, offsets, mask and weight [k*k C, Co] (scaled by 1/sqrt(k*k C))
+    for deform_conv_fused on the card."""
     B_, H_, W_, C, Co = shape
+    K = k * k
     if scale == "integer":
         off = rng.choice(np.array([0.0, 0.0, 1.0, -1.0, 2.0, -2.0, 3.0]),
-                         size=(B_, H_, W_, 9, 2))
+                         size=(B_, H_, W_, K, 2))
     else:
-        off = rng.uniform(-scale, scale, (B_, H_, W_, 9, 2))
-    mask = rng.random((B_, H_, W_, 9))
+        off = rng.uniform(-scale, scale, (B_, H_, W_, K, 2))
+    mask = rng.random((B_, H_, W_, K))
     return (randn(rng, B_, H_, W_, C),
             torch.from_numpy(off.astype(np.float32)).cuda(),
             torch.from_numpy(mask.astype(np.float32)).cuda(),
-            randn(rng, 9 * C, Co) / np.sqrt(9 * C))
+            randn(rng, K * C, Co) / np.sqrt(K * C))
 
 
 def check_deform_kernel(ops, rng) -> float:
-    """Phase 3, deform_sample: deform_conv_fused (the wrapper's float32
-    matmul, TF32 off, then the kernel) against the plain windowed form on
-    float64 copies; returns the largest absolute error."""
-    # float32 sums: C products in the matmul, then 9 taps x 4 corners;
-    # relative to the largest |out|
+    """Phase 3, deform_sample: the fused kernel against the plain windowed
+    form on float64 copies, and bit-equal to itself on a second call;
+    returns the largest absolute error."""
+    # float32 sums of K taps x 4 corners x C products (the contraction in
+    # 3xTF32, each tap's sum folded into a float32 total); relative to the
+    # largest |out|
     rtol = 1e-5
     worst = 0.0
-    print("deform_sample vs the plain windowed form in float64 (matmul "
-          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}):", flush=True)
-    for label, (shape, pad, dil, scale) in DEFORM_CASES.items():
-        x, off, mask, w = deform_inputs(rng, shape, scale)
+    print("deform_sample vs the plain windowed form in float64:", flush=True)
+    for label, (shape, pad, dil, scale, window, k) in DEFORM_CASES.items():
+        x, off, mask, w = deform_inputs(rng, shape, scale, k)
         n = ops.deform_conv_fused.launches
-        got = ops.deform_conv_fused(x, off, mask, w, 3, pad, dil, 2)
+        got = ops.deform_conv_fused(x, off, mask, w, k, pad, dil, window)
+        again = ops.deform_conv_fused(x, off, mask, w, k, pad, dil, window)
         torch.cuda.synchronize()
-        if ops.deform_conv_fused.launches != n + 1:
+        if ops.deform_conv_fused.launches != n + 2:
             raise SmokeFailure(f"deform_sample {label}: no launch counted")
+        if not torch.equal(got, again):
+            raise SmokeFailure(f"deform_sample {label}: a second call gave "
+                               "other bits")
         want = ops.modulated_deform_conv_windowed(
-            x.double(), off.double(), mask.double(), w.double(), padding=pad,
-            dilation=dil, window=2)
+            x.double(), off.double(), mask.double(), w.double(),
+            kernel_size=k, padding=pad, dilation=dil, window=window)
         top = want.abs().max().item()
         worst = max(worst, compare(
-            f"deform_sample {label} {shape} pad {pad} dil {dil} (largest "
-            f"|out| {top:.2f})", got, want, rtol * top))
-        del x, off, mask, w, got, want
+            f"deform_sample {label} {shape} k {k} pad {pad} dil {dil} window "
+            f"{window} (largest |out| {top:.2f})", got, want, rtol * top))
+        del x, off, mask, w, got, again, want
     return worst
 
 
@@ -1647,13 +1665,21 @@ def dw_row(ops, rng, err, launches, record) -> dict:
 
 def deform_row(ops, rng, err, launches, record) -> dict:
     """Phase 12, deform_sample at the learned bounds' eval and train shapes:
-    the kernel's device time, the wrapper's (its matmul G = x . W_k and the
-    kernel), the plain version's (the windowed form, matmul included), and
+    the fused kernel's device time (one launch: x, offsets, mask and weight
+    in, the output out), the plain version's (the windowed form),
     torchvision's deform_conv2d on pre-clamped offsets where torchvision
-    imports (the same function, matmul included); the bound is the
-    kernel's: G, the offsets and the mask read once, the output written
-    once, or four corner FMAs per tap and output channel in float32."""
+    imports (the same function), and the bounds: x, the offsets, the mask
+    and the weight read once and the output written once, or 4 K C corner
+    FMAs and K C Co contraction FMAs a pixel at the float32 rate
+    (``bound_ms``); or the corners at the float32 rate and the contraction
+    as three TF32 products at the TF32 rate, one after the other (the
+    kernel's design, ``bound_tf32x3_ms``). At the train shape also the
+    backward, autograd of the plain windowed form for the gradients of all
+    four inputs, as the train step runs it: its kernels' device time by the
+    profiler, and its time per call by CUDA events over back-to-back
+    calls, host gaps included (the lowest and highest of five runs)."""
     from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
 
     try:
         import torchvision.ops as tv_ops
@@ -1663,35 +1689,32 @@ def deform_row(ops, rng, err, launches, record) -> dict:
     for where, shape in DEFORM_SHAPES.items():
         B_, H_, W_, C, Co = shape
         x, off, mask, w = deform_inputs(rng, shape, 1.8)
+        plan = {}
+        deform_sample_launch(x, off, mask, w, plan=plan)
         npix, K = B_ * H_ * W_, 9
-        nbytes = (npix * K * Co + npix * 3 * K + npix * Co) * 4
-        nops = 2 * 4 * K * Co * npix
+        nbytes = (npix * C + npix * 3 * K + K * C * Co + npix * Co) * 4
+        corner_ops, mma_ops = 2 * 4 * K * C * npix, 2 * K * C * Co * npix
+        nops = corner_ops + mma_ops
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
+        t_design = (corner_ops / F32_FLOPS_PER_S
+                    + 3 * mma_ops / TF32_FLOPS_PER_S) * 1e3
 
         def kern():
             return ops.deform_conv_fused(x, off, mask, w)
 
-        # the kernel alone, on the wrapper's G = x . W_k
-        G = torch.matmul(x.reshape(-1, C), w.reshape(K, C, Co).permute(
-            1, 0, 2).reshape(C, K * Co))
-        out = x.new_empty((B_, H_, W_, Co))
-
-        def launch():
-            kernels.launch("deform_sample", x.device, G.data_ptr(),
-                           off.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                           B_, H_, W_, H_, W_, 3, Co, 1, 1, 2)
-
-        row = {"shape": list(shape), "mb": nbytes / 1e6,
-               "ms": graph_ms(launch, 50),
-               "wrapper_ms": graph_ms(kern, 50),
-               "call_ms": time_ms(kern, 50),
+        row = {"shape": list(shape), "mb": nbytes / 1e6, "gflop": nops / 1e9,
+               "ms": graph_ms(kern, 50), "call_ms": time_ms(kern, 50),
                "plain_ms": graph_ms(
                    lambda: ops.modulated_deform_conv_windowed(x, off, mask,
                                                               w), 5),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
+               "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+               "bound_tf32x3_ms": max(t_bytes, t_design),
+               "library_ms": None, "plan": plan}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_design_bound"] = row["bound_tf32x3_ms"] / row["ms"]
         if tv_ops is not None:
             xc = x.permute(0, 3, 1, 2)
             offc = off.clamp(-2, 2).reshape(B_, H_, W_, 2 * K).permute(
@@ -1706,17 +1729,44 @@ def deform_row(ops, rng, err, launches, record) -> dict:
             row["library_ms"] = graph_ms(lib, 20)
             row["library_max_abs_diff"] = (
                 lib().permute(0, 2, 3, 1) - kern()).abs().max().item()
+        bwd_text = ""
+        if where == "train":
+            leaves = [t.clone().requires_grad_(True) for t in (x, off, mask,
+                                                               w)]
+            y = ops.deform_conv_fused(*leaves)
+            g = randn(rng, *y.shape)
+
+            def bwd():
+                return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+            # the autograd graph of the plain form does not capture into a
+            # CUDA graph: its kernels' device time by the profiler, and
+            # CUDA events over back-to-back calls
+            row["backward_device_ms"] = profiler_ms(bwd, 5, "")
+            runs = [time_ms(bwd, 4) for _ in range(5)]
+            row["backward_ms"] = float(np.median(runs))
+            row["backward_ms_range"] = [min(runs), max(runs)]
+            bwd_text = (f"; backward (autograd of the plain form) "
+                        f"{row['backward_device_ms']:.3f} ms of device time "
+                        f"a call by the profiler, {min(runs):.3f} to "
+                        f"{max(runs):.3f} ms a call by events")
+            del leaves, y, g
         times[where] = row
         lib_text = ("torchvision not importable" if tv_ops is None else
                     f"torchvision deform_conv2d {row['library_ms'] * 1e3:.1f}"
                     f" us (max |diff| {row['library_max_abs_diff']:.2e})")
-        print(f"  deform_sample {where} {shape}: {row['ms'] * 1e3:.1f} us on "
-              f"the device (bound {row['bound_ms'] * 1e3:.2f} us by "
-              f"{row['bound_by']}, {row['mb']:.2f} MB), with the matmul "
-              f"{row['wrapper_ms'] * 1e3:.1f} us, {row['call_ms'] * 1e3:.1f} "
-              f"us per wrapper call; plain {row['plain_ms'] * 1e3:.1f} us; "
-              f"{lib_text}", flush=True)
-        del x, off, mask, w, G, out
+        print(f"  deform_sample {where} {shape}: {row['ms'] * 1e3:.2f} us on "
+              f"the device ({plan['rows']}-row tiles, {16 * plan['mt']} "
+              f"pixels a warp, {plan['ts']} tap slices; bound "
+              f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}: "
+              f"{row['mb']:.2f} MB, {row['gflop']:.3f} GFLOP; "
+              f"{100 * row['share_of_bound']:.1f}%; 3xTF32 design bound "
+              f"{row['bound_tf32x3_ms'] * 1e3:.2f} us, "
+              f"{100 * row['share_of_design_bound']:.1f}%), "
+              f"{row['call_ms'] * 1e3:.1f} us per wrapper call; plain "
+              f"{row['plain_ms'] * 1e3:.1f} us; {lib_text}{bwd_text}",
+              flush=True)
+        del x, off, mask, w
     record["kernel_times"]["deform_sample"] = times
     main = times["eval"]
     route, source, replaces = KERNELS["deform_sample"]
@@ -1729,8 +1779,11 @@ def deform_row(ops, rng, err, launches, record) -> dict:
         "max_abs_err": err["deform_sample"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "wrapper_ms": main["wrapper_ms"], "shape": main["shape"],
-        "train": times["train"],
+        "call_ms": main["call_ms"], "shape": main["shape"],
+        "share_of_bound": main["share_of_bound"],
+        "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+        "share_of_design_bound": main["share_of_design_bound"],
+        "train": times["train"], "ptxas": kernels.ptxas_usage("deform_sample"),
     }
 
 

@@ -44,7 +44,7 @@ KERNELS = {
                      (_P,) * 10 + (_I,) * 6 + (_P,)),
     "conv2d_dw": ("conv2d_dw.cu", "conv2d_dw", (_P,) * 4 + (_I,) * 6 + (_P,)),
     "deform_sample": ("deform_sample.cu", "deform_sample_forward",
-                      (_P,) * 4 + (_I,) * 10 + (_P,)),
+                      (_P,) * 5 + (_I,) * 9 + (_P, _P)),
     "conv2d_s2": ("conv2d_s2.cu", "conv2d_s2_forward",
                   (_P,) * 4 + (_I,) * 6 + (_P,)),
     "row_gather": ("row_gather.cu", "row_gather_forward",

@@ -19,15 +19,17 @@ gives exactly 0) the offset gradient is JAX's exactly, and at +-R the clamp
 passes half.
 
 ``deform_conv_fused`` is the windowed form without bias: CPU tensors take
-the plain windowed form; CUDA tensors compute G = x . W_k with one
-``torch.matmul`` and launch the kernel ``csrc/deform_sample.cu`` or raise,
-counting launches in ``deform_conv_fused.launches``. Its gradient is
-autograd of the plain windowed form on both devices, as the Pallas
-kernel's VJP rematerialises through the XLA windowed form.
+the plain windowed form; CUDA tensors launch the fused kernel
+``csrc/deform_sample.cu`` (x, offsets, mask and weight in, out out, tiled
+by the kernel's C entry) or raise, counting launches in
+``deform_conv_fused.launches``. Its gradient is autograd of the plain
+windowed form on both devices, as the Pallas kernel's VJP rematerialises
+through the XLA windowed form.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -172,7 +174,7 @@ class _DeformConvFused(torch.autograd.Function):
         ctx.save_for_backward(x, offsets, mask, weight)
         if x.device.type == "cpu":
             return _windowed(x, offsets, mask, weight, *ctx.conf)
-        return _launch(x, offsets, mask, weight, *ctx.conf)
+        return deform_sample_launch(x, offsets, mask, weight, *ctx.conf)
 
     @staticmethod
     def backward(ctx, grad):
@@ -192,14 +194,24 @@ class _DeformConvFused(torch.autograd.Function):
 def _windowed(x, offsets, mask, weight, kernel_size, padding, dilation,
               window):
     return modulated_deform_conv_windowed(
-        x, offsets, mask, weight, None, kernel_size=kernel_size,
+        x, offsets, mask, weight.reshape(-1, weight.shape[-1]), None,
+        kernel_size=kernel_size,
         padding=padding, dilation=dilation, window=window)
 
 
-def _launch(x, offsets, mask, weight, kernel_size, padding, dilation,
-            window):
-    """G = x . W_k for every tap (one matmul, [B, H, W, K*Co]), then the
-    kernel."""
+# the tiling that csrc/deform_sample.cu ran a call with (its struct Plan)
+PLAN_FIELDS = ("rows", "mt", "ts", "halo", "nt", "kg", "smem", "grid_x",
+               "grid_y", "grid_z")
+
+
+def deform_sample_launch(x, offsets, mask, weight, kernel_size=3, padding=1,
+                         dilation=1, window=2, plan=None):
+    """The fused kernel on CUDA tensors: one launch, x and the weight in, no
+    G; returns out [B, Ho, Wo, Co]. The kernel tiles the call from the
+    shapes and the card's SMs. ``plan``, where given, is a dict: where it
+    holds ``rows``, ``mt``, ``ts`` and ``halo``, the kernel takes that
+    tiling instead, and on return it holds every field of PLAN_FIELDS as
+    the kernel ran them."""
     inputs = [x, offsets, weight] + ([] if mask is None else [mask])
     kernels.check_inputs("deform_sample", *inputs)
     B, H, W, C = x.shape
@@ -207,9 +219,10 @@ def _launch(x, offsets, mask, weight, kernel_size, padding, dilation,
     K = k * k
     Ho = H + 2 * padding - dilation * (k - 1)
     Wo = W + 2 * padding - dilation * (k - 1)
-    if weight.dim() != 2 or weight.shape[0] != K * C:
+    if weight.shape[:-1] not in ((K * C,), (K, C)):
         raise ValueError(f"deform_sample: weight must be [K*C, Co] = "
-                         f"[{K * C}, Co], got {tuple(weight.shape)}")
+                         f"[{K * C}, Co] or [K, C, Co], got "
+                         f"{tuple(weight.shape)}")
     if offsets.shape != (B, Ho, Wo, K, 2) or (
             mask is not None and mask.shape != (B, Ho, Wo, K)):
         raise ValueError(
@@ -217,14 +230,19 @@ def _launch(x, offsets, mask, weight, kernel_size, padding, dilation,
             f"{(B, Ho, Wo, K, 2)} and mask [B, Ho, Wo, K], got "
             f"{tuple(offsets.shape)} and "
             f"{None if mask is None else tuple(mask.shape)}")
-    Co = weight.shape[1]
-    wk = weight.reshape(K, C, Co).permute(1, 0, 2).reshape(C, K * Co)
-    G = torch.matmul(x.reshape(B * H * W, C), wk)
+    Co = weight.shape[-1]
+    ran = None
+    if plan is not None:
+        ran = (ctypes.c_int * len(PLAN_FIELDS))()
+        if "rows" in plan:
+            ran[:4] = [int(plan[f]) for f in PLAN_FIELDS[:4]]
     out = x.new_empty((B, Ho, Wo, Co))
-    kernels.launch("deform_sample", x.device, G.data_ptr(),
+    kernels.launch("deform_sample", x.device, x.data_ptr(),
                    offsets.data_ptr(), 0 if mask is None else mask.data_ptr(),
-                   out.data_ptr(), B, H, W, Ho, Wo, k, Co, padding, dilation,
-                   int(window))
+                   weight.data_ptr(), out.data_ptr(), B, H, W, C, Co, k,
+                   padding, dilation, int(window), ran)
+    if plan is not None:
+        plan.update(zip(PLAN_FIELDS, ran))
     deform_conv_fused.launches += 1
     return out
 
@@ -235,9 +253,9 @@ def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
                       dilation: int = 1, window: int = 2) -> torch.Tensor:
     """The windowed modulated deformable conv at stride 1, without bias:
     x [B, H, W, C], offsets [B, Ho, Wo, K, 2], mask [B, Ho, Wo, K] or None,
-    weight [K*C, Co] -> [B, Ho, Wo, Co] float32. CPU tensors take the plain
-    windowed form, CUDA tensors the kernel; the gradient is autograd of the
-    plain windowed form."""
+    weight [K*C, Co] or [K, C, Co] -> [B, Ho, Wo, Co] float32. CPU tensors
+    take the plain windowed form, CUDA tensors the fused kernel; the
+    gradient is autograd of the plain windowed form."""
     return _DeformConvFused.apply(x, offsets, mask, weight, kernel_size,
                                   padding, dilation, window)
 

@@ -501,52 +501,189 @@ def test_gpu_backward_runs_the_kernels_and_skips_what_needs_no_grad(
     assert xg.grad is not None and b.grad is None
 
 
-# deform_sample: float32 sums of K taps x 4 corners x the matmul's C products
+# deform_sample: float32 sums of K taps x 4 corners x C products (the
+# contraction in 3xTF32, each tap's sum folded into a float32 total)
 # against float64; relative to the output's largest magnitude
 DEFORM_RTOL = 1e-5
-# shape (B, H, W, C, Co), padding, dilation, offset scale or "integer"
+# shape (B, H, W, C, Co), padding, dilation, offset scale or "integer",
+# window, kernel size
 DEFORM_CASES = {
-    "train-width": ((4, 40, 80, 16, 16), 1, 1, 1.8),
-    "eval-width": ((2, 72, 120, 16, 16), 1, 1, 1.8),
-    "odd-W-Co6": ((2, 13, 17, 8, 6), 1, 1, 1.8),
-    "dilation-2": ((1, 19, 37, 16, 16), 2, 2, 1.8),
-    "beyond-window": ((1, 24, 40, 16, 16), 1, 1, 5.0),
-    "integer": ((1, 24, 40, 16, 16), 1, 1, "integer"),
-    "Co-32": ((1, 24, 40, 16, 32), 1, 1, 1.8),
+    "train-width": ((4, 40, 80, 16, 16), 1, 1, 1.8, 2, 3),
+    "eval-width": ((2, 72, 120, 16, 16), 1, 1, 1.8, 2, 3),
+    "odd-W-Co6": ((2, 13, 17, 8, 6), 1, 1, 1.8, 2, 3),
+    "dilation-2": ((1, 19, 37, 16, 16), 2, 2, 1.8, 2, 3),
+    "beyond-window": ((1, 24, 40, 16, 16), 1, 1, 5.0, 2, 3),
+    "integer": ((1, 24, 40, 16, 16), 1, 1, "integer", 2, 3),
+    "Co-32": ((1, 24, 40, 16, 32), 1, 1, 1.8, 2, 3),
+    # C over several 16-channel chunks, Co over several 32-channel blocks
+    "C64-window-1": ((2, 24, 40, 64, 64), 1, 1, 1.3, 1, 3),
+    "C128-window-3": ((1, 24, 40, 128, 128), 1, 1, 3.5, 3, 3),
+    "window-8": ((1, 30, 50, 16, 16), 1, 1, 9.0, 8, 3),
+    # one row's halo too wide for shared memory: corners from device memory
+    "window-24-no-halo": ((1, 12, 40, 16, 16), 1, 1, 26.0, 24, 3),
+    # tile edges: one column past a 32-column tile, rows no tile divides
+    "tile-edges": ((3, 17, 33, 16, 16), 1, 1, 1.8, 2, 3),
+    "C40-Co24": ((2, 20, 50, 40, 24), 1, 1, 1.8, 2, 3),
+    # C and Co no multiple of 4: 4-byte copies and scalar stores
+    "C6-Co5": ((2, 13, 17, 6, 5), 1, 1, 1.8, 2, 3),
+    # 25 taps: the weight staged in groups of taps
+    "k5-Co32": ((1, 20, 40, 8, 32), 2, 1, 1.8, 2, 5),
 }
 
 
-def _deform_inputs(rng, shape, scale, device):
+def _deform_inputs(rng, shape, scale, device, k=3):
     B, H, W, C, Co = shape
+    K = k * k
     x = _randn(rng, (B, H, W, C), device)
     if scale == "integer":
         off = rng.choice(np.array([0.0, 0.0, 1.0, -1.0, 2.0, -2.0, 3.0]),
-                         size=(B, H, W, 9, 2)).astype(np.float32)
+                         size=(B, H, W, K, 2)).astype(np.float32)
     else:
-        off = (rng.random((B, H, W, 9, 2)) * 2 * scale - scale).astype(
+        off = (rng.random((B, H, W, K, 2)) * 2 * scale - scale).astype(
             np.float32)
-    mask = torch.from_numpy(rng.random((B, H, W, 9)).astype(np.float32))
-    w = _randn(rng, (9 * C, Co), device) / np.sqrt(9 * C)
+    mask = torch.from_numpy(rng.random((B, H, W, K)).astype(np.float32))
+    w = _randn(rng, (K * C, Co), device) / np.sqrt(K * C)
     return x, torch.from_numpy(off).to(device), mask.to(device), w
 
 
 @pytest.mark.parametrize("case", list(DEFORM_CASES))
 def test_deform_sample_matches_plain(cuda_device, case):
-    """The kernel (after the wrapper's matmul) against the plain windowed
-    form on float64 copies, one launch per call."""
-    shape, pad, dil, scale = DEFORM_CASES[case]
+    """The fused kernel against the plain windowed form on float64 copies,
+    one launch per call, and the same bits on a second call."""
+    shape, pad, dil, scale, window, k = DEFORM_CASES[case]
     rng = np.random.default_rng(12)
-    x, off, mask, w = _deform_inputs(rng, shape, scale, cuda_device)
+    x, off, mask, w = _deform_inputs(rng, shape, scale, cuda_device, k)
     n = ops.deform_conv_fused.launches
-    got = ops.deform_conv_fused(x, off, mask, w, 3, pad, dil, 2)
+    got = ops.deform_conv_fused(x, off, mask, w, k, pad, dil, window)
+    again = ops.deform_conv_fused(x, off, mask, w, k, pad, dil, window)
     torch.cuda.synchronize()
-    assert ops.deform_conv_fused.launches == n + 1
+    assert ops.deform_conv_fused.launches == n + 2
+    assert torch.equal(got, again)
     want = ops.modulated_deform_conv_windowed(
-        x.double(), off.double(), mask.double(), w.double(), padding=pad,
-        dilation=dil, window=2)
-    assert got.shape == want.shape == shape[:3] + (shape[4],)
+        x.double(), off.double(), mask.double(), w.double(), kernel_size=k,
+        padding=pad, dilation=dil, window=window)
+    Ho = shape[1] + 2 * pad - dil * (k - 1)
+    Wo = shape[2] + 2 * pad - dil * (k - 1)
+    assert got.shape == want.shape == (shape[0], Ho, Wo, shape[4])
     torch.testing.assert_close(got.double(), want, rtol=0,
                                atol=DEFORM_RTOL * want.abs().max().item())
+
+
+@pytest.mark.parametrize("rows,mt,ts", [(1, 2, 1), (3, 2, 2), (8, 2, 1),
+                                        (1, 1, 3), (4, 1, 2), (8, 1, 1)])
+@pytest.mark.parametrize("halo", [True, False])
+@pytest.mark.parametrize("case", ["C40-Co24", "C6-Co5", "k5-Co32",
+                                  "eval-width"])
+def test_deform_sample_every_tiling_matches_plain(cuda_device, case, rows,
+                                                  mt, ts, halo):
+    """The kernel under tilings the C entry does not pick for these shapes:
+    1 to 8 rows a tile, 32 or 16 pixels a warp, the taps in 1 to 3 slices,
+    the halo staged or the corners read from device memory."""
+    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
+
+    shape, pad, dil, scale, window, k = DEFORM_CASES[case]
+    rng = np.random.default_rng(18)
+    x, off, mask, w = _deform_inputs(rng, shape, scale, cuda_device, k)
+    plan = dict(rows=rows, mt=mt, ts=ts, halo=int(halo))
+    got = deform_sample_launch(x, off, mask, w, k, pad, dil, window, plan)
+    torch.cuda.synchronize()
+    assert (plan["rows"], plan["mt"], plan["ts"], plan["halo"]) == (
+        rows, mt, ts, int(halo))
+    want = ops.modulated_deform_conv_windowed(
+        x.double(), off.double(), mask.double(), w.double(), kernel_size=k,
+        padding=pad, dilation=dil, window=window)
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=DEFORM_RTOL * want.abs().max().item())
+
+
+# the H100's shared memory a block can take
+SMEM_MAX = 232448
+
+
+@pytest.mark.parametrize("C,Co,k,dil,R", [
+    (16, 16, 3, 1, 2), (128, 128, 3, 1, 8), (16, 16, 3, 1, 20),
+    (16, 16, 3, 1, 60), (8, 6, 7, 3, 2), (64, 32, 11, 1, 1)])
+def test_deform_sample_plan_fits_shared_memory(cuda_device, C, Co, k, dil,
+                                               R):
+    """Any k, dilation and window gets a tiling within the H100's shared
+    memory, and the launch is taken: tiles shrink, and the halo goes only
+    where one row's would not fit."""
+    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
+
+    rng = np.random.default_rng(19)
+    x, off, mask, w = _deform_inputs(rng, (2, 72, 120, C, Co), 1.8,
+                                     cuda_device, k)
+    Ho, Wo = 72 + 2 - dil * (k - 1), 120 + 2 - dil * (k - 1)
+    off, mask = off[:, :Ho, :Wo].contiguous(), mask[:, :Ho, :Wo].contiguous()
+    plan = {}
+    got = deform_sample_launch(x, off, mask, w, k, 1, dil, R, plan)
+    torch.cuda.synchronize()
+    assert got.shape == (2, Ho, Wo, Co) and bool(torch.isfinite(got).all())
+    assert plan["smem"] <= SMEM_MAX
+    assert 1 <= plan["nt"] <= 4 and 1 <= plan["kg"] <= k * k
+    assert 1 <= plan["ts"] <= min(3, k * k) and 1 <= plan["rows"] <= 8
+    if not plan["halo"]:
+        one_row_halo = (1 + dil * (k - 1) + 2 * R + 1) * (
+            32 + dil * (k - 1) + 2 * R + 1) * 16 * 4
+        assert plan["rows"] == 1 and plan["smem"] + one_row_halo > SMEM_MAX
+
+
+def test_deform_sample_plan_at_the_learned_bounds_shapes(cuda_device):
+    """C = Co = 16 at the eval and train shapes on a card of 132 SMs: one
+    Co block of two m16n8 tiles, all nine taps' weight staged at once, the
+    halo in shared memory; at eval six-row tiles of a warp a row (384
+    blocks, 18 warps on the busiest SM), at train four-row tiles of two
+    warps a row and the taps in three slices (120 blocks, 24 warps an
+    SM)."""
+    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
+
+    if torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count != 132:
+        pytest.skip("the tilings are those of a card of 132 SMs")
+    rng = np.random.default_rng(20)
+    for shape, rows, mt, ts in (((8, 72, 120, 16, 16), 6, 2, 1),
+                                ((4, 40, 80, 16, 16), 4, 1, 3)):
+        plan = {}
+        deform_sample_launch(*_deform_inputs(rng, shape, 1.8, cuda_device),
+                             plan=plan)
+        torch.cuda.synchronize()
+        assert (plan["nt"], plan["kg"], plan["halo"]) == (2, 9, 1)
+        assert (plan["rows"], plan["mt"], plan["ts"]) == (rows, mt, ts)
+
+
+def test_deform_sample_runs_no_matmul(cuda_device, monkeypatch):
+    """The GPU route is the one fused kernel: no torch.matmul for G."""
+    rng = np.random.default_rng(16)
+    x, off, mask, w = _deform_inputs(rng, (2, 40, 80, 16, 16), 1.8,
+                                     cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("deform_conv_fused called a matrix product")
+
+    for owner, name in ((torch, "matmul"), (torch, "mm"), (torch, "einsum"),
+                        (torch.Tensor, "matmul"),
+                        (torch.Tensor, "__matmul__")):
+        monkeypatch.setattr(owner, name, refuse)
+    n = ops.deform_conv_fused.launches
+    got = ops.deform_conv_fused(x, off, mask, w)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert ops.deform_conv_fused.launches == n + 1
+    want = ops.modulated_deform_conv_windowed(
+        x.double(), off.double(), mask.double(), w.double())
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=DEFORM_RTOL * want.abs().max().item())
+
+
+def test_deform_sample_takes_the_weight_as_taps(cuda_device):
+    """weight [K, C, Co] gives the bits of [K*C, Co]."""
+    rng = np.random.default_rng(17)
+    x, off, mask, w = _deform_inputs(rng, (1, 24, 40, 16, 16), 1.8,
+                                     cuda_device)
+    flat = ops.deform_conv_fused(x, off, mask, w)
+    taps = ops.deform_conv_fused(x, off, mask, w.reshape(9, 16, 16))
+    torch.cuda.synchronize()
+    assert torch.equal(flat, taps)
 
 
 def test_deform_sample_without_mask(cuda_device):
