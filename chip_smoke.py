@@ -103,7 +103,32 @@ any failure exits nonzero and prints no result:
    iterations (loss, gradient norm, updated parameters); LowCNN_gru2 at
    64x256, eval and one train step; LowCNN with the concat volume and the
    simple upsample, eval;
-14. one JSON line with each kernel's numbers; the last line says the run
+14. the training system through python -m stereoformer_tpu_torch.cli.train's
+   main on dummy:32 at 320x640, B=4 (test_batch 4), 12 GRU iterations,
+   config/loss_config_disp.json, 4 decode workers, cuDNN deterministic and
+   torch's deterministic algorithms (warning only: the ops that have no
+   deterministic kernel are printed): 2 epochs, --resume to 3, and an
+   uninterrupted 3-epoch run in a second directory. The launch counts of
+   the first run (corr_band 1, local_soft_argmin 12 and its backward 12 per
+   train step, corr_band 1 and local_soft_argmin 12 per validation
+   forward), a finite falling loss, the checkpoints and model_best, the
+   resumed state (parameters, BatchNorm buffers, AMSGrad moments, count)
+   against the uninterrupted one within RESUME_TOL; ms/step through the
+   trainer beside phase 5's bare step, the share of it spent waiting for
+   data, peak memory, the device's busy share over one epoch (the device
+   time of a device-only profile over the epoch's wall time), and the
+   seconds of one checkpoint;
+15. the file path: a SceneFlow-shaped tree written here (32 pairs of
+   540x960 PNG with PFM disparities, train and val lists) read by
+   StereoDataset, train_transform, DataLoader (4 threads, page-locked
+   batches) and the prefetcher (non-blocking copies on a side stream):
+   every batch of the 8-batch epoch on the card equals its host batch bit
+   for bit, read as it is handed out and again behind a long kernel, with
+   every buffer dropped as soon as it is used; the host pipeline's decode
+   rate over the 32 pairs; one train epoch and a validation at 576x960
+   with a final partial batch (a finite EPE); whether the native IO
+   library (make -C native) was used;
+16. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -358,6 +383,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # cuBLAS picks its workspace once per process: set it up for phase 14's
+    # deterministic runs before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from stereoformer_tpu_torch import kernels, ops
 
     record: dict = {}
@@ -440,6 +468,11 @@ def main() -> int:
     record["raft_parity_vs_cpu"] = raft_parity_vs_cpu()
     record["raft_train_parity_vs_cpu"] = raft_train_parity_vs_cpu()
     record["family_parity_vs_cpu"] = family_parity_vs_cpu()
+    for path, phase in (("trainer_cli", trainer_phase),
+                        ("file_path", file_path_phase)):
+        launches[path] = phase(ops, record)
+        for row in rows:
+            row["launches_by_path"][path] = launches[path][row["name"]]
     record["seconds"] = time.perf_counter() - t_start
     print(f"all phases passed in {record['seconds']:.1f} s", flush=True)
 
@@ -2185,6 +2218,324 @@ def family_parity_vs_cpu() -> dict:
         param_tol=1e-6, min_share=0.95))
     torch.backends.cudnn.allow_tf32 = True
     return parity
+
+
+# phase 14: the trainer CLI's run (dummy data, the reference's train size):
+# stereoformer_tpu_torch/scripts/resume_determinism.py's TRAINER_ARGS,
+# dummy:32, B=4, TRAIN_H x TRAIN_W, ITERS iterations, the loss-schedule
+# file, 4 decode threads.
+# A resumed run against an uninterrupted one, under cuDNN's and torch's
+# deterministic settings: bit-equal
+RESUME_TOL = 0.0
+
+
+def trainer_phase(ops, record) -> dict:
+    """Phase 14: the training system through cli.train's main, as a user
+    runs it; returns the first run's launch counts. Its checkpoints (290 MB
+    each) go to a temporary tree, removed whatever the outcome."""
+    import shutil
+    import tempfile
+
+    print(f"trainer: cli.train LowCNN_gru dummy:32 {TRAIN_H}x{TRAIN_W} B=4 "
+          f"iters={ITERS} loss_config_disp.json, deterministic:", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        return train_and_resume(ops, record, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_and_resume(ops, record, root: str) -> dict:
+    import warnings
+
+    from stereoformer_tpu_torch.scripts.resume_determinism import (
+        TRAINER_ARGS,
+        train_run,
+    )
+    from stereoformer_tpu_torch.train import state_diffs
+
+    out: dict = {}
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+
+            def run(name, *extra):
+                return train_run(TRAINER_ARGS, root, name, *extra)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ops)
+            t0 = time.perf_counter()
+            split = run("split", "--epochs", "2")
+            launches = read_counts(ops)
+            out["two_epochs_s"] = time.perf_counter() - t0
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            resumed = run("split", "--epochs", "3", "--resume")
+            whole = run("whole", "--epochs", "3")
+        nondeterministic = sorted({str(w.message).splitlines()[0]
+                                   for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            cudnn
+
+    steps = sum(h["steps"] for h in split.history)
+    val_forwards = 2 * len(split.val_loader)
+    print(f"  launches in 2 epochs ({steps} train steps, {val_forwards} "
+          f"validation forwards): {launches}", flush=True)
+    check_launches("trainer (cli.train)", launches,
+                   corr_band=steps + val_forwards,
+                   local_soft_argmin=ITERS * (steps + val_forwards),
+                   local_soft_argmin_bwd=ITERS * steps)
+    per_step = {"corr_band": 1, "local_soft_argmin": ITERS,
+                "local_soft_argmin_bwd": ITERS}
+    print(f"  per train step: {per_step} (the rest per validation forward)",
+          flush=True)
+    out["launches"], out["launches_per_step"] = launches, per_step
+
+    curve = [h["loss"] for h in whole.history]
+    print(f"  mean loss per epoch: {', '.join(f'{x:.4f}' for x in curve)}",
+          flush=True)
+    if not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise SmokeFailure(f"trainer loss not finite or not falling: {curve}")
+    names = sorted(os.listdir(os.path.join(root, "split")))
+    ckpts = [n for n in names if n.startswith("LowCNN_gru_0_")]
+    print(f"  checkpoints: {names}", flush=True)
+    if len(ckpts) != 3 or "model_best" not in names:
+        raise SmokeFailure(f"expected 3 checkpoints and model_best: {names}")
+
+    a, b = resumed.state, whole.state
+    diffs = state_diffs(a, b)
+    worst = max(d["max_abs"] for d in diffs.values())
+    print(f"  resumed vs uninterrupted: step {a.step} / {b.step}, count "
+          f"{a.opt_state.count} / {b.opt_state.count}, largest difference "
+          + ", ".join(f"{k} {v['max_abs']:.3e}" for k, v in diffs.items())
+          + f" (tolerance {RESUME_TOL:g})", flush=True)
+    print(f"  ops without a deterministic kernel: "
+          f"{nondeterministic or 'none'}", flush=True)
+    out.update(resume_max_diff=diffs, nondeterministic_ops=nondeterministic,
+               loss_curve=curve)
+    if (a.step, a.opt_state.count) != (b.step, b.opt_state.count) \
+            or not worst <= RESUME_TOL:
+        raise SmokeFailure(f"resumed run differs from the uninterrupted one "
+                           f"by {worst} (tolerance {RESUME_TOL})")
+
+    # the speed of the default settings: one more epoch of the resumed
+    # trainer, then one under the profiler for the device's busy share
+    last = resumed.history
+    resumed.train_one_epoch(3, 0, 0)
+    h = last[-1]
+    ms = h["seconds"] / h["steps"] * 1e3
+    bare = record.get("train_b4", {}).get("tf32_convs", {}).get("ms_per_step")
+    out["epoch"] = h
+    out["ms_per_step"], out["data_wait_share"] = ms, h["data_s"] / h["seconds"]
+    out["bare_step_ms"] = bare
+    print(f"  through the trainer: {ms:.2f} ms/step (phase 5's bare step on a "
+          f"fixed batch: {bare if bare is None else f'{bare:.2f}'} ms), "
+          f"waiting for data {100 * out['data_wait_share']:.1f}% of the "
+          f"epoch ({1e3 * h['data_s']:.1f} ms, {1e3 * h['first_data_s']:.1f} "
+          f"of it for the first batch); peak memory "
+          f"{out['peak_mem_gb']:.2f} GB", flush=True)
+    out["busy"] = busy = device_busy(lambda: resumed.train_one_epoch(4, 0, 0))
+    print(f"  one epoch under a device-only profiler: {busy['wall_ms']:.1f} ms "
+          f"wall, {busy['device_ms']:.1f} ms of device time in "
+          f"{busy['gpu_events']} GPU events: busy "
+          f"{100 * busy['device_ms'] / busy['wall_ms']:.0f}% of the profiled "
+          f"epoch, {100 * busy['device_ms'] / (1e3 * h['seconds']):.0f}% of "
+          f"the unprofiled one", flush=True)
+    # one checkpoint of the whole state, as the trainer writes it an epoch
+    from stereoformer_tpu_torch.train import save_checkpoint
+
+    t0 = time.perf_counter()
+    path = save_checkpoint(os.path.join(root, "timed"), resumed.state,
+                           "LowCNN_gru", 0, 9, 0.0, False)
+    out["checkpoint_s"] = time.perf_counter() - t0
+    out["checkpoint_mb"] = os.path.getsize(path) / 1e6
+    print(f"  one checkpoint (parameters, BatchNorm buffers, AMSGrad "
+          f"moments): {out['checkpoint_mb']:.1f} MB in "
+          f"{out['checkpoint_s']:.2f} s", flush=True)
+    record["trainer"] = out
+    return launches
+
+
+# phase 15's tree: 32 pairs make 8 batches of 4, four times the
+# prefetcher's DEPTH, so batches are handed out while later copies are
+# queued and freed blocks are reused; 5 validation pairs end in a partial
+# batch
+FILE_PAIRS, FILE_VAL_PAIRS = 32, 5
+
+
+def write_sceneflow_tree(root: str, n: int, n_val: int) -> tuple:
+    """A SceneFlow-shaped tree under ``root``: ``n`` pairs of 540x960 RGB
+    PNG with PFM disparities (synthetic scenes with exact disparity), a
+    train list of all and a val list of the first ``n_val``."""
+    from PIL import Image
+
+    from stereoformer_tpu_torch.data import DummyStereoDataset, write_pfm
+
+    ds = DummyStereoDataset(length=n, height=540, width=960, max_disp=120.0,
+                            seed=5)
+    lines = []
+    for i in range(n):
+        s = ds[i]
+        for side in ("left", "right"):
+            Image.fromarray(np.clip(s[f"img_{side}"], 0, 255)
+                            .astype(np.uint8)).save(
+                os.path.join(root, f"{side}{i}.png"))
+        write_pfm(os.path.join(root, f"disp{i}.pfm"), s["gt_disp"])
+        lines.append(f"left{i}.png right{i}.png disp{i}.pfm")
+    train_list = os.path.join(root, "train.list")
+    val_list = os.path.join(root, "val.list")
+    with open(train_list, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(val_list, "w") as f:
+        f.write("\n".join(lines[:n_val]) + "\n")
+    return train_list, val_list
+
+
+def file_path_phase(ops, record) -> dict:
+    """Phase 15: StereoDataset -> train_transform -> DataLoader -> the
+    prefetcher -> the trainer, on files; returns its launch counts. The
+    files go to a temporary tree, removed whatever the outcome."""
+    import shutil
+    import tempfile
+
+    from stereoformer_tpu_torch.data import native
+
+    print(f"file path: SceneFlow-shaped PNG/PFM tree, {FILE_PAIRS} pairs of "
+          f"540x960:", flush=True)
+    out: dict = {}
+    try:
+        built = subprocess.run(["make", "-C", "native"], capture_output=True,
+                               text=True, timeout=300)
+        out["native_build"] = built.returncode
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        out["native_build"] = str(exc)
+    out["native"] = native.available()
+    print(f"  native IO library: {'used' if out['native'] else 'not built'} "
+          f"(make -C native: {out['native_build']})", flush=True)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        launches = train_on_files(ops, root, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["file_path"] = out
+    return launches
+
+
+def train_on_files(ops, root: str, out: dict) -> dict:
+    from stereoformer_tpu_torch.train import DisparityTrainer
+
+    train_list, val_list = write_sceneflow_tree(root, FILE_PAIRS,
+                                                FILE_VAL_PAIRS)
+    trainer = DisparityTrainer(
+        lr=LR, dataset="SceneFlow", trainlist=train_list, vallist=val_list,
+        datapath=root, batch_size=4, test_batch=4,
+        crop_size=(TRAIN_H, TRAIN_W), train_iters=ITERS, eval_iters=ITERS,
+        num_workers=4, device="cuda")
+    trainer.initialize()
+    loader = trainer.train_loader
+
+    t0 = time.perf_counter()
+    n = sum(b["img_left"].shape[0] for b in loader)
+    out["decode_pairs_per_s"] = n / (time.perf_counter() - t0)
+    print(f"  host pipeline (decode, crop, normalise, collate into page-locked "
+          f"memory; 4 threads): {n} pairs at {out['decode_pairs_per_s']:.2f} "
+          f"pairs/s, thread start-up included", flush=True)
+
+    n_batches = check_prefetched_batches(loader, trainer.device)
+    print(f"  {n_batches} batches through the prefetcher (DEPTH 2) equal to "
+          f"their host batches bit for bit, read on the step's stream both "
+          f"as soon as handed out and behind a long kernel", flush=True)
+
+    reset_counts(ops)
+    loss, epe, _ = trainer.train_one_epoch(0, 0, 0)
+    val_epe = trainer.validate()
+    launches = read_counts(ops)
+    val_batches = len(trainer.val_loader)
+    check_launches("file path", launches,
+                   corr_band=n_batches + val_batches,
+                   local_soft_argmin=ITERS * (n_batches + val_batches),
+                   local_soft_argmin_bwd=ITERS * n_batches)
+    print(f"  one epoch: loss {loss:.4f}, train EPE {epe:.4f}; validation at "
+          f"576x960 over {len(trainer.val_set)} pairs ({val_batches} batches, "
+          f"the last padded): EPE {val_epe:.4f}", flush=True)
+    if not (np.isfinite(loss) and np.isfinite(val_epe)):
+        raise SmokeFailure(f"file path: loss {loss}, val EPE {val_epe}")
+    out.update(batches_equal=n_batches, loss=loss, val_epe=val_epe,
+               launches=launches)
+    return launches
+
+
+def check_prefetched_batches(loader, device) -> int:
+    """Every batch of one epoch through ``DevicePrefetcher`` against an
+    independent host copy of it, bit for bit; returns the batch count.
+
+    The page-locked originals are dropped as soon as they are handed over,
+    and each card batch as soon as it is read, so their blocks go back to
+    the host and device allocators while copies are still queued. The
+    step's stream reads each batch twice, into a clone made as the batch
+    is handed out (the stream must wait for its copy) and into one made
+    behind a 4096-square float32 matmul, a few ms (the block must not go to a later copy before the
+    stream is past it); the host reads the clones only at the end, so the
+    host runs ahead of both streams the whole epoch."""
+    from stereoformer_tpu_torch.data import DevicePrefetcher
+
+    host = []
+
+    def tapped():
+        for b in loader:
+            host.append({k: torch.as_tensor(v).clone() for k, v in b.items()})
+            yield b
+
+    busy = torch.randn(4096, 4096, device=device)
+    early, late = [], []
+    for dev in DevicePrefetcher(tapped(), device):
+        early.append({k: v.clone() for k, v in dev.items()})
+        torch.mm(busy, busy)
+        late.append({k: v.clone() for k, v in dev.items()})
+        del dev
+    torch.cuda.synchronize()
+    if len(early) != len(host) or len(early) <= 3 * DevicePrefetcher.DEPTH:
+        raise SmokeFailure(f"prefetcher handed out {len(early)} of "
+                           f"{len(host)} batches; want more than "
+                           f"{3 * DevicePrefetcher.DEPTH}")
+    for i, want in enumerate(host):
+        for when, got in (("at hand-out", early[i]), ("behind a kernel",
+                                                      late[i])):
+            for k, v in want.items():
+                if not torch.equal(got[k].cpu(), v):
+                    raise SmokeFailure(f"batch {i} {k} differs on the card "
+                                       f"({when})")
+    return len(host)
+
+
+def device_busy(fn) -> dict:
+    """Wall time of one call of ``fn`` under ``torch.profiler`` tracing the
+    device only (a lighter trace than ``profile``'s, which also records
+    every host op), and the device time of its GPU events."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"wall_ms": wall_ms,
+            "device_ms": sum(_device_us(e) for e in events) / 1e3,
+            "gpu_events": sum(e.count for e in events)}
 
 
 def profile(fn, label: str, kernels=()) -> dict:

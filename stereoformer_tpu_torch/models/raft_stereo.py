@@ -15,13 +15,17 @@ fused conv reads their activations without a layout copy. In train mode the
 context net's batch norms take the batch's statistics; every iteration
 starts from a detached ``coords1``, as the reference's, so no gradient flows
 from one iteration to the next through the coordinates (the hidden state
-still carries it).
+still carries it). ``remat_update=True`` checkpoints each iteration's
+update block (``torch.utils.checkpoint``, non-reentrant), as the JAX
+model's ``nn.remat``: less memory, the same values, the block run again in
+the backward.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..nn.raft import (
@@ -37,11 +41,12 @@ from ..ops import allpairs_corr1d, corr_lookup, corr_pyramid, upsample_convex
 
 
 class RAFTStereo(nn.Module):
-    def __init__(self, input_norm: str = "raw"):
+    def __init__(self, input_norm: str = "raw", remat_update: bool = False):
         super().__init__()
         if input_norm not in ("raw", "imagenet"):
             raise ValueError(f"unknown input_norm {input_norm!r}")
         self.input_norm = input_norm
+        self.remat_update = remat_update
         self.cnet = MultiBasicEncoder()
         self.fnet = BasicEncoder()
         self.context_zqr_convs = nn.ModuleList(
@@ -97,9 +102,14 @@ class RAFTStereo(nn.Module):
             corr = corr_lookup(pyramid, coords1, CORR_RADIUS)
             flow = torch.cat([(coords1 - coords0)[:, None], flow_y], dim=1)
             last = itr == iters - 1
-            net, mask, delta = self.update_block(
-                net, ctx, corr.permute(0, 3, 1, 2), flow,
-                need_mask=not test_mode or last)
+            args = (net, ctx, corr.permute(0, 3, 1, 2), flow)
+            if self.remat_update and torch.is_grad_enabled():
+                net, mask, delta = checkpoint(
+                    self.update_block, *args, need_mask=not test_mode or last,
+                    use_reentrant=False)
+            else:
+                net, mask, delta = self.update_block(
+                    *args, need_mask=not test_mode or last)
             # the epipolar constraint: the flow moves along x only
             coords1 = coords1 + delta[:, 0]
             if test_mode and not last:

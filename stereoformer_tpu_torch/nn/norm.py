@@ -8,9 +8,16 @@ batch's, the variance being the *biased* one, as Flax's is. torch's own
 ``BatchNorm2d`` moves ``running_var`` towards the unbiased variance. In eval
 mode it normalises with the running statistics. The parameters and buffers
 are ``nn.BatchNorm2d``'s, so ``state_dict`` keys do not change.
+
+``frozen_statistics(model)`` keeps the running statistics of every such
+norm in ``model`` as they are while it is active: the recompute of a
+checkpointed forward (``remat``) runs each norm in train mode a second time,
+and the statistics must move once per step, as under ``jax.checkpoint``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +29,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_statistics = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -31,9 +39,26 @@ class BatchNorm2d(nn.BatchNorm2d):
         # their gradient; the buffers are moved below, outside autograd
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
+        if not self.update_statistics:
+            return out
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return out
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module):
+    """Train-mode ``BatchNorm2d`` layers of ``model`` normalise with the
+    batch's statistics but leave their running statistics unchanged while
+    this is active."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_statistics = True

@@ -17,7 +17,7 @@ correction, so its trajectory differs from this one.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping, Union
+from typing import Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -35,12 +35,19 @@ class AmsgradState:
 
 
 class Amsgrad:
-    """``learning_rate`` is a float or a schedule, step count -> float."""
+    """``learning_rate`` is a float or a schedule, step count -> float.
+
+    ``trainable``, a predicate on parameter names, masks the update as
+    ``optax.multi_transform`` with ``set_to_zero`` does (the JAX package's
+    ``train/params.py::masked_optimizer``): a parameter it rejects is left
+    as it is and its moments stay zero; the count moves on for all."""
 
     def __init__(self, learning_rate: Union[float, Callable[[int], float]],
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 trainable: Optional[Callable[[str], bool]] = None):
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.trainable = trainable
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AmsgradState:
         def zeros():
@@ -59,6 +66,8 @@ class Amsgrad:
         b1, b2 = self.b1, self.b2
         c1, c2 = _bias_correction(b1, n), _bias_correction(b2, n)
         for k, p in params.items():
+            if self.trainable is not None and not self.trainable(k):
+                continue
             g = grads[k]
             mu = state.mu[k].mul_(b1).add_(g, alpha=1 - b1)
             nu = state.nu[k].mul_(b2).addcmul_(g, g, value=1 - b2)

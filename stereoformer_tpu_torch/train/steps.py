@@ -8,12 +8,15 @@ JAX step's donated state is reused. The model is the state's.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import losses
 from ..metrics import thres_metric
+from ..nn.norm import frozen_statistics
 from ..ops import scale_disp
 from .optim import Amsgrad
 from .state import TrainState
@@ -46,7 +49,7 @@ def global_norm(tensors) -> torch.Tensor:
 def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
                     iters: int = 12, gamma: float = 0.8,
                     weights: Sequence[float] = (0.8, 1.2),
-                    freeze_bn: bool = False) -> Callable:
+                    freeze_bn: bool = False, remat: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch is
     ``{"img_left", "img_right", "gt_disp"}`` on the model's device, metrics
     ``{"loss", "epe", "grad_norm"}`` (0-d tensors; grad_norm is the L2 norm
@@ -67,8 +70,14 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
     then takes them as the fused conv's prologue, whose backward passes
     the gradient on to the BatchNorm's scale and shift.
 
-    Not ported: ``remat`` (the JAX step's ``jax.checkpoint``) and
-    ``state_out_shardings``."""
+    ``remat=True`` runs the forward under ``torch.utils.checkpoint``
+    (non-reentrant), as the JAX step's ``jax.checkpoint``: only its inputs
+    are kept, and the backward runs it again. The BatchNorm running
+    statistics move once, in the first run (``nn.norm.frozen_statistics``
+    holds them through the second), so the step ends with the same
+    parameters, statistics and moments as without it.
+
+    Not ported: ``state_out_shardings`` (the JAX step's FSDP placement)."""
     if loss_name not in LOSS_NAMES:
         raise ValueError(f"unknown loss {loss_name!r}; one of {LOSS_NAMES}")
 
@@ -78,7 +87,14 @@ def make_train_step(tx: Amsgrad, loss_name: str = "sequence",
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        out = model(batch["img_left"], batch["img_right"], iters=iters)
+        if remat:
+            out = checkpoint(
+                model, batch["img_left"], batch["img_right"], iters=iters,
+                use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_statistics(model)))
+        else:
+            out = model(batch["img_left"], batch["img_right"], iters=iters)
         gt = batch["gt_disp"]
         loss = compute_loss(loss_name, out, gt, gamma, weights)
         loss.backward()

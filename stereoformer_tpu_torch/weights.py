@@ -9,6 +9,8 @@ is the inverse of its ``convert_lowcnn_state_dict``, and
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -301,15 +303,86 @@ def load_state_dict_file(path: str) -> dict:
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
                       fan: str = "fan_in") -> dict:
     """Random weights for ``model`` from numpy, made from ``seed``: each
-    conv weight (a ``DeformConv``'s too) and linear weight he-normal over
-    its ``fan``
-    ("fan_in", as LowCNN's init, or "fan_out", as RAFT's), biases zero,
-    BatchNorm the identity (scale 1, shift 0, mean 0, variance 1), as the
-    JAX models' own inits draw them (LowCNN's GRU gates, drawn orthogonal
-    there, and RAFT's weights, drawn from a truncated normal there, are
-    plain normal here). A ``DeformConv``'s ``conv_offset_mask`` is zero, as
-    in JAX, so it starts as a plain conv modulated by 0.5."""
+    conv weight (a ``DeformConv``'s too) and linear weight plain normal,
+    he-scaled over its ``fan`` ("fan_in", as LowCNN's init, or "fan_out",
+    as RAFT's), biases zero, BatchNorm the identity (scale 1, shift 0,
+    mean 0, variance 1), a ``DeformConv``'s ``conv_offset_mask`` zero (so
+    it starts as a plain conv modulated by 0.5). It is the registry's
+    init, and the tests' and ``chip_smoke.py``'s, whose values depend on
+    it; the trainer starts from ``init_state_dict``, the JAX models'
+    distributions."""
     rng = np.random.default_rng(seed)
+
+    def weight(name, shape, fans):
+        n = fans[fan] * int(np.prod(shape[2:]))
+        return rng.standard_normal(shape) * np.sqrt(2.0 / n)
+
+    return _random_state_dict(model, weight)
+
+
+# LowCNN's GRU gate convs, drawn orthogonal by the JAX model
+_GRU_GATES = re.compile(r"local_cost_volume\.gru\.conv_[zbg]")
+# flax's truncated normal keeps |z| <= 2 and divides the standard deviation
+# by that truncation's, so the variance is the one asked for
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
+    """Random weights for ``model`` from numpy, made from ``seed``, drawn
+    from the distributions the JAX models' own inits draw from (not their
+    values): conv, deformable-conv and linear weights truncated normal (at
+    two standard deviations) with variance 2 / fan, over the fan-in for
+    LowCNN (``nn.initializers.he_normal``) and over the fan-out for RAFT
+    (``nn/raft/encoders.py::he_out``); LowCNN's GRU gate convs ``conv_z``,
+    ``conv_b`` and ``conv_g`` orthogonal, each on its own (the JAX
+    ``conv_zb`` is two orthogonal kernels side by side,
+    ``nn/gru.py::stacked_orthogonal``); biases zero; BatchNorm the
+    identity; ``conv_offset_mask`` zero. The trainer's from-scratch
+    init."""
+    from .models.raft_stereo import RAFTStereo   # models import this module
+
+    rng = np.random.default_rng(seed)
+    fan = "fan_out" if isinstance(model, RAFTStereo) else "fan_in"
+
+    def weight(name, shape, fans):
+        if _GRU_GATES.fullmatch(name):
+            return _orthogonal(rng, shape)
+        n = fans[fan] * int(np.prod(shape[2:]))
+        return _truncated_normal(rng, shape) * np.float32(
+            np.sqrt(2.0 / n) / _TRUNC_STD)
+
+    return _random_state_dict(model, weight)
+
+
+def _truncated_normal(rng, shape) -> np.ndarray:
+    """Standard normal values redrawn until each lies in [-2, 2]."""
+    z = rng.standard_normal(shape, dtype=np.float32)
+    out = np.flatnonzero(np.abs(z) > 2)
+    while out.size:
+        z.flat[out] = rng.standard_normal(out.size, dtype=np.float32)
+        out = out[np.abs(z.flat[out]) > 2]
+    return z
+
+
+def _orthogonal(rng, shape) -> np.ndarray:
+    """flax's ``orthogonal()`` for the HWIO kernel of an OIHW ``shape``:
+    the kernel flattened to [kh*kw*C_in, C_out] has orthonormal columns
+    (rows where it is wide), from the QR of a normal matrix with the signs
+    of R's diagonal."""
+    co, ci, kh, kw = shape
+    rows = kh * kw * ci
+    a = rng.standard_normal((rows, co) if rows >= co else (co, rows))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diag(r))
+    if rows < co:
+        q = q.T
+    return np.transpose(q.reshape(kh, kw, ci, co), (3, 2, 0, 1))
+
+
+def _random_state_dict(model: torch.nn.Module, weight) -> dict:
+    """The ``state_dict`` of ``model`` with ``weight(name, shape, fans)``
+    for each conv and linear weight, in module order; see
+    ``seeded_state_dict`` for the rest."""
     sd = {}
     for name, m in model.named_modules():
         key = name + "." if name else ""
@@ -319,9 +392,7 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
         elif isinstance(m, (torch.nn.Conv2d, DeformConv, torch.nn.Linear)):
             shape = tuple(m.weight.shape)
             fans = {"fan_in": shape[1], "fan_out": shape[0]}
-            n = fans[fan] * int(np.prod(shape[2:]))
-            sd[key + "weight"] = _tensor(
-                rng.standard_normal(shape) * np.sqrt(2.0 / n))
+            sd[key + "weight"] = _tensor(weight(name, shape, fans))
             if m.bias is not None:
                 sd[key + "bias"] = torch.zeros(m.bias.shape)
         elif isinstance(m, torch.nn.BatchNorm2d):

@@ -215,7 +215,20 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.nn.raft.encoders",
             "stereoformer_tpu_torch.nn.raft.update",
             "stereoformer_tpu_torch.models.raft_stereo",
-            "stereoformer_tpu_torch.models.registry"):
+            "stereoformer_tpu_torch.models.registry",
+            "stereoformer_tpu_torch.data.file_io",
+            "stereoformer_tpu_torch.data.native",
+            "stereoformer_tpu_torch.data.transforms",
+            "stereoformer_tpu_torch.data.cache",
+            "stereoformer_tpu_torch.data.dataset",
+            "stereoformer_tpu_torch.data.loader",
+            "stereoformer_tpu_torch.utils",
+            "stereoformer_tpu_torch.utils.common",
+            "stereoformer_tpu_torch.utils.viz",
+            "stereoformer_tpu_torch.train.params",
+            "stereoformer_tpu_torch.train.checkpoint",
+            "stereoformer_tpu_torch.train.trainer",
+            "stereoformer_tpu_torch.cli.train"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left
