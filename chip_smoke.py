@@ -63,6 +63,11 @@ any failure exits nonzero and prints no result:
    and one train step (loss, gradient norm, updated parameters); then
    LowCNN_gru(max_disp=768) eval at 576x960, B=8, as in phase 4 (D = 96:
    launch counts, finiteness and range, ms/batch);
+8c. CrossAttentionStereo (the registry's widths: 8 heads, qk 128, D 24)
+   eval at 576x960, B=8, 12 GRU iterations (launches: corr_band 0,
+   local_soft_argmin 12), ms/batch with TF32 on and off, peak memory and
+   the device's busy share; its "sequence" train step at 320x640, B=4
+   (local_soft_argmin and its backward 12 each a step, a falling loss);
 9. RAFT_Stereo eval through get_model at 576x960, B=2 and B=8, 12 GRU
    iterations, test_mode, float32, random weights from seed 0: 14 launches
    of conv2d_fused per forward (7 in each encoder), shapes and finiteness,
@@ -102,7 +107,8 @@ any failure exits nonzero and prints no result:
    eval at 64x128, 12 iterations, and one RAFT train step at 64x128, 2
    iterations (loss, gradient norm, updated parameters); LowCNN_gru2 at
    64x256, eval and one train step; LowCNN with the concat volume and the
-   simple upsample, eval;
+   simple upsample, eval; CrossAttentionStereo at 64x256, eval and one
+   train step (as LowCNN_gru2's);
 14. the training system through python -m stereoformer_tpu_torch.cli.train's
    main on dummy:32 at 320x640, B=4 (test_batch 4), 12 GRU iterations,
    config/loss_config_disp.json, 4 decode workers, cuDNN deterministic and
@@ -119,7 +125,8 @@ any failure exits nonzero and prints no result:
    time of a device-only profile over the epoch's wall time), and the
    seconds of one checkpoint;
 15. the file path: a SceneFlow-shaped tree written here (32 pairs of
-   540x960 PNG with PFM disparities, train and val lists) read by
+   540x960 PNG with PFM disparities under frames_finalpass/left, /right
+   and disparity/left, train and val lists) read by
    StereoDataset, train_transform, DataLoader (4 threads, page-locked
    batches) and the prefetcher (non-blocking copies on a side stream):
    every batch of the 8-batch epoch on the card equals its host batch bit
@@ -128,7 +135,17 @@ any failure exits nonzero and prints no result:
    rate over the 32 pairs; one train epoch and a validation at 576x960
    with a final partial batch (a finite EPE); whether the native IO
    library (make -C native) was used;
-16. one JSON line with each kernel's numbers; the last line says the run
+16. the evaluation entry points, each through its main(argv) on the card,
+   on phase 15's tree and phase 14's model_best: cli.evaluate (LowCNN_gru,
+   SceneFlow val list, 576x960) against a loop over the same loader with
+   the model restored from the same file (EPE, P1, D1 within 1e-4
+   relative, at the CLI's 4 decimals); cli.infer --ckpt --gt --error-out
+   on one pair (a PFM and an error PNG of the image's size, the printed
+   EPE that of the same forward in the phase); cli.analysis --disp --out
+   (the .npz keys and shapes); cli.gen_filelist over the tree (the tree's
+   own train list, byte for byte); cli.evaluate --net CrossAttentionStereo
+   --dataset dummy (its JSON line); launch counts of each;
+17. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -144,10 +161,14 @@ written to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -217,9 +238,10 @@ RAFT_S2_CONVS = {
 # divides (17 x 33), and C, Co that are no multiple of 4 (C short of one
 # 8-channel chunk)
 EDGE_S2_CONVS = [(2, 20, 48, 16, 24), (1, 34, 66, 96, 128), (2, 18, 70, 6, 10)]
-# the LowCNN family's models: name -> (outputs of a forward, launches in one
-# eval forward); a train step adds one local_soft_argmin_bwd per forward
-# launch of local_soft_argmin
+# the models with LowCNN's output contract (the LowCNN family and
+# CrossAttentionStereo): name -> (outputs of a forward, launches in one eval
+# forward); a train step adds one local_soft_argmin_bwd per forward launch
+# of local_soft_argmin
 LOWCNN = {
     "LowCNN_gru": (ITERS, {"corr_band": 1, "local_soft_argmin": ITERS}),
     "LowCNN_gru2": (ITERS, {"corr_band": 1, "local_soft_argmin": ITERS}),
@@ -230,6 +252,7 @@ LOWCNN = {
                            "deform_sample": 1}),
     "LowCNN_dynamic_supervised": (2, {"corr_band": 1, "local_soft_argmin": 1,
                                       "deform_sample": 1}),
+    "CrossAttentionStereo": (ITERS, {"local_soft_argmin": ITERS}),
 }
 
 
@@ -443,6 +466,12 @@ def main() -> int:
         ops, 4, record, "LowCNN_ada", "equal", profile_it=True)
     launches["LowCNN_gru2_train_step"] = train_phase(
         ops, 4, record, "LowCNN_gru2", "sequence", profile_it=True)
+    # 8c. the cross-attention family
+    launches["CrossAttentionStereo_eval"] = eval_phase(
+        ops, rng, record, "CrossAttentionStereo",
+        key="CrossAttentionStereo_eval")
+    launches["CrossAttentionStereo_train_step"] = train_phase(
+        ops, 4, record, "CrossAttentionStereo", "sequence", profile_it=True)
     # 8b. D = 50 and S = 33, past what the kernels took before
     record["wide_range_parity_vs_cpu"] = parity_vs_cpu(
         seed=4, max_disp=400, num_samples=32)
@@ -468,11 +497,19 @@ def main() -> int:
     record["raft_parity_vs_cpu"] = raft_parity_vs_cpu()
     record["raft_train_parity_vs_cpu"] = raft_train_parity_vs_cpu()
     record["family_parity_vs_cpu"] = family_parity_vs_cpu()
-    for path, phase in (("trainer_cli", trainer_phase),
-                        ("file_path", file_path_phase)):
-        launches[path] = phase(ops, record)
+    # phases 14-16 share a temporary tree (checkpoints of 290 MB, the
+    # files), removed whatever the outcome
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches["trainer_cli"] = trainer_phase(ops, record, work)
+        launches["file_path"] = file_path_phase(ops, record, work)
+        launches.update(entry_points_phase(ops, record, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for path in launches:
         for row in rows:
-            row["launches_by_path"][path] = launches[path][row["name"]]
+            row["launches_by_path"].setdefault(path,
+                                               launches[path][row["name"]])
     record["seconds"] = time.perf_counter() - t_start
     print(f"all phases passed in {record['seconds']:.1f} s", flush=True)
 
@@ -2175,11 +2212,11 @@ def raft_train_parity_vs_cpu() -> dict:
 
 
 def family_parity_vs_cpu() -> dict:
-    """Phase 13, the rest of the family: LowCNN_gru2 on the card against the
-    port on the CPU at 64x256, TF32 off, moderate weights: the eval forward
-    (12 iterations) and one sequence train step (2 iterations); and the
-    eval forward of LowCNN with the concat volume and the simple
-    upsample."""
+    """Phase 13, the rest of the family and CrossAttentionStereo:
+    LowCNN_gru2 and CrossAttentionStereo on the card against the port on
+    the CPU at 64x256, TF32 off, moderate weights: the eval forward (12
+    iterations) and one sequence train step (2 iterations); and the eval
+    forward of LowCNN with the concat volume and the simple upsample."""
     from stereoformer_tpu_torch.models import get_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2194,7 +2231,8 @@ def family_parity_vs_cpu() -> dict:
     for label, name, kw in (
             ("LowCNN_gru2", "LowCNN_gru2", {}),
             ("LowCNN concat volume, simple upsample", "LowCNN",
-             {"cost_volume": "concat", "upsample": "simple"})):
+             {"cost_volume": "concat", "upsample": "simple"}),
+            ("CrossAttentionStereo", "CrossAttentionStereo", {})):
         weights[label] = sd = moderate_weights(name, **kw)
         outs = {}
         for where in ("cpu", "cuda"):
@@ -2212,10 +2250,11 @@ def family_parity_vs_cpu() -> dict:
             "last_disparity_px": compare("eval last disparity",
                                          outs["cuda"][1], outs["cpu"][1],
                                          5e-3)}
-    parity["LowCNN_gru2"].update(train_step_parity(
-        "LowCNN_gru2", weights["LowCNN_gru2"],
-        {"img_left": li, "img_right": ri, "gt_disp": gt}, iters=2,
-        param_tol=1e-6, min_share=0.95))
+    for name in ("LowCNN_gru2", "CrossAttentionStereo"):
+        parity[name].update(train_step_parity(
+            name, weights[name],
+            {"img_left": li, "img_right": ri, "gt_disp": gt}, iters=2,
+            param_tol=1e-6, min_share=0.95))
     torch.backends.cudnn.allow_tf32 = True
     return parity
 
@@ -2229,18 +2268,20 @@ def family_parity_vs_cpu() -> dict:
 RESUME_TOL = 0.0
 
 
-def trainer_phase(ops, record) -> dict:
+def trainer_phase(ops, record, work: str) -> dict:
     """Phase 14: the training system through cli.train's main, as a user
     runs it; returns the first run's launch counts. Its checkpoints (290 MB
-    each) go to a temporary tree, removed whatever the outcome."""
-    import shutil
-    import tempfile
-
+    each) go to a tree under ``work``, removed when the phase ends but for
+    the first run's model_best, kept as ``work``/model_best for phase
+    16."""
     print(f"trainer: cli.train LowCNN_gru dummy:32 {TRAIN_H}x{TRAIN_W} B=4 "
           f"iters={ITERS} loss_config_disp.json, deterministic:", flush=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    root = os.path.join(work, "train")
     try:
-        return train_and_resume(ops, record, root)
+        launches = train_and_resume(ops, record, root)
+        os.replace(os.path.join(root, "split", "model_best"),
+                   os.path.join(work, "model_best"))
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2372,25 +2413,36 @@ def train_and_resume(ops, record, root: str) -> dict:
 FILE_PAIRS, FILE_VAL_PAIRS = 32, 5
 
 
+# phase 15's tree, as SceneFlow lays its files out
+SCENEFLOW_DIRS = {"left": "frames_finalpass/left",
+                  "right": "frames_finalpass/right", "disp": "disparity/left"}
+
+
 def write_sceneflow_tree(root: str, n: int, n_val: int) -> tuple:
     """A SceneFlow-shaped tree under ``root``: ``n`` pairs of 540x960 RGB
-    PNG with PFM disparities (synthetic scenes with exact disparity), a
-    train list of all and a val list of the first ``n_val``."""
+    PNG with PFM disparities (synthetic scenes with exact disparity) under
+    ``SCENEFLOW_DIRS``, a train list of all and a val list of the first
+    ``n_val``."""
     from PIL import Image
 
     from stereoformer_tpu_torch.data import DummyStereoDataset, write_pfm
 
+    for d in SCENEFLOW_DIRS.values():
+        os.makedirs(os.path.join(root, d), exist_ok=True)
     ds = DummyStereoDataset(length=n, height=540, width=960, max_disp=120.0,
                             seed=5)
     lines = []
     for i in range(n):
         s = ds[i]
+        names = {side: f"{SCENEFLOW_DIRS[side]}/{i:04d}.png"
+                 for side in ("left", "right")}
+        names["disp"] = f"{SCENEFLOW_DIRS['disp']}/{i:04d}.pfm"
         for side in ("left", "right"):
             Image.fromarray(np.clip(s[f"img_{side}"], 0, 255)
                             .astype(np.uint8)).save(
-                os.path.join(root, f"{side}{i}.png"))
-        write_pfm(os.path.join(root, f"disp{i}.pfm"), s["gt_disp"])
-        lines.append(f"left{i}.png right{i}.png disp{i}.pfm")
+                os.path.join(root, names[side]))
+        write_pfm(os.path.join(root, names["disp"]), s["gt_disp"])
+        lines.append(f"{names['left']} {names['right']} {names['disp']}")
     train_list = os.path.join(root, "train.list")
     val_list = os.path.join(root, "val.list")
     with open(train_list, "w") as f:
@@ -2400,13 +2452,10 @@ def write_sceneflow_tree(root: str, n: int, n_val: int) -> tuple:
     return train_list, val_list
 
 
-def file_path_phase(ops, record) -> dict:
+def file_path_phase(ops, record, work: str) -> dict:
     """Phase 15: StereoDataset -> train_transform -> DataLoader -> the
-    prefetcher -> the trainer, on files; returns its launch counts. The
-    files go to a temporary tree, removed whatever the outcome."""
-    import shutil
-    import tempfile
-
+    prefetcher -> the trainer, on files written to ``work``/files (kept for
+    phase 16); returns its launch counts."""
     from stereoformer_tpu_torch.data import native
 
     print(f"file path: SceneFlow-shaped PNG/PFM tree, {FILE_PAIRS} pairs of "
@@ -2422,11 +2471,9 @@ def file_path_phase(ops, record) -> dict:
     print(f"  native IO library: {'used' if out['native'] else 'not built'} "
           f"(make -C native: {out['native_build']})", flush=True)
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
-    try:
-        launches = train_on_files(ops, root, out)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    root = os.path.join(work, "files")
+    os.makedirs(root)
+    launches = train_on_files(ops, root, out)
     record["file_path"] = out
     return launches
 
@@ -2516,6 +2563,179 @@ def check_prefetched_batches(loader, device) -> int:
                     raise SmokeFailure(f"batch {i} {k} differs on the card "
                                        f"({when})")
     return len(host)
+
+
+def run_cli(main, argv: list) -> tuple:
+    """``main(argv)`` of a CLI module; returns (its return value, what it
+    printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    print("\n".join(f"    | {line}" for line in
+                    buf.getvalue().splitlines()), flush=True)
+    return out, buf.getvalue()
+
+
+def entry_points_phase(ops, record, work: str) -> dict:
+    """Phase 16: the evaluation entry points on the card, each through its
+    main(argv), on phase 15's tree (``work``/files) and phase 14's
+    model_best (``work``/model_best); returns the launch counts of each,
+    counted from 0 just before it and read just after it."""
+    from PIL import Image
+
+    from stereoformer_tpu_torch import losses, metrics
+    from stereoformer_tpu_torch.cli import (
+        analysis,
+        evaluate,
+        gen_filelist,
+        infer,
+    )
+    from stereoformer_tpu_torch.data import (
+        DataLoader,
+        StereoDataset,
+        normalize,
+        read_disp,
+        read_img,
+        to_unit,
+        val_transform,
+    )
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.ops import InputPadder, scale_disp
+    from stereoformer_tpu_torch.train import TrainState, restore_params
+    from stereoformer_tpu_torch.utils import AverageMeter
+
+    root = os.path.join(work, "files")
+    ckpt = os.path.join(work, "model_best")
+    val_list = os.path.join(root, "val.list")
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"entry points: cli.evaluate / infer / analysis / gen_filelist on "
+          f"phase 15's tree ({FILE_VAL_PAIRS} val pairs, 540x960) and phase "
+          f"14's model_best:", flush=True)
+    out, launches = {}, {}
+
+    def counted(path, main, argv, **want):
+        reset_counts(ops)
+        result = run_cli(main, argv)
+        launches[path] = read_counts(ops)
+        check_launches(path, launches[path], **want)
+        return result
+
+    val_batches = -(-FILE_VAL_PAIRS // 4)
+    res, _ = counted(
+        "cli_evaluate", evaluate.main,
+        ["--net", "LowCNN_gru", "--ckpt", ckpt, "--dataset", "SceneFlow",
+         "--vallist", val_list, "--datapath", root, "--test_batch", "4",
+         "--workers", "4", "--device", "cuda"],
+        corr_band=val_batches, local_soft_argmin=ITERS * val_batches)
+
+    # the same evaluation by hand: the loader, the restored model, metrics
+    model = get_model("LowCNN_gru", device="cuda")
+    restore_params(ckpt, TrainState(step=0, model=model, opt_state=None))
+    loader = DataLoader(
+        StereoDataset(root, "", val_list, dataset_name="SceneFlow",
+                      mode="val"), 4, shuffle=False, drop_last=False,
+        num_workers=4, transform_with_rng=lambda s, rng: val_transform(s))
+    meters = {k: AverageMeter() for k in ("EPE", "P1", "D1")}
+    for batch in loader:
+        left, right, gt = (torch.from_numpy(batch[k]).cuda() for k in
+                           ("img_left", "img_right", "gt_disp"))
+        with torch.inference_mode():
+            pred = model(left, right, iters=ITERS)["disparities"][-1]
+            pred = scale_disp(pred, (gt.shape[1], gt.shape[2]))
+            m = {"EPE": losses.epe(pred, gt), "P1": metrics.p1_metric(pred, gt),
+                 "D1": metrics.d1_metric(pred, gt)}
+        if np.isfinite(float(m["EPE"])):
+            for k, v in m.items():
+                meters[k].update(float(v), left.shape[0])
+    out["evaluate"] = res
+    out["loop"] = loop = {k: v.avg for k, v in meters.items()}
+    for k, v in loop.items():
+        # the CLI prints 4 decimals
+        want = round(v, 4)
+        rel = abs(res[k] - want) / max(abs(want), 1e-12)
+        print(f"  cli.evaluate {k} {res[k]} against the loop's {v:.6f}: "
+              f"relative {rel:.2e} at 4 decimals (tolerance 1e-4) "
+              f"{'ok' if rel <= 1e-4 else 'FAIL'}", flush=True)
+        if not rel <= 1e-4:
+            raise SmokeFailure(f"cli.evaluate {k} {res[k]} != loop {v}")
+    if res["images"] != FILE_VAL_PAIRS or not res["s_per_image"] > 0:
+        raise SmokeFailure(f"cli.evaluate: {res}")
+    print(f"  cli.evaluate s_per_image {res['s_per_image']} "
+          f"({FILE_VAL_PAIRS} pairs, batches of 4, 576x960, the first batch "
+          f"included)", flush=True)
+
+    # cli.infer on the first pair, and the same forward here
+    lines = open(val_list).read().split()
+    pair = [os.path.join(root, f) for f in lines[:3]]
+    disp_out = os.path.join(work, "infer.pfm")
+    err_out = os.path.join(work, "infer_error.png")
+    disp, said = counted(
+        "cli_infer", infer.main,
+        ["--ckpt", ckpt, "--left", pair[0], "--right", pair[1],
+         "--gt", pair[2], "--out", disp_out, "--error-out", err_out,
+         "--device", "cuda"],
+        corr_band=1, local_soft_argmin=ITERS)
+    gt = read_disp(pair[2])
+    sample = normalize(to_unit({"img_left": read_img(pair[0]),
+                                "img_right": read_img(pair[1])}))
+    li, ri = (torch.from_numpy(sample[k])[None].cuda()
+              for k in ("img_left", "img_right"))
+    padder = InputPadder(li.shape, divisor=8)
+    with torch.inference_mode():
+        mine = padder.unpad(model(*padder.pad(li, ri), iters=ITERS)[
+            "disparities"][-1])[0, ..., 0].cpu().numpy()
+    epe = float(np.abs(mine - gt)[gt > 0].mean())
+    printed = float(said.rsplit("(EPE ", 1)[1].split(")")[0])
+    err_img = np.asarray(Image.open(err_out))
+    ok = (disp.shape == gt.shape == (540, 960)
+          and err_img.shape == (540, 960, 3)
+          and abs(printed - epe) <= 1e-6 + 1e-4 * abs(epe))
+    print(f"  cli.infer: disparity {disp.shape}, error image "
+          f"{err_img.shape}, printed EPE {printed} against {epe:.6f} from "
+          f"the same forward here {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("cli.infer: shapes or EPE disagree")
+    out["infer"] = {"epe": printed, "phase_epe": epe}
+
+    npz = os.path.join(work, "analysis.npz")
+    counted("cli_analysis", analysis.main,
+            ["--ckpt", ckpt, "--left", pair[0], "--right", pair[1],
+             "--disp", pair[2], "--out", npz, "--device", "cuda"],
+            corr_band=1, local_soft_argmin=ITERS)
+    with np.load(npz) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    want = {"disp_low": (67, 120), "disp_final": (536, 960),
+            "gt": (536, 960)}
+    print(f"  cli.analysis .npz: {shapes} "
+          f"{'ok' if shapes == want else 'FAIL'}", flush=True)
+    if shapes != want:
+        raise SmokeFailure(f"cli.analysis .npz {shapes}, expected {want}")
+
+    listed = os.path.join(work, "gen.list")
+    reset_counts(ops)
+    run_cli(gen_filelist.main,
+            ["--root", root, "--left-dir", SCENEFLOW_DIRS["left"],
+             "--right-dir", SCENEFLOW_DIRS["right"],
+             "--disp-dir", SCENEFLOW_DIRS["disp"], "--out", listed])
+    same = open(listed, "rb").read() == open(
+        os.path.join(root, "train.list"), "rb").read()
+    print(f"  cli.gen_filelist: the tree's own train list "
+          f"{'byte for byte' if same else 'NOT reproduced'}", flush=True)
+    if not same:
+        raise SmokeFailure("cli.gen_filelist: list differs")
+
+    res, said = counted(
+        "cli_evaluate_cross_attention", evaluate.main,
+        ["--net", "CrossAttentionStereo", "--dataset", "dummy",
+         "--test_batch", "4", "--workers", "4", "--device", "cuda"],
+        local_soft_argmin=ITERS * 2)
+    line = json.loads(said.strip().splitlines()[-1])
+    if line != res or res["images"] != 8 or not np.isfinite(res["EPE"]):
+        raise SmokeFailure(f"cli.evaluate CrossAttentionStereo: {said}")
+    out["evaluate_cross_attention"] = res
+    out["launches"] = launches
+    record["entry_points"] = out
+    return launches
 
 
 def device_busy(fn) -> dict:

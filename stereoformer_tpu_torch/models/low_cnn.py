@@ -73,7 +73,61 @@ class ConvAffinityUpsample(nn.Module):
         return 0.25 * self.upsample_mask(feature).permute(0, 2, 3, 1)
 
 
-class LowCNN(nn.Module):
+def check_float32(dtype) -> None:
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"dtype={dtype!r} is not ported yet (bf16 comes in a later "
+            f"slice); the port computes in float32")
+
+
+class SiameseStereo(nn.Module):
+    """What LowCNN and CrossAttentionStereo share: the siamese backbone and
+    FPN to 1/8 (``conv1`` ... ``feature_concated``, the reference's names),
+    run once over the stacked pair so that train-mode BatchNorm statistics
+    span both images, as in the JAX models; the GRU refinement loop over
+    ``local_cost_volume``; and the 8x upsample picked by ``upsample``."""
+
+    def _build_backbone(self):
+        self.conv1 = ConvLReLU(3, 64, 7, 2)
+        self.conv2 = ResBlock(64, 128, stride=2)
+        self.conv3 = ResBlock(128, 256, stride=2)
+        self.downsample1 = ResBlock(256, 256)
+        self.downsample2 = ResBlock(256, 512, stride=2)
+        self.downsample3 = ResBlock(512, 512, stride=2)
+        self.feature_concated = FPNFusion((512, 512, 256))
+
+    def _features(self, left: torch.Tensor,
+                  right: torch.Tensor) -> torch.Tensor:
+        """left, right [B, H, W, 3] -> the fused features of both,
+        [2B, 256, H/8, W/8], the left images' first."""
+        x = torch.cat([left, right], dim=0).permute(0, 3, 1, 2)
+        x = self.conv3(self.conv2(self.conv1(x)))
+        f8 = self.downsample1(x)
+        f16 = self.downsample2(f8)
+        f32 = self.downsample3(f16)
+        return self.feature_concated([f32, f16, f8])
+
+    def _up(self, disp, mask):
+        if self.upsample == "convex":
+            return upsample_convex8(disp, mask)
+        return upsample_simple8(disp)
+
+    def _gru(self, volume, disp_low, left, right, left_feature, iters):
+        """The GRU refinements' ``iters`` upsampled disparities;
+        ``left_feature`` [B, 256, H/8, W/8] for "gru_feature", else None."""
+        H8, W8 = volume.shape[1:3]
+        left8 = resize_bilinear(left, (H8, W8), align_corners=False)
+        right8 = resize_bilinear(right, (H8, W8), align_corners=False)
+        prob = torch.softmax(volume, dim=-1)   # loop-invariant
+        disp, hidden, preds = disp_low, None, []
+        for _ in range(iters):
+            disp, hidden, mask = self.local_cost_volume(
+                volume, disp, left8, right8, hidden, prob, left_feature)
+            preds.append(self._up(disp, mask))
+        return preds
+
+
+class LowCNN(SiameseStereo):
     def __init__(self, max_disp: int = 192, refinement: str = "gru",
                  upsample: str = "convex", cost_volume: str = "correlation",
                  num_samples: int = 20, gru_hidden: int = 32,
@@ -91,21 +145,12 @@ class LowCNN(nn.Module):
             raise NotImplementedError(
                 f"loop={loop!r} is not ported: it is the JAX package's "
                 f"compile device; the port's GRU loop is always unrolled")
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r} is not ported yet (bf16 comes in a later "
-                f"slice); the port computes in float32")
+        check_float32(dtype)
         self.refinement, self.upsample = refinement, upsample
         self.concat = cost_volume != "correlation"
         self.num_samples, self.radius, self.gamma = num_samples, radius, gamma
         self.num_bins = max_disp // 8
-        self.conv1 = ConvLReLU(3, 64, 7, 2)
-        self.conv2 = ResBlock(64, 128, stride=2)
-        self.conv3 = ResBlock(128, 256, stride=2)
-        self.downsample1 = ResBlock(256, 256)
-        self.downsample2 = ResBlock(256, 512, stride=2)
-        self.downsample3 = ResBlock(512, 512, stride=2)
-        self.feature_concated = FPNFusion((512, 512, 256))
+        self._build_backbone()
         if self.concat:
             self.concat_proj1 = nn.Linear(512, 64)
             self.concat_proj2 = nn.Linear(64, 1)
@@ -134,13 +179,7 @@ class LowCNN(nn.Module):
         "learned_supervised" "bounds": (lower, upper) [B, H/8, W/8, 1]
         each."""
         B = left.shape[0]
-        # one backbone pass over the stacked pair, as the JAX model does
-        x = torch.cat([left, right], dim=0).permute(0, 3, 1, 2)
-        x = self.conv3(self.conv2(self.conv1(x)))
-        f8 = self.downsample1(x)
-        f16 = self.downsample2(f8)
-        f32 = self.downsample3(f16)
-        fused = self.feature_concated([f32, f16, f8])
+        fused = self._features(left, right)
         feats = fused.permute(0, 2, 3, 1)
         if self.concat:
             cvol = concat_volume(feats[:B], feats[B:], self.num_bins)
@@ -185,22 +224,3 @@ class LowCNN(nn.Module):
         out["disparities"] = [self._up(disp_low, mask),
                               self._up(refined, mask)]
         return out
-
-    def _up(self, disp, mask):
-        if self.upsample == "convex":
-            return upsample_convex8(disp, mask)
-        return upsample_simple8(disp)
-
-    def _gru(self, volume, disp_low, left, right, left_feature, iters):
-        """The GRU refinements' ``iters`` upsampled disparities;
-        ``left_feature`` [B, 256, H/8, W/8] for "gru_feature", else None."""
-        H8, W8 = volume.shape[1:3]
-        left8 = resize_bilinear(left, (H8, W8), align_corners=False)
-        right8 = resize_bilinear(right, (H8, W8), align_corners=False)
-        prob = torch.softmax(volume, dim=-1)   # loop-invariant
-        disp, hidden, preds = disp_low, None, []
-        for _ in range(iters):
-            disp, hidden, mask = self.local_cost_volume(
-                volume, disp, left8, right8, hidden, prob, left_feature)
-            preds.append(self._up(disp, mask))
-        return preds

@@ -1,9 +1,10 @@
 """Model registry of the port: names -> models on a device.
 
-Counterpart of ``stereoformer_tpu/models/registry.py``. Only the names this
-port has reached are here (the LowCNN family: ``LowCNN``, ``LowCNN_simple``,
-``LowCNN_ada``, ``LowCNN_dynamic``, ``LowCNN_dynamic_supervised``,
-``LowCNN_gru``, ``LowCNN_gru2``; and ``RAFT_Stereo``); the others raise.
+Counterpart of ``stereoformer_tpu/models/registry.py``, with all of its
+names: the LowCNN family (``LowCNN``, ``LowCNN_simple``, ``LowCNN_ada``,
+``LowCNN_dynamic``, ``LowCNN_dynamic_supervised``, ``LowCNN_gru``,
+``LowCNN_gru2``), ``RAFT_Stereo`` and ``CrossAttentionStereo``; any other
+name raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from ..device import resolve_device
 from ..weights import seeded_state_dict
+from .cross_attention import CrossAttentionStereo
 from .low_cnn import LowCNN
 from .raft_stereo import RAFTStereo
 
@@ -26,6 +28,13 @@ def _raft(**kw):
     return RAFTStereo(**kw)
 
 
+def _cross_attention(**kw):
+    # its GRU refinement is always unrolled
+    for k in ("loop", "scan_unroll"):
+        kw.pop(k, None)
+    return CrossAttentionStereo(**kw)
+
+
 def _lowcnn(refinement):
     def build(**kw):
         kw.setdefault("refinement", refinement)
@@ -34,7 +43,8 @@ def _lowcnn(refinement):
 
 
 # name -> (constructor, the fan its seeded conv weights are scaled by, as
-# the JAX model's init: he-normal over fan-in for LowCNN, fan-out for RAFT)
+# the JAX model's init: he-normal over fan-in for LowCNN and
+# CrossAttentionStereo, fan-out for RAFT)
 _PORTED = {"LowCNN": (_lowcnn("fixed"), "fan_in"),
            "LowCNN_simple": (_lowcnn("none"), "fan_in"),
            "LowCNN_ada": (_lowcnn("variance"), "fan_in"),
@@ -43,7 +53,8 @@ _PORTED = {"LowCNN": (_lowcnn("fixed"), "fan_in"),
            "LowCNN_dynamic": (_lowcnn("learned"), "fan_in"),
            "LowCNN_dynamic_supervised": (_lowcnn("learned_supervised"),
                                          "fan_in"),
-           "RAFT_Stereo": (_raft, "fan_out")}
+           "RAFT_Stereo": (_raft, "fan_out"),
+           "CrossAttentionStereo": (_cross_attention, "fan_in")}
 
 
 def available_models():
@@ -57,7 +68,7 @@ def get_model(name: str, device="cuda", **kwargs):
     ``model.load_state_dict``."""
     if name not in _PORTED:
         raise ValueError(
-            f"model {name!r} is not yet ported; ported: {available_models()}")
+            f"unknown model {name!r}; available: {available_models()}")
     dev = resolve_device(device)
     build, fan = _PORTED[name]
     with torch.device("meta"):

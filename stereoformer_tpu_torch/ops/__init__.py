@@ -1,11 +1,13 @@
 """Tensor ops of the port (NHWC layouts, as in ``stereoformer_tpu.ops``)."""
 
+from .attention import banded_attention, banded_attention_scores
 from .corr1d import allpairs_corr1d, corr_lookup, corr_pyramid
 from .cost_volume import (
     concat_volume,
     correlation_volume,
     correlation_volume_backward,
     correlation_volume_plain,
+    gwc_volume,
 )
 from .deform import (
     bilinear_sample_2d,
@@ -44,6 +46,8 @@ from .warp import disp_warp
 __all__ = [
     "InputPadder",
     "allpairs_corr1d",
+    "banded_attention",
+    "banded_attention_scores",
     "bilinear_sample_2d",
     "concat_volume",
     "conv2d_dw",
@@ -66,6 +70,7 @@ __all__ = [
     "disparity_variance",
     "fixed_local_cost_volume",
     "fused_conv_backward",
+    "gwc_volume",
     "local_soft_argmin",
     "local_soft_argmin_backward_plain",
     "local_soft_argmin_plain",

@@ -1,7 +1,8 @@
-"""Cost volumes (NHWC features, D after W): correlation and concat.
+"""Cost volumes (NHWC features, D after W): correlation, concat and
+group-wise correlation.
 
-Counterpart of ``stereoformer_tpu/ops/cost_volume.py`` (``correlation_volume``
-and ``concat_volume``) and of the correlation's Pallas kernel
+Counterpart of ``stereoformer_tpu/ops/cost_volume.py`` (``correlation_volume``,
+``concat_volume`` and ``gwc_volume``) and of the correlation's Pallas kernel
 ``ops/pallas/corr_band.py::corr_band``:
 
     out[b,h,w,d] = mean_c left[b,h,w,c] * right[b,h,w-d,c],   0 where w < d.
@@ -98,4 +99,28 @@ def concat_volume(left: torch.Tensor, right: torch.Tensor,
     for d in range(min(max_disp, W)):
         out[:, :, d:, d, :C] = left[:, :, d:]
         out[:, :, d:, d, C:] = right[:, :, :W - d]
+    return out
+
+
+def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+               num_groups: int) -> torch.Tensor:
+    """Group-wise correlation volume: out[b, h, w, d, g] = mean over the
+    channels c of group g of left[b, h, w, c] * right[b, h, w - d, c], zero
+    where w < d. left, right [B, H, W, C], C a multiple of ``num_groups``
+    -> [B, H, W, max_disp, num_groups].
+
+    D shifted products, as ``correlation_volume_plain``; the JAX package
+    forms the [W, W] square and takes its band with a one-hot selector, a
+    TPU device that computes the same values (and at eval holds a
+    [B, H, G, W, W] square)."""
+    B, H, W, C = left.shape
+    if C % num_groups:
+        raise ValueError(f"C = {C} is not a multiple of num_groups = "
+                         f"{num_groups}")
+    cpg = C // num_groups
+    lg = left.reshape(B, H, W, num_groups, cpg)
+    rg = right.reshape(B, H, W, num_groups, cpg)
+    out = left.new_zeros((B, H, W, max_disp, num_groups))
+    for d in range(min(max_disp, W)):
+        out[:, :, d:, d] = (lg[:, :, d:] * rg[:, :, :W - d]).sum(-1) / cpg
     return out

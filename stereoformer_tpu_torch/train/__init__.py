@@ -8,6 +8,7 @@ from .checkpoint import (
     restore_checkpoint,
     restore_params,
     save_checkpoint,
+    write_checkpoint,
 )
 from .optim import Amsgrad, AmsgradState
 from .params import count_parameters, freeze_offsets, only_offsets
@@ -44,4 +45,5 @@ __all__ = [
     "restore_params",
     "save_checkpoint",
     "state_diffs",
+    "write_checkpoint",
 ]

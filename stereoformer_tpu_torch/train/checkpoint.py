@@ -41,6 +41,21 @@ def _cpu(tensors: dict) -> dict:
     return {k: v.detach().cpu() for k, v in tensors.items()}
 
 
+def write_checkpoint(path: str, state: TrainState, meta: dict) -> None:
+    """Write ``state`` to ``path`` in the layout every reader here takes:
+    ``model`` (the state_dict), ``opt_state`` (``count``, ``mu``, ``nu``,
+    ``nu_max``), ``step`` and ``meta``; under a temporary name, renamed
+    into place."""
+    opt = state.opt_state
+    _atomic_save({
+        "model": _cpu(state.model.state_dict()),
+        "opt_state": {"count": int(opt.count), "mu": _cpu(opt.mu),
+                      "nu": _cpu(opt.nu), "nu_max": _cpu(opt.nu_max)},
+        "step": int(state.step),
+        "meta": meta,
+    }, path)
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, net_name: str,
                     round_idx: int, epoch: int, val_epe: float,
                     is_best: bool) -> str:
@@ -49,16 +64,9 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, net_name: str,
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"{net_name}_{round_idx}_{epoch}_{val_epe:.3f}"
     path = os.path.abspath(os.path.join(ckpt_dir, name))
-    opt = state.opt_state
-    meta = {"round": round_idx, "epoch": epoch, "arch": net_name,
-            "best_EPE": val_epe, "step": int(state.step)}
-    _atomic_save({
-        "model": _cpu(state.model.state_dict()),
-        "opt_state": {"count": int(opt.count), "mu": _cpu(opt.mu),
-                      "nu": _cpu(opt.nu), "nu_max": _cpu(opt.nu_max)},
-        "step": int(state.step),
-        "meta": meta,
-    }, path)
+    write_checkpoint(path, state, {
+        "round": round_idx, "epoch": epoch, "arch": net_name,
+        "best_EPE": val_epe, "step": int(state.step)})
     if is_best:
         best = os.path.join(ckpt_dir, "model_best")
         tmp = os.path.join(ckpt_dir, f".model_best{_TMP}{os.getpid()}")

@@ -5,6 +5,9 @@ The port's ``state_dict`` uses the reference PyTorch key names, the ones
 ``stereoformer_tpu/train/torch_import.py`` reads: ``lowcnn_state_dict_from_jax``
 is the inverse of its ``convert_lowcnn_state_dict``, and
 ``raft_state_dict_from_jax`` of its ``convert_raft_state_dict``.
+``cross_attention_state_dict_from_jax`` maps the one model without a
+reference checkpoint; ``state_dict_from_jax`` picks the map by registry
+name.
 """
 
 from __future__ import annotations
@@ -17,10 +20,9 @@ import torch
 from .nn.blocks import DeformConv
 from .train.optim import AmsgradState
 
-# reference prefix -> Flax module name, for the backbone's ResBlocks
-_BACKBONE = (("conv2", "ResBlock_0"), ("conv3", "ResBlock_1"),
-             ("downsample1", "ResBlock_2"), ("downsample2", "ResBlock_3"),
-             ("downsample3", "ResBlock_4"))
+# the backbone's ResBlocks in the order the JAX models create them; Flax
+# numbers them ResBlock_0 ... ResBlock_4 in that order
+_BACKBONE = ("conv2", "conv3", "downsample1", "downsample2", "downsample3")
 # duplicate keys of reference checkpoints: Sequential aliases of LowCNN's
 # conv_z/b/g, and of each RAFT residual block's norm3 (``downsample.1``)
 _ALIASES = ("local_cost_volume.gru.conv_zz.0.", "local_cost_volume.gru.conv_bb.0.",
@@ -78,6 +80,34 @@ def _resblock(sd, key, params, stats):
             _at(stats, "BatchNorm_0"))
 
 
+def _numbered(tree, kind: str, count: int) -> list:
+    """The top-level keys of ``tree`` that Flax gave the unnamed modules of
+    type ``kind`` (``kind_0``, ``kind_1``, ...), in their number's order;
+    raises unless there are ``count`` of them."""
+    found = sorted((int(m.group(1)), k) for k in tree
+                   if (m := re.fullmatch(rf"{kind}_(\d+)", k)))
+    if len(found) != count:
+        raise KeyError(f"expected {count} {kind}_N modules, found "
+                       f"{[k for _, k in found]}")
+    return [k for _, k in found]
+
+
+def _backbone(sd, p, s):
+    """The siamese backbone and FPN that the LowCNN family and
+    CrossAttentionStereo share, from the modules Flax numbered."""
+    (stem,) = _numbered(p, "ConvLReLU", 1)
+    _conv(sd, "conv1.0", p[stem]["Conv_0"])
+    for key, name in zip(_BACKBONE, _numbered(p, "ResBlock", len(_BACKBONE))):
+        _resblock(sd, key, p[name], _at(s, name))
+    (fpn,) = _numbered(p, "FPNFusion", 1)
+    for i in range(2):
+        node = p[fpn][f"ConvBnRelu_{i}"]
+        _conv(sd, f"feature_concated.layer_list.{i}.conv", node["Conv_0"],
+              bias=False)
+        _bn(sd, f"feature_concated.layer_list.{i}.bn", node["BatchNorm_0"],
+            _at(s, fpn, f"ConvBnRelu_{i}", "BatchNorm_0"))
+
+
 def lowcnn_state_dict_from_jax(variables) -> dict:
     """The JAX ``LowCNN`` variables ``{"params", "batch_stats"}`` (numpy
     leaves) of any refinement, upsample and cost volume -> the port's
@@ -95,15 +125,7 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
     not checked against a reference checkpoint."""
     p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
-    _conv(sd, "conv1.0", p["ConvLReLU_0"]["Conv_0"])
-    for key, name in _BACKBONE:
-        _resblock(sd, key, p[name], _at(s, name))
-    for i in range(2):
-        node = p["FPNFusion_0"][f"ConvBnRelu_{i}"]
-        _conv(sd, f"feature_concated.layer_list.{i}.conv", node["Conv_0"],
-              bias=False)
-        _bn(sd, f"feature_concated.layer_list.{i}.bn", node["BatchNorm_0"],
-            _at(s, "FPNFusion_0", f"ConvBnRelu_{i}", "BatchNorm_0"))
+    _backbone(sd, p, s)
     for i in range(3):
         _resblock(sd, f"correlation_aggreagtion.{i}", p[f"agg{i}"],
                   _at(s, f"agg{i}"))
@@ -123,6 +145,44 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
                    p["LearnedBounds_0"]["SmallUNet_0"],
                    _at(s, "LearnedBounds_0", "SmallUNet_0"))
     return sd
+
+
+def cross_attention_state_dict_from_jax(variables) -> dict:
+    """The JAX ``CrossAttentionStereo`` variables ``{"params",
+    "batch_stats"}`` (numpy leaves) -> the port's ``state_dict``. Without
+    ``"batch_stats"``, the parameters' entries only.
+
+    Flax numbers this model's unnamed modules (``ConvLReLU_0``,
+    ``ResBlock_0..4``, ``FPNFusion_0``, ``GRUUpdate_0``): they are found by
+    kind and number. The backbone maps as LowCNN's, ``GRUUpdate_0`` as
+    LowCNN's ``gru_update`` (to ``local_cost_volume``), ``agg{i}`` to
+    ``agg.{i}``, and ``proj_q``, ``proj_k``, ``proj_v``, ``fuse1``,
+    ``fuse2`` keep their names."""
+    p, s = variables["params"], variables.get("batch_stats")
+    sd: dict = {}
+    _backbone(sd, p, s)
+    for name in ("proj_q", "proj_k", "proj_v", "fuse1", "fuse2"):
+        _conv(sd, name, p[name])
+    for i in range(3):
+        _resblock(sd, f"agg.{i}", p[f"agg{i}"], _at(s, f"agg{i}"))
+    (gru,) = _numbered(p, "GRUUpdate", 1)
+    _gru_head(sd, p[gru], _at(s, gru))
+    return sd
+
+
+def state_dict_from_jax(name: str, variables) -> dict:
+    """The JAX variables of registry model ``name`` (numpy leaves) -> the
+    port's ``state_dict``, for every name of the registry."""
+    from .models.registry import available_models  # models import this module
+
+    if name not in available_models():
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{available_models()}")
+    if name == "RAFT_Stereo":
+        return raft_state_dict_from_jax(variables)
+    if name == "CrossAttentionStereo":
+        return cross_attention_state_dict_from_jax(variables)
+    return lowcnn_state_dict_from_jax(variables)
 
 
 def _gru_head(sd, g, gs):
@@ -252,21 +312,27 @@ def raft_state_dict_from_jax(variables) -> dict:
 
 
 def amsgrad_state_from_jax(opt_state, model: torch.nn.Module) -> AmsgradState:
-    """optax's AMSGrad state for the JAX ``LowCNN(refinement="gru")`` or
-    ``RAFTStereo`` (``optax.amsgrad``'s chain state, or any tuple nesting
-    that holds its ``ScaleByAmsgradState``) -> the port's ``AmsgradState``
-    for ``model``, on the model's device. ``mu``, ``nu`` and ``nu_max`` map
-    as the parameters do (``raft_state_dict_from_jax`` for a
-    ``RAFTStereo``, else ``lowcnn_state_dict_from_jax``), so a JAX run goes
-    on in the port."""
-    from .models.raft_stereo import RAFTStereo   # models import this module
+    """optax's AMSGrad state for the JAX model of any registry name
+    (``optax.amsgrad``'s chain state, or any tuple nesting that holds its
+    ``ScaleByAmsgradState``) -> the port's ``AmsgradState`` for ``model``,
+    on the model's device. ``mu``, ``nu`` and ``nu_max`` map as the
+    parameters do (``raft_state_dict_from_jax`` for a ``RAFTStereo``,
+    ``cross_attention_state_dict_from_jax`` for a ``CrossAttentionStereo``,
+    else ``lowcnn_state_dict_from_jax``), so a JAX run goes on in the
+    port."""
+    # models import this module
+    from .models.cross_attention import CrossAttentionStereo
+    from .models.raft_stereo import RAFTStereo
 
     state = _find_amsgrad(opt_state)
     if state is None:
         raise ValueError("no AMSGrad state (with nu_max) in opt_state")
     params = dict(model.named_parameters())
-    to_state_dict = (raft_state_dict_from_jax if isinstance(model, RAFTStereo)
-                     else lowcnn_state_dict_from_jax)
+    to_state_dict = (
+        raft_state_dict_from_jax if isinstance(model, RAFTStereo)
+        else cross_attention_state_dict_from_jax
+        if isinstance(model, CrossAttentionStereo)
+        else lowcnn_state_dict_from_jax)
 
     def moments(tree):
         sd = to_state_dict({"params": tree})
@@ -288,13 +354,15 @@ def _find_amsgrad(state):
 
 
 def load_state_dict_file(path: str) -> dict:
-    """A port or reference ``.pth`` state_dict, read with
-    ``torch.load(weights_only=True)``: unwraps ``{"state_dict": ...}``,
-    strips DataParallel's ``module.`` prefix and drops the reference's
-    duplicate alias keys (LowCNN's GRU convs, RAFT's ``downsample.1``
-    norms)."""
+    """The model weights of a port checkpoint (``train.save_checkpoint``'s
+    ``"model"``) or of a port or reference ``.pth`` state_dict, read with
+    ``torch.load(weights_only=True)``: unwraps ``{"model": ...}`` and
+    ``{"state_dict": ...}``, strips DataParallel's ``module.`` prefix and
+    drops the reference's duplicate alias keys (LowCNN's GRU convs, RAFT's
+    ``downsample.1`` norms)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    sd = raw.get("state_dict", raw)
+    sd = next((raw[k] for k in ("model", "state_dict")
+               if isinstance(raw.get(k), dict)), raw)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     return {k: v for k, v in sd.items()
             if not k.startswith(_ALIASES) and _RAFT_ALIAS not in k}

@@ -178,6 +178,62 @@ def test_lowcnn_gru_with_a_wide_range_matches_the_cpu(cuda_device):
                                want["disparities"][-1], rtol=0, atol=5e-3)
 
 
+def test_cross_attention_eval_matches_the_cpu(cuda_device):
+    """CrossAttentionStereo (the registry's widths) on the card against the
+    port on the CPU at 64x256, 12 GRU steps, TF32 off, moderate seeded
+    weights as above: local_soft_argmin launched once a step, corr_band
+    never; the disparities within the tolerances above."""
+    from stereoformer_tpu_torch.models import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    left, right = (torch.from_numpy(rng.standard_normal(
+        (2, 64, 256, 3)).astype(np.float32)) for _ in range(2))
+    cpu = get_model("CrossAttentionStereo", device="cpu")
+    cpu.load_state_dict({k: v * np.sqrt(1.25 / 2.0) if v.dim() == 4 else v
+                         for k, v in cpu.state_dict().items()})
+    card = get_model("CrossAttentionStereo", device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    n_local = ops.local_soft_argmin.launches
+    n_corr = ops.correlation_volume.launches
+    with torch.inference_mode():
+        want = cpu(left, right, iters=12)
+        got = card(left.to(cuda_device), right.to(cuda_device), iters=12)
+    torch.backends.cudnn.allow_tf32 = True
+    assert ops.local_soft_argmin.launches == n_local + 12
+    assert ops.correlation_volume.launches == n_corr
+    torch.testing.assert_close(got["disp_low"].cpu(), want["disp_low"],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["disparities"][-1].cpu(),
+                               want["disparities"][-1], rtol=0, atol=5e-3)
+
+
+def test_cli_evaluate_on_the_card_matches_the_cpu(cuda_device, capsys):
+    """cli.evaluate --device cuda on dummy (8 pairs at 64x128, 2 GRU
+    iterations, random seeded weights, TF32 off) against --device cpu:
+    corr_band once and local_soft_argmin twice a batch; EPE within 1e-3 px,
+    P1 and D1 within 1e-3 (a pixel within rounding of a threshold may fall
+    either way)."""
+    from stereoformer_tpu_torch.cli import evaluate
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ["--dataset", "dummy", "--crop_h", "64", "--crop_w", "128",
+            "--iters", "2", "--workers", "0", "--test_batch", "4"]
+    want = evaluate.main(args + ["--device", "cpu"])
+    n_corr = ops.correlation_volume.launches
+    n_local = ops.local_soft_argmin.launches
+    got = evaluate.main(args + ["--device", "cuda"])
+    torch.backends.cudnn.allow_tf32 = True
+    assert ops.correlation_volume.launches == n_corr + 2
+    assert ops.local_soft_argmin.launches == n_local + 4
+    assert got["images"] == want["images"] == 8
+    assert abs(got["EPE"] - want["EPE"]) <= 1e-3, (got, want)
+    for k in ("P1", "D1"):
+        assert abs(got[k] - want[k]) <= 1e-3, (k, got, want)
+
+
 def test_wrappers_count_launches(cuda_device):
     rng = np.random.default_rng(2)
     feat = _randn(rng, (1, 4, 40, 32), cuda_device)

@@ -161,8 +161,9 @@ def test_get_model_default_device_is_the_gpu():
 
 
 def test_get_model_unported_name_raises():
-    with pytest.raises(ValueError, match="not yet ported.*LowCNN_gru"):
-        get_model("CrossAttentionStereo", device="cpu")
+    """A name neither registry has raises, listing the available names."""
+    with pytest.raises(ValueError, match="unknown model.*LowCNN_gru"):
+        get_model("PSMNet", device="cpu")
 
 
 def test_get_model_seeded_weights_repeat():
@@ -176,7 +177,7 @@ def test_get_model_seeded_weights_repeat():
 _IMPORT_CHECK = r"""
 import importlib, importlib.abc, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "stereoformer_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "stereoformer_tpu")
 
 def blocked(name):
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -228,7 +229,13 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.train.params",
             "stereoformer_tpu_torch.train.checkpoint",
             "stereoformer_tpu_torch.train.trainer",
-            "stereoformer_tpu_torch.cli.train"):
+            "stereoformer_tpu_torch.cli.train",
+            "stereoformer_tpu_torch.cli.evaluate",
+            "stereoformer_tpu_torch.cli.analysis",
+            "stereoformer_tpu_torch.cli.gen_filelist",
+            "stereoformer_tpu_torch.models.cross_attention",
+            "stereoformer_tpu_torch.ops.attention",
+            "stereoformer_tpu_torch.ops.cost_volume"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left
