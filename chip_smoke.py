@@ -145,7 +145,29 @@ any failure exits nonzero and prints no result:
    (the .npz keys and shapes); cli.gen_filelist over the tree (the tree's
    own train list, byte for byte); cli.evaluate --net CrossAttentionStereo
    --dataset dummy (its JSON line); launch counts of each;
-17. one JSON line with each kernel's numbers; the last line says the run
+17. bf16 serving, the JAX package's deployment dtype: the bf16 forms of
+   corr_band and conv2d_fused against their plain bf16 versions (float32
+   sums, one rounding; at most one bf16 ulp per output, or near 0 the
+   float32 sums' own error, 2^-20 of the largest output; the moments
+   within 1e-5 relative beyond what the outputs that round to the
+   neighbouring bf16 move them by), corr_band's at the eval, train and
+   D = 96 shapes and every conv2d_fused entry at RAFT's four eval sites,
+   each timed by graph replay beside its bound (bytes at the HBM rate or
+   operations at the bf16 tensor-core rate), its plain version and the
+   library (cuDNN's F.conv2d with bias in bf16; none for corr_band); every
+   registry name's eval at bench.py's protocol (576x960, B=8, RAFT at B=2
+   and B=8 on uniform 0..255 images, 12 iterations, seed-0 weights) in
+   bf16 and float32: ms/batch (float32 with TF32 on and off, from the
+   earlier phases where they ran the name), pairs/s, peak memory, launch
+   counts (corr_band's bf16 form once per LowCNN forward, its float32 form
+   never; conv2d_fused's bf16 form 14 times per RAFT forward),
+   finite float32 disparities, and the bf16-against-float32 mean abs
+   disparity beside bench.py's 0.25 px (a reading with random weights);
+   a profiler breakdown of one bf16 forward of LowCNN_gru and RAFT (B=2);
+   then the card's bf16 against the port's bf16 on the CPU, LowCNN_gru at
+   64x256 and RAFT at 64x128, TF32 off: the gap may be no larger than the
+   CPU port's own bf16-against-float32 gap on the same input;
+18. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -184,6 +206,9 @@ RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W, RAFT_LR = 4, 320, 720, 2e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
+# bench.py's BF16_AGREEMENT_PX: bf16 against float32, mean abs disparity
+BF16_AGREEMENT_PX = 0.25
 # conv2d_fused's calls in RAFT eval at B=2, 576x960 (name -> B, H, W, C=Co):
 # the feature net runs on the stacked pair at full and half resolution,
 # the context net on the left image
@@ -221,6 +246,13 @@ KERNELS = {
     "row_gather": (
         "cuda", "stereoformer_tpu_torch/csrc/row_gather.cu",
         "scripts/_gather_probe.py:21"),
+    # the bf16 forms: the same sources, their own C entries
+    "corr_band_bf16": (
+        "cuda", "stereoformer_tpu_torch/csrc/corr_band.cu",
+        "stereoformer_tpu/ops/pallas/corr_band.py:48"),
+    "conv2d_fused_bf16": (
+        "cuda", "stereoformer_tpu_torch/csrc/conv2d_fused.cu",
+        "stereoformer_tpu/ops/pallas/conv2d.py:218"),
 }
 # RAFT's stride-2 3x3 sites at eval, B=2, 576x960 (the first conv of the
 # first block of layer2 and layer3 in both encoders, and of the context
@@ -370,6 +402,8 @@ def edge_candidates(rng, shape, D):
 
 def reset_counts(ops) -> None:
     ops.correlation_volume.launches = 0
+    ops.correlation_volume.bf16_launches = 0
+    ops.conv2d_fused.bf16_launches = 0
     ops.local_soft_argmin.launches = 0
     ops.local_soft_argmin.backward_launches = 0
     ops.conv2d_fused.launches = 0
@@ -388,7 +422,9 @@ def read_counts(ops) -> dict:
             "conv2d_dw": ops.conv2d_dw.launches,
             "deform_sample": ops.deform_conv_fused.launches,
             "conv2d_s2": ops.conv2d_fused_s2.launches,
-            "row_gather": ops.take_rows.launches}
+            "row_gather": ops.take_rows.launches,
+            "corr_band_bf16": ops.correlation_volume.bf16_launches,
+            "conv2d_fused_bf16": ops.conv2d_fused.bf16_launches}
 
 
 def check_launches(label: str, got: dict, **want) -> None:
@@ -497,6 +533,14 @@ def main() -> int:
     record["raft_parity_vs_cpu"] = raft_parity_vs_cpu()
     record["raft_train_parity_vs_cpu"] = raft_train_parity_vs_cpu()
     record["family_parity_vs_cpu"] = family_parity_vs_cpu()
+    # 17. bf16 serving
+    t17 = time.perf_counter()
+    err.update(check_bf16_kernels(ops, rng))
+    launches.update(bf16_eval_phase(ops, record))
+    rows.extend(bf16_kernel_rows(ops, rng, err, launches, record))
+    record["bf16_parity_vs_cpu"] = bf16_parity_vs_cpu()
+    record["bf16_phase_s"] = time.perf_counter() - t17
+    print(f"bf16 phase: {record['bf16_phase_s']:.1f} s", flush=True)
     # phases 14-16 share a temporary tree (checkpoints of 290 MB, the
     # files), removed whatever the outcome
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2066,6 +2110,11 @@ def train_step_parity(name: str, sd: dict, batch: dict, iters: int,
     return parity
 
 
+# the CPU port's float32 last disparity of phase 13's runs, (name, seed) ->
+# tensor: phase 17 holds the CPU's bf16 against it on the same input
+CPU_F32_LAST: dict = {}
+
+
 def parity_vs_cpu(seed: int = 2, **model_kw) -> dict:
     """Phase 13 (phase 8b with ``model_kw``): LowCNN_gru on the card
     against the port on the CPU at 64x256, TF32 off, moderate weights
@@ -2089,6 +2138,8 @@ def parity_vs_cpu(seed: int = 2, **model_kw) -> dict:
         with torch.inference_mode():
             o = m(li.to(where), ri.to(where), iters=ITERS)
         small[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
+    if not model_kw:
+        CPU_F32_LAST[("LowCNN_gru", seed)] = small["cpu"][1]
     print(f"LowCNN_gru{model_kw or ''}, card vs CPU port at 64x256, TF32 "
           f"off:", flush=True)
     parity = {
@@ -2173,6 +2224,7 @@ def raft_parity_vs_cpu() -> dict:
         with torch.inference_mode():
             o = m(li.to(where), ri.to(where), iters=ITERS)
         outs[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
+    CPU_F32_LAST[("RAFT_Stereo", 5)] = outs["cpu"][1]
     print("RAFT card vs CPU port at 64x128, 12 iterations, TF32 off:",
           flush=True)
     # f32 on both, the fused conv's sums in another order; the last
@@ -2736,6 +2788,312 @@ def entry_points_phase(ops, record, work: str) -> dict:
     out["launches"] = launches
     record["entry_points"] = out
     return launches
+
+
+def bf16_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Phase 17: every output within one bf16 ulp of the plain version's,
+    or near 0, where the sums cancel, within the float32 sums' own error,
+    2^-20 of the largest output. Returns the largest absolute error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SmokeFailure(f"{label}: {got.dtype} {tuple(got.shape)} != "
+                           f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp(min=1e-30)
+    ulp = 2.0 ** -7 * torch.exp2(torch.floor(torch.log2(big)))
+    tol = ulp.clamp(min=2.0 ** -20 * w.abs().max().item())
+    diff = (g - w).abs()
+    share = (diff / tol).max().item()
+    ok = bool(torch.isfinite(g).all()) and bool((diff <= tol).all())
+    err = diff.max().item()
+    print(f"  {label}: max_abs_err {err:.3e}, {(diff > 0).float().mean():.1e} "
+          f"of the outputs differ, the worst at {share:.2f} of its "
+          f"tolerance (one bf16 ulp, or 2^-20 of the largest output) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{label}: beyond one bf16 ulp")
+    return err
+
+
+def check_bf16_kernels(ops, rng) -> dict:
+    """Phase 17: the bf16 forms against their plain bf16 versions."""
+    print("bf16 kernels vs plain (TF32 off):", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    err = {"corr_band_bf16": 0.0, "conv2d_fused_bf16": 0.0}
+    for shape, d in (((B, H // 8, W // 8, 256), 24),
+                     ((4, TRAIN_H // 8, TRAIN_W // 8, 256), 24),
+                     ((B, H // 8, W // 8, 256), 96)):
+        left = randn(rng, *shape).bfloat16()
+        right = randn(rng, *shape).bfloat16()
+        err["corr_band_bf16"] = max(err["corr_band_bf16"], bf16_close(
+            f"corr_band_bf16 {shape} D={d}",
+            ops.correlation_volume(left, right, d),
+            ops.correlation_volume_plain(left, right, d)))
+    # the moments: within 1e-5 relative (of each and of the largest),
+    # beyond what the outputs that round to the neighbouring bf16 move them
+    moment_rtol = 1e-5
+    for where, (B_, H_, W_, C) in RAFT_CONVS.items():
+        x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, C)
+        x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
+        for variant, (call, kw) in conv_calls(ops, x, w, b, s, t,
+                                              r).items():
+            got, want = call(), ops.conv3x3_plain(x, w, b, **kw)
+            if not kw.get("with_stats"):
+                got, want = (got,), (want,)
+            label = f"conv2d_fused_bf16 {variant} {where} {[B_, H_, W_, C]}"
+            err["conv2d_fused_bf16"] = max(err["conv2d_fused_bf16"],
+                                           bf16_close(label, got[0], want[0]))
+            yg, yw = got[0].double(), want[0].double()
+            slack = ((yg - yw).abs().sum((1, 2)),
+                     (yg ** 2 - yw ** 2).abs().sum((1, 2)))
+            for part, g, m, sl in zip(("S1", "S2"), got[1:], want[1:], slack):
+                m = m.double()
+                tol = moment_rtol * (m.abs() + m.abs().max()) + sl
+                bad = (g.double() - m).abs() > tol
+                print(f"    {part}: max rel err "
+                      f"{((g.double() - m).abs() / m.abs().max()).max():.2e} "
+                      f"{'FAIL' if bad.any() else 'ok'}", flush=True)
+                if bad.any():
+                    raise SmokeFailure(f"{label} {part} moments disagree")
+            del got, want, yg, yw
+        del x, w, b, s, t, r
+    torch.backends.cudnn.allow_tf32 = True
+    return err
+
+
+# the registry names' earlier float32 eval phases (record key) at the same
+# protocol; a name without one is timed in float32 here
+F32_EVAL_KEYS = {"LowCNN_gru": "eval", "LowCNN_dynamic": "dynamic_eval",
+                 "LowCNN": "LowCNN_eval", "LowCNN_simple": "LowCNN_simple_eval",
+                 "LowCNN_ada": "LowCNN_ada_eval",
+                 "LowCNN_gru2": "LowCNN_gru2_eval",
+                 "CrossAttentionStereo": "CrossAttentionStereo_eval",
+                 "RAFT_Stereo B=2": "raft_eval_b2",
+                 "RAFT_Stereo B=8": "raft_eval_b8"}
+
+
+def bf16_eval_phase(ops, record) -> dict:
+    """Phase 17: every registry name's eval in bf16 and float32 at
+    bench.py's protocol; returns the bf16 launch counts per path."""
+    from stereoformer_tpu_torch.models import get_model
+
+    print(f"bf16 serving: every registry name's eval at {H}x{W}, "
+          f"iters={ITERS}, bf16 and float32:", flush=True)
+    # bench.py:77-78 (LowCNN) and :234-237 (RAFT, raw 0..255 images)
+    brng = np.random.RandomState(0)
+    left = torch.from_numpy(brng.randn(B, H, W, 3).astype(np.float32)).cuda()
+    right = torch.from_numpy(brng.randn(B, H, W, 3).astype(np.float32)).cuda()
+    raw = [torch.from_numpy(brng.uniform(0, 255, (B, H, W, 3)).astype(
+        np.float32)).cuda() for _ in range(2)]
+    cases = [(name, B, {}) for name in LOWCNN] + [
+        (f"RAFT_Stereo B={b}", b, {"input_norm": "raw"})
+        for b in RAFT_BATCHES]
+    launches, rec = {}, {}
+    for label, batch, kw in cases:
+        name = label.split()[0]
+        raft = name == "RAFT_Stereo"
+        li, ri = (raw[0][:batch], raw[1][:batch]) if raft else (left, right)
+        run_kw = {"test_mode": True} if raft else {}
+        row, disp = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = get_model(name, device="cuda", dtype=dtype, **kw)
+
+            def forward(model=model):
+                with torch.inference_mode():
+                    return model(li, ri, iters=ITERS, **run_kw)
+
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ops)
+            out = forward()
+            counts = read_counts(ops)
+            d = out["disparities"][-1]
+            if d.dtype != torch.float32 or not torch.isfinite(d).all():
+                raise SmokeFailure(f"{label} {dtype}: disparities "
+                                   f"{d.dtype}, finite="
+                                   f"{bool(torch.isfinite(d).all())}")
+            disp[dtype] = d
+            key = "bf16" if dtype == torch.bfloat16 else "f32"
+            row[f"{key}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del out
+            if dtype == torch.bfloat16:
+                want = ({"conv2d_fused_bf16": 14} if raft else {
+                    ("corr_band_bf16" if k == "corr_band" else k): v
+                    for k, v in LOWCNN[name][1].items()})
+                check_launches(f"{label} bf16 eval", counts, **want)
+                launches[f"bf16_{label.replace(' ', '_')}_eval"] = counts
+                ms = time_ms(forward, reps=2 if raft else 10, warmup=1)
+                bf16_forward = forward
+                row["bf16"] = {"ms_per_batch": ms,
+                               "pairs_per_s": batch / ms * 1e3}
+            elif F32_EVAL_KEYS.get(label) in record:
+                prior = record[F32_EVAL_KEYS[label]]
+                row["f32_from"] = F32_EVAL_KEYS[label]
+                row["tf32_convs"] = prior["tf32_convs"]
+                row["strict_f32"] = prior["strict_f32"]
+            else:
+                for tf32 in (True, False):
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    ms = time_ms(forward, reps=2 if raft else 10, warmup=1)
+                    row["tf32_convs" if tf32 else "strict_f32"] = {
+                        "ms_per_batch": ms, "pairs_per_s": batch / ms * 1e3}
+                torch.backends.cudnn.allow_tf32 = True
+        gap = (disp[torch.bfloat16].double()
+               - disp[torch.float32].double()).abs().mean().item()
+        row["bf16_vs_f32_mean_abs_px"] = gap
+        if label in ("LowCNN_gru", "RAFT_Stereo B=2"):
+            # where a bf16 forward's device time goes
+            row["bf16_profile"] = profile(bf16_forward, f"{label} bf16 "
+                                          f"forward")
+        rec[label] = row
+        print(f"  {label}: bf16 {row['bf16']['ms_per_batch']:.2f} ms/batch "
+              f"({row['bf16']['pairs_per_s']:.2f} pairs/s), peak "
+              f"{row['bf16_peak_mem_gb']:.2f} GB; float32 "
+              f"{row['tf32_convs']['ms_per_batch']:.2f} ms/batch TF32 convs, "
+              f"{row['strict_f32']['ms_per_batch']:.2f} strict"
+              f"{' (phase ' + row['f32_from'] + ')' if 'f32_from' in row else ''}"
+              f", peak {row['f32_peak_mem_gb']:.2f} GB; bf16 launches "
+              f"{ {k: v for k, v in counts.items() if v} }; disparities "
+              f"float32 and finite; bf16 vs float32 mean abs {gap:.4f} px "
+              f"(bench.py's agreement {BF16_AGREEMENT_PX} px; random "
+              f"weights)", flush=True)
+        del disp, model, bf16_forward
+    record["bf16_eval"] = rec
+    return launches
+
+
+def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
+    """Phase 17: the bf16 forms' device time by graph replay at the main
+    path's shapes, beside their bounds (bytes at the HBM rate or
+    operations at the bf16 tensor-core rate, the card's dense bf16 rate
+    whatever the design), the plain versions and the library."""
+    import torch.nn.functional as F
+
+    from stereoformer_tpu_torch import kernels
+
+    rows, times = [], {"corr_band_bf16": {}, "conv2d_fused_bf16": {}}
+    C = 256
+    for shape, d in (((B, H // 8, W // 8, C), 24),
+                     ((4, TRAIN_H // 8, TRAIN_W // 8, C), 24),
+                     ((B, H // 8, W // 8, C), 96)):
+        left = randn(rng, *shape).bfloat16()
+        right = randn(rng, *shape).bfloat16()
+        npix = int(np.prod(shape[:3]))
+        nbytes = (2 * npix * C + npix * d) * 2
+        band = shape[0] * shape[1] * (d * shape[2] - d * (d - 1) // 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # bf16 products: the card's bf16 rate, whatever the design
+        t_ops = 2 * C * band / BF16_FLOPS_PER_S * 1e3
+        t = {"ms": graph_ms(lambda: ops.correlation_volume(left, right, d),
+                            50),
+             "plain_ms": graph_ms(
+                 lambda: ops.correlation_volume_plain(left, right, d), 5),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "mb": nbytes / 1e6, "library_ms": None}
+        times["corr_band_bf16"][f"{list(shape)} D={d}"] = t
+        print(f"  corr_band_bf16 {shape} D={d}: {t['ms'] * 1e3:.1f} us on the "
+              f"device (bound {t['bound_ms'] * 1e3:.2f} us by "
+              f"{t['bound_by']}, {t['mb']:.2f} MB, "
+              f"{100 * t['bound_ms'] / t['ms']:.0f}% of it), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us; no library call", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    for where, (B_, H_, W_, C_) in RAFT_CONVS.items():
+        x, w, b, s, t_, r = conv_inputs(rng, B_, H_, W_, C_, C_)
+        x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
+        variant = "prologue+stats" if where.startswith("fnet") else "prologue"
+        kern, kw = conv_calls(ops, x, w, b, s, t_, r)[variant]
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        nbytes = (2 * B_ * H_ * W_ * C_ + 9 * C_ * C_ + C_) * 2
+        nops = 2 * 9 * C_ * C_ * B_ * H_ * W_
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / BF16_FLOPS_PER_S * 1e3
+        row = {"variant": variant, "shape": [B_, H_, W_, C_, C_],
+               "gflop": nops / 1e9, "mb": nbytes / 1e6,
+               "ms": graph_ms(kern, 10),
+               "plain_ms": graph_ms(
+                   lambda: ops.conv3x3_plain(x, w, b, **kw), 3),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               # one TF32 MMA per product caps the kernel's design
+               "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3),
+               "library_ms": graph_ms(
+                   lambda: F.conv2d(xc, wc, b, padding=1), 10)}
+        times["conv2d_fused_bf16"][where] = row
+        print(f"  conv2d_fused_bf16 {variant} {where} {row['shape']}: "
+              f"{row['ms']:.4f} ms on the device "
+              f"({nops / row['ms'] / 1e9:.1f} TFLOP/s); bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({100 * row['bound_ms'] / row['ms']:.0f}% of it), one TF32 "
+              f"pass {row['bound_tf32_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms; cuDNN F.conv2d+bias bf16 "
+              f"{row['library_ms']:.4f} ms (kernel/cuDNN "
+              f"{row['ms'] / row['library_ms']:.2f})", flush=True)
+        del x, w, b, s, t_, r, xc, wc
+    torch.backends.cudnn.allow_tf32 = True
+    record["kernel_times"].update(times)
+    for name, main_key, path in (
+            ("corr_band_bf16", f"{[B, H // 8, W // 8, C]} D=24",
+             "bf16_LowCNN_gru_eval"),
+            ("conv2d_fused_bf16", "fnet layer1", "bf16_RAFT_Stereo_B=2_eval")):
+        main = times[name][main_key]
+        route, source, replaces = KERNELS[name]
+        rows.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+            "max_abs_err": err[name], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main.get("shape", main_key),
+            "ptxas": kernels.ptxas_usage(name)})
+    return rows
+
+
+def bf16_parity_vs_cpu() -> dict:
+    """Phase 17: the card's bf16 against the port's bf16 on the CPU, TF32
+    off, moderate weights: LowCNN_gru at 64x256 and RAFT_Stereo at 64x128,
+    12 iterations. A bf16 forward moves by its own rounding's size under any
+    change of summation order, so the gate is the CPU port's own
+    bf16-against-float32 gap on the same input."""
+    from stereoformer_tpu_torch.models import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("bf16: the card against the CPU port, TF32 off:", flush=True)
+    out = {}
+    for name, h, w, seed in (("LowCNN_gru", 64, 256, 2),
+                             ("RAFT_Stereo", 64, 128, 5)):
+        sd = moderate_weights(name)
+        srng = np.random.default_rng(seed)
+        li, ri = (torch.from_numpy(srng.standard_normal((2, h, w, 3),
+                                                        dtype=np.float32))
+                  for _ in range(2))
+        disp = {}
+        runs = [("cpu", torch.bfloat16), ("cuda", torch.bfloat16)]
+        if (name, seed) in CPU_F32_LAST:   # phase 13 ran it
+            disp[("cpu", torch.float32)] = CPU_F32_LAST[(name, seed)].double()
+        else:
+            runs.append(("cpu", torch.float32))
+        for where, dtype in runs:
+            m = get_model(name, device=where, dtype=dtype)
+            m.load_state_dict(sd)
+            with torch.inference_mode():
+                o = m(li.to(where), ri.to(where), iters=ITERS)
+            disp[(where, dtype)] = o["disparities"][-1].cpu().double()
+        cpu16 = disp[("cpu", torch.bfloat16)]
+        gap = (cpu16 - disp[("cpu", torch.float32)]).abs().mean().item()
+        card = (disp[("cuda", torch.bfloat16)] - cpu16).abs().mean().item()
+        ok = card <= gap
+        print(f"  {name}: card bf16 vs CPU bf16 mean abs {card:.4f} px, the "
+              f"CPU port's bf16 vs float32 {gap:.4f} px "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure(f"{name}: the card's bf16 is {card} px from "
+                               f"the CPU port's, above its gap {gap}")
+        out[name] = {"card_vs_cpu_bf16_px": card, "cpu_bf16_vs_f32_px": gap}
+    torch.backends.cudnn.allow_tf32 = True
+    return out
 
 
 def device_busy(fn) -> dict:

@@ -77,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet: raises")
     p.add_argument("--dtype", type=str, default=None,
                    choices=[None, "f32", "bf16"],
-                   help="compute dtype; bf16 is not ported yet and raises")
+                   help="compute dtype; bf16 training is not ported yet "
+                        "and raises")
     p.add_argument("--color_aug", action="store_true")
     p.add_argument("--no_mesh", action="store_true",
                    help="accepted and ignored: the port trains on one device")
@@ -129,7 +130,9 @@ def main(argv=None):
             "device; the port's GRU loop is unrolled")
     if opt.dtype == "bf16":
         raise NotImplementedError(
-            "--dtype bf16 is not ported yet; the port trains in float32")
+            "--dtype bf16 is not ported yet: bf16 training comes with the "
+            "bf16 training slice (bf16 serving is get_model(name, "
+            "dtype=torch.bfloat16)); the port trains in float32")
     import torch
 
     from ..device import resolve_device

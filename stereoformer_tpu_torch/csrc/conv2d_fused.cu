@@ -56,7 +56,23 @@
 // double precision, in a fixed order, so the result is deterministic and
 // m2 - m1^2 keeps its digits. Pixels past H or W are neither stored nor
 // counted (their MMA rows hold 0 + b).
+//
+// The bf16 form (conv2d_fused_forward_bf16), the Pallas kernel at
+// out_dtype bf16: x, w, b and the residual bf16, s and t float32, y bf16:
+//     in  = prologue ? bf16(relu(x * s + t)) : x
+//     y   = bf16(relu?(conv3x3_SAME(in, w) + b + residual?)),
+// the conv's products summed in float32 and the epilogue in float32, one
+// rounding; the moments float32 sums of the rounded y. The same kernel,
+// templated on the element, with the same tiles, grid and epilogue. A bf16
+// widened to float32 is exact in TF32 (8 significant bits of 11), so one
+// TF32 MMA gives the exact products: no split, a third of the float32
+// form's MMAs. Staged as bf16: a window pixel's 8 channels are one 16-byte
+// cp.async (a thread copies whole pixels, so its prologue covers all 8
+// channels: x*s + t as one FMA, then ReLU and the rounding to bf16, in
+// place), a weight row 32 bf16 + 8 of padding; the
+// fragment loads widen each bf16 (a shift) as they read it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -64,7 +80,10 @@
 namespace {
 
 using tf32x3::FragA;
+using tf32x3::FragA1;
 using tf32x3::FragB;
+using tf32x3::FragB1;
+using bf16 = __nv_bfloat16;
 
 constexpr int TH = 4;               // output rows per block
 constexpr int TW = 32;              // output columns per block
@@ -143,12 +162,98 @@ __device__ __forceinline__ void prologue(float* xs, const int* offsets,
   }
 }
 
+// the window's pixel offsets, after the two stages
+__device__ __forceinline__ int* offsets_of(float* smem) {
+  return reinterpret_cast<int*>(smem + 2 * STAGE);
+}
+
+// two consecutive values as float32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// store two values; the bf16 form rounds them and returns, in v0 and v1,
+// the values it stored
+__device__ __forceinline__ void store2(float* p, float& v0, float& v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float& v0, float& v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h;
+  const float2 f = __bfloat1622float2(h);
+  v0 = f.x;
+  v1 = f.y;
+}
+
+// The bf16 form's staging: window pixel p's 8 channels are the 16 bytes at
+// float offset 4 p; weight row `row` (tap * KC + kk) holds 32 output
+// channels at bf16 offset row * WSH. A thread copies window pixels
+// threadIdx.x, + NT: whole pixels, so its prologue needs no barrier either.
+constexpr int WSH = CB + 8;   // bf16 per staged weight row: 80 bytes
+
+__device__ __forceinline__ void stage_bf16(const bf16* __restrict__ xb,
+                                           const bf16* __restrict__ w,
+                                           const int* offsets, float* xs,
+                                           float* ws, int c0, int cb0, int C,
+                                           int Co) {
+  for (int p = threadIdx.x; p < NP; p += NT) {
+    const int off = offsets[p];
+    tf32x3::cp_async16(xs + 4 * p, off >= 0 ? xb + off + c0 : xb,
+                       off >= 0 ? 16 : 0);
+  }
+  bf16* wh = reinterpret_cast<bf16*>(ws);
+  for (int idx = threadIdx.x; idx < 9 * KC * (CB / 8); idx += NT) {
+    const int n8 = idx % (CB / 8);
+    const int row = idx / (CB / 8);   // tap * KC + kk
+    tf32x3::cp_async16(
+        wh + row * WSH + 8 * n8,
+        w + ((long long)(row / KC) * C + c0 + row % KC) * Co + cb0 + 8 * n8,
+        16);
+  }
+}
+
+// bf16(relu(v * s + t)) on the window pixels this thread staged, in the
+// image only; s and t the chunk's 8 channels
+__device__ __forceinline__ void prologue_bf16(float* xs, const int* offsets,
+                                              const float4 (&s)[2],
+                                              const float4 (&t)[2]) {
+  const float sc[8] = {s[0].x, s[0].y, s[0].z, s[0].w,
+                       s[1].x, s[1].y, s[1].z, s[1].w};
+  const float tc[8] = {t[0].x, t[0].y, t[0].z, t[0].w,
+                       t[1].x, t[1].y, t[1].z, t[1].w};
+  for (int p = threadIdx.x; p < NP; p += NT) {
+    if (offsets[p] < 0) continue;
+    uint4* v = reinterpret_cast<uint4*>(xs + 4 * p);
+    uint4 raw = *v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      h[i] = __floats2bfloat162_rn(
+          fmaxf(fmaf(f.x, sc[2 * i], tc[2 * i]), 0.f),
+          fmaxf(fmaf(f.y, sc[2 * i + 1], tc[2 * i + 1]), 0.f));
+    }
+    *v = raw;
+  }
+}
+
+// the widened float32 bits of bf16 element i of a staged array
+__device__ __forceinline__ uint32_t bf16_at(const float* base, int i) {
+  return tf32x3::bf16_bits_to_f32(
+      reinterpret_cast<const unsigned short*>(base)[i]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(NT, MINB)
-conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, const float* __restrict__ s,
-               const float* __restrict__ t, const float* __restrict__ res,
-               float* __restrict__ y, float* __restrict__ part, int H, int W,
+conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               const T* __restrict__ bias, const float* __restrict__ s,
+               const float* __restrict__ t, const T* __restrict__ res,
+               T* __restrict__ y, float* __restrict__ part, int H, int W,
                int C, int Co, int tiles_w, int tiles, int relu) {
+  constexpr bool BF = sizeof(T) == 2;
   // 2 x [window, weights], then the window's pixel offsets
   extern __shared__ __align__(16) float smem[];
 
@@ -177,35 +282,44 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int e = 0; e < 4; ++e)
           acc[jp][h][jj][e] = tot[jp][h][jj][e] = 0.f;
 
-  const float* xb = x + img * C;
-  // this thread's channel quad of the prologue's scales and shifts, loaded
-  // one chunk ahead so that their latency hides behind a chunk's MMAs
-  const long long sq = (long long)b * C + 4 * (threadIdx.x & 1);
-  float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), tv = sv;
-  if (s != nullptr) {
-    sv = *reinterpret_cast<const float4*>(s + sq);
-    tv = *reinterpret_cast<const float4*>(t + sq);
-  }
-  int* offsets = reinterpret_cast<int*>(smem + 2 * STAGE);
+  const T* xb = x + img * C;
+  // this thread's channels of the prologue's scales and shifts (a quad in
+  // the float32 form, the chunk's 8 in the bf16 form), loaded one chunk
+  // ahead so that their latency hides behind a chunk's MMAs
+  const long long sq = (long long)b * C + (BF ? 0 : 4 * (threadIdx.x & 1));
+  float4 sv[2], tv[2];
+  sv[0] = sv[1] = tv[0] = tv[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load_st = [&](int c0) {
+#pragma unroll
+    for (int i = 0; i < (BF ? 2 : 1); ++i) {
+      sv[i] = *reinterpret_cast<const float4*>(s + sq + c0 + 4 * i);
+      tv[i] = *reinterpret_cast<const float4*>(t + sq + c0 + 4 * i);
+    }
+  };
+  auto stage_chunk = [&](float* dst, int c0) {
+    if constexpr (BF)
+      stage_bf16(xb, w, offsets_of(smem), dst, dst + XST, c0, cb0, C, Co);
+    else
+      stage(xb, w, offsets_of(smem), dst, dst + XST, c0, cb0, C, Co);
+  };
+  if (s != nullptr) load_st(0);
+  int* offsets = offsets_of(smem);
   window_offsets(offsets, oy0 - 1, ox0 - 1, H, W, C);
   __syncthreads();
-  stage(xb, w, offsets, smem, smem + XST, 0, cb0, C, Co);
+  stage_chunk(smem, 0);
   tf32x3::cp_async_commit();
   int buf = 0;
   for (int c0 = 0; c0 < C; c0 += KC) {
-    if (c0 + KC < C) {
-      float* nxt = smem + (buf ^ 1) * STAGE;
-      stage(xb, w, offsets, nxt, nxt + XST, c0 + KC, cb0, C, Co);
-    }
+    if (c0 + KC < C) stage_chunk(smem + (buf ^ 1) * STAGE, c0 + KC);
     tf32x3::cp_async_commit();
     tf32x3::cp_async_wait<1>();   // this chunk's copies have landed
     float* xs = smem + buf * STAGE;
     if (s != nullptr) {
-      prologue(xs, offsets, sv, tv);
-      if (c0 + KC < C) {
-        sv = *reinterpret_cast<const float4*>(s + sq + c0 + KC);
-        tv = *reinterpret_cast<const float4*>(t + sq + c0 + KC);
-      }
+      if constexpr (BF)
+        prologue_bf16(xs, offsets, sv, tv);
+      else
+        prologue(xs, offsets, sv[0], tv[0]);
+      if (c0 + KC < C) load_st(c0 + KC);
     }
     __syncthreads();
     const float* ws = xs + XST;
@@ -215,6 +329,30 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       // A: window row row + ky, output columns j = 16h + gid (+8) at tap
       // kx (window column j + kx), channels tig (+4)
       const int p = (row + ky) * IW + gid + kx;
+      if constexpr (BF) {
+        FragA1 fa[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* px = xs + 4 * (p + 16 * h);
+          fa[h].v[0] = bf16_at(px, tig);
+          fa[h].v[1] = bf16_at(px + 4 * 8, tig);
+          fa[h].v[2] = bf16_at(px, tig + 4);
+          fa[h].v[3] = bf16_at(px + 4 * 8, tig + 4);
+        }
+        // B: weights of channels tig (+4), output channels 8j + gid
+        const int wr = (tap * KC + tig) * WSH + gid;
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          FragB1 fb[2];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            fb[jj].v[0] = bf16_at(ws, wr + 16 * jp + 8 * jj);
+            fb[jj].v[1] = bf16_at(ws, wr + 4 * WSH + 16 * jp + 8 * jj);
+          }
+          tf32x3::mma_tf32x1(acc[jp], fa, fb);
+        }
+        continue;
+      }
       FragA fa[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -247,7 +385,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int co = cb0 + 8 * j + 2 * tig;
-    const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+    const float2 bv = load2(bias + co);
     m1[j][0] = m1[j][1] = m2[j][0] = m2[j][1] = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -260,7 +398,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
         float v1 = tt[2 * half + 1] + bv.y;
         const long long o = (img + (long long)oy * W + ox) * Co + co;
         if (res != nullptr) {
-          const float2 r = *reinterpret_cast<const float2*>(res + o);
+          const float2 r = load2(res + o);
           v0 += r.x;
           v1 += r.y;
         }
@@ -268,7 +406,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
         }
-        *reinterpret_cast<float2*>(y + o) = make_float2(v0, v1);
+        // the moments below are of the stored (rounded) values
+        store2(y + o, v0, v1);
         m1[j][0] += v0;
         m1[j][1] += v1;
         m2[j][0] = fmaf(v0, v0, m2[j][0]);
@@ -337,6 +476,30 @@ __global__ void moments_kernel(const float* __restrict__ part,
     s2[(long long)b * Co + v - Co] = (float)total;
 }
 
+template <typename T>
+int launch(const T* x, const T* w, const T* bias, const float* s,
+           const float* t, const T* res, T* y, float* part, float* s1,
+           float* s2, int B, int H, int W, int C, int Co, int relu,
+           void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || C % KC ||
+      (Co != 64 && Co != 96) || (long long)H * W * C > 0x7fffffffLL ||
+      (s == nullptr) != (t == nullptr) ||
+      (part != nullptr && (s1 == nullptr || s2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int err = tf32x3::allow_smem((const void*)conv3x3_kernel<T>, SMEM);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles = ((H + TH - 1) / TH) * tiles_w;
+  conv3x3_kernel<T><<<dim3((Co / CB) * tiles, B), NT, SMEM, st>>>(
+      x, w, bias, s, t, res, y, part, H, W, C, Co, tiles_w, tiles, relu);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return (int)e;
+  moments_kernel<<<dim3((2 * Co + 31) / 32, B), dim3(32, 32), 0, st>>>(
+      part, s1, s2, tiles, Co);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B,H,W,C], w [3,3,C,Co], bias [Co], y [B,H,W,Co]: float32, contiguous,
@@ -352,21 +515,21 @@ extern "C" int conv2d_fused_forward(const float* x, const float* w,
                                     float* part, float* s1, float* s2, int B,
                                     int H, int W, int C, int Co, int relu,
                                     void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || C % KC ||
-      (Co != 64 && Co != 96) || (long long)H * W * C > 0x7fffffffLL ||
-      (s == nullptr) != (t == nullptr) ||
-      (part != nullptr && (s1 == nullptr || s2 == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const int err = tf32x3::allow_smem((const void*)conv3x3_kernel, SMEM);
-  if (err) return err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles = ((H + TH - 1) / TH) * tiles_w;
-  conv3x3_kernel<<<dim3((Co / CB) * tiles, B), NT, SMEM, st>>>(
-      x, w, bias, s, t, res, y, part, H, W, C, Co, tiles_w, tiles, relu);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || part == nullptr) return (int)e;
-  moments_kernel<<<dim3((2 * Co + 31) / 32, B), dim3(32, 32), 0, st>>>(
-      part, s1, s2, tiles, Co);
-  return (int)cudaGetLastError();
+  return launch(x, w, bias, s, t, res, y, part, s1, s2, B, H, W, C, Co, relu,
+                stream);
+}
+
+// The bf16 form: x, w, bias, res and y bf16; s, t, part, s1 and s2
+// float32; otherwise as conv2d_fused_forward.
+extern "C" int conv2d_fused_forward_bf16(const void* x, const void* w,
+                                         const void* bias, const float* s,
+                                         const float* t, const void* res,
+                                         void* y, float* part, float* s1,
+                                         float* s2, int B, int H, int W,
+                                         int C, int Co, int relu,
+                                         void* stream) {
+  return launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                static_cast<const bf16*>(bias), s, t,
+                static_cast<const bf16*>(res), static_cast<bf16*>(y), part,
+                s1, s2, B, H, W, C, Co, relu, stream);
 }

@@ -1,10 +1,12 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library of
-its own with a plain C interface, and loaded with ``ctypes``. The libraries
-go to ``build/kernels/`` at the root of the checkout, named by a hash of the
-source, the headers in ``csrc/`` and the flags, so a later process reuses
-them; ptxas's report (registers, spills) is kept beside each library.
+its own with a plain C interface, and loaded with ``ctypes``; a source may
+hold several kernels (a float32 and a bf16 form), each its own C entry. The
+libraries go to ``build/kernels/`` at the root of the checkout, named by a
+hash of the source, the headers in ``csrc/`` and the flags, so a later
+process reuses them; ptxas's report (registers, spills) is kept beside each
+library.
 ``build`` compiles every source that is not built yet in parallel, one
 ``nvcc`` per source; ``launch`` builds at first use. Nothing is built or
 loaded at import.
@@ -35,6 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "corr_band": ("corr_band.cu", "corr_band_forward",
                   (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "corr_band_bf16": ("corr_band.cu", "corr_band_forward_bf16",
+                       (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "local_soft_argmin": ("local_soft_argmin.cu", "local_soft_argmin_forward",
                           (_P, _P, _P, _I, _I, _I, _P)),
     "local_soft_argmin_bwd": ("local_soft_argmin_bwd.cu",
@@ -42,6 +46,8 @@ KERNELS = {
                               (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "conv2d_fused": ("conv2d_fused.cu", "conv2d_fused_forward",
                      (_P,) * 10 + (_I,) * 6 + (_P,)),
+    "conv2d_fused_bf16": ("conv2d_fused.cu", "conv2d_fused_forward_bf16",
+                          (_P,) * 10 + (_I,) * 6 + (_P,)),
     "conv2d_dw": ("conv2d_dw.cu", "conv2d_dw", (_P,) * 4 + (_I,) * 6 + (_P,)),
     "deform_sample": ("deform_sample.cu", "deform_sample_forward",
                       (_P,) * 5 + (_I,) * 9 + (_P, _P)),
@@ -51,18 +57,25 @@ KERNELS = {
                    (_P,) * 3 + (_I,) * 3 + (_P,)),
 }
 
+# the dtype of the tensors each kernel takes; a kernel's other operands (the
+# bf16 fused conv's prologue s and t) are checked against their own dtype
+DTYPES = {name: torch.bfloat16 if name.endswith("_bf16") else torch.float32
+          for name in KERNELS}
+
 _functions: dict = {}
-build_log: dict = {}   # name -> nvcc's output (ptxas registers and spills)
+build_log: dict = {}   # source -> nvcc's output (ptxas registers and spills)
 
 
 def _library_path(name: str) -> Path:
-    """The library of kernel ``name``, named by a hash of its source, every
-    header in ``csrc/`` (a source may include any of them) and the flags."""
-    digest = hashlib.sha1((CSRC / KERNELS[name][0]).read_bytes())
+    """The library of kernel ``name``, named by its source, a hash of it,
+    every header in ``csrc/`` (a source may include any of them) and the
+    flags: the kernels of one source share it."""
+    source = KERNELS[name][0]
+    digest = hashlib.sha1((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:
@@ -79,7 +92,11 @@ def build(names=None) -> float:
     at once, and return the seconds it took. Raises with nvcc's output if a
     build fails."""
     t0 = time.perf_counter()
-    todo = [n for n in (names or KERNELS) if not _library_path(n).exists()]
+    todo = {}   # one name per source
+    for n in names or KERNELS:
+        if not _library_path(n).exists():
+            todo.setdefault(KERNELS[n][0], n)
+    todo = list(todo.values())
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,37 +109,46 @@ def build(names=None) -> float:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, proc) in procs.items():
-        build_log[n] = proc.communicate()[0]
+        log = build_log[KERNELS[n][0]] = proc.communicate()[0]
         if proc.returncode:
-            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{build_log[n]}")
+            failed.append(f"{KERNELS[n][0]} (nvcc exit {proc.returncode}):"
+                          f"\n{log}")
         else:
-            _library_path(n).with_suffix(".log").write_text(build_log[n])
+            _library_path(n).with_suffix(".log").write_text(log)
             os.replace(tmp, _library_path(n))   # atomic if processes race
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
+# the builtin types of the Itanium mangling that template arguments take
+_MANGLED_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
+
+
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
-    ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``."""
+    ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``,
+    ``conv3x3_kernel<__nv_bfloat16>``."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     name = mangled
     while (m := re.match(r"\d+", rest)):
         n = int(m.group())
         name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
     if rest.startswith("I"):
-        args = re.findall(r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])
-        name += "<" + ",".join(args) + ">"
+        args = re.findall(r"L[a-z](\d+)E|(\d+)([A-Za-z_]\w*)|([a-z])",
+                          rest[1:rest.find("EE") + 1])
+        name += "<" + ",".join(
+            lit or (ident[:int(n)] if n else _MANGLED_TYPES.get(b, b))
+            for lit, n, ident, b in args) + ">"
     return name
 
 
 def ptxas_usage(name: str) -> dict:
-    """Registers and spill bytes of each entry function of kernel ``name``,
-    as ptxas reported them when its library was built (``build_log``, or
-    the log kept beside the library; empty if neither exists): entry ->
-    {"registers", "spill_stores", "spill_loads"}."""
-    log = build_log.get(name)
+    """Registers and spill bytes of each entry function of kernel ``name``'s
+    source, as ptxas reported them when its library was built
+    (``build_log``, or the log kept beside the library; empty if neither
+    exists): entry -> {"registers", "spill_stores", "spill_loads"}."""
+    log = build_log.get(KERNELS[name][0])
     if log is None and _library_path(name).with_suffix(".log").exists():
         log = _library_path(name).with_suffix(".log").read_text()
     usage, entry = {}, None
@@ -151,17 +177,21 @@ def _function(name: str):
     return fn
 
 
-def check_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous, 16-byte aligned float32
-    CUDA tensor on one device: what the kernels take."""
+def check_inputs(name: str, *tensors: torch.Tensor, dtype=None) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
+    tensor on one device, of the dtype kernel ``name`` takes (``DTYPES``;
+    ``dtype`` for operands of another): what the kernels take. The error
+    names the kernel."""
     device = tensors[0].device
+    want = dtype or DTYPES[name]
     for t in tensors:
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(
                 f"{name}: all inputs must lie on one CUDA device, got "
                 f"{[str(x.device) for x in tensors]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: the kernel takes {want} inputs, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.data_ptr() % 16:

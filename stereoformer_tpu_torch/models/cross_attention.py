@@ -1,4 +1,4 @@
-"""CrossAttentionStereo, float32: the epipolar cross-attention family.
+"""CrossAttentionStereo, float32 or bf16: the epipolar cross-attention family.
 
 Counterpart of ``stereoformer_tpu/models/cross_attention.py``: LowCNN's
 siamese backbone and FPN to 1/8 (``SiameseStereo``); 1x1 projections
@@ -10,6 +10,12 @@ and ``fuse2`` (3x3), three aggregation ResBlocks ``agg``; then soft-argmin
 and LowCNN_gru's refinement: ``iters`` GRU steps (``local_cost_volume``),
 each upsampled with its own convex mask, or bilinearly with
 ``upsample="simple"``. Its outputs follow LowCNN's contract.
+
+``dtype=torch.bfloat16``, as the JAX model: the backbone, the projections,
+``fuse1``, ``fuse2`` and ``agg`` compute in bf16; q, k and v are cast to
+float32 for the banded attention, whose scores and blend stay float32 with
+the left feature beside them, and the volume is float32 from ``agg`` on;
+the GRU refinement is LowCNN's.
 
 The JAX model has no reference checkpoint: the submodules are named after
 the JAX tree where it names them (``proj_q`` ... ``fuse2``; ``agg.i`` for
@@ -23,9 +29,9 @@ import torch
 from torch import nn
 
 from ..nn import GRUUpdate, ResBlock
-from ..nn.conv import Conv
+from ..nn.conv import Conv, check_dtype
 from ..ops import banded_attention, soft_argmin
-from .low_cnn import SiameseStereo, check_float32
+from .low_cnn import SiameseStereo
 
 FEATURES, VALUE_DIM = 256, 128
 
@@ -37,17 +43,19 @@ class CrossAttentionStereo(SiameseStereo):
         super().__init__()
         if upsample not in ("convex", "simple"):
             raise ValueError(f"unknown upsample {upsample!r}")
-        check_float32(dtype)
+        dt = check_dtype(dtype)
         self.upsample, self.num_heads = upsample, num_heads
         self.num_bins = D = max_disp // 8
-        self._build_backbone()
-        self.proj_q = Conv(FEATURES, qk_dim, 1)
-        self.proj_k = Conv(FEATURES, qk_dim, 1)
-        self.proj_v = Conv(FEATURES, VALUE_DIM, 1)
-        self.fuse1 = Conv(D * num_heads + VALUE_DIM + FEATURES, 2 * D, 1)
-        self.fuse2 = Conv(2 * D, D, 3)
-        self.agg = nn.ModuleList(ResBlock(D, D) for _ in range(3))
-        self.local_cost_volume = GRUUpdate(D, gru_hidden, num_samples)
+        self._build_backbone(dt)
+        self.proj_q = Conv(FEATURES, qk_dim, 1, dtype=dt)
+        self.proj_k = Conv(FEATURES, qk_dim, 1, dtype=dt)
+        self.proj_v = Conv(FEATURES, VALUE_DIM, 1, dtype=dt)
+        self.fuse1 = Conv(D * num_heads + VALUE_DIM + FEATURES, 2 * D, 1,
+                          dtype=dt)
+        self.fuse2 = Conv(2 * D, D, 3, dtype=dt)
+        self.agg = nn.ModuleList(ResBlock(D, D, dtype=dt) for _ in range(3))
+        self.local_cost_volume = GRUUpdate(D, gru_hidden, num_samples,
+                                           dtype=dt)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 iters: int = 12) -> dict:
@@ -59,11 +67,14 @@ class CrossAttentionStereo(SiameseStereo):
         feat_l, feat_r = fused[:B], fused[B:]
 
         def nhwc(x):
-            return x.permute(0, 2, 3, 1).contiguous()
+            return x.permute(0, 2, 3, 1).float().contiguous()
 
+        # q, k and v are cast to float32 right after their bias add
         scores, attended = banded_attention(
-            nhwc(self.proj_q(feat_l)), nhwc(self.proj_k(feat_r)),
-            nhwc(self.proj_v(feat_r)), self.num_bins, self.num_heads)
+            nhwc(self.proj_q.forward_f32(feat_l)),
+            nhwc(self.proj_k.forward_f32(feat_r)),
+            nhwc(self.proj_v.forward_f32(feat_r)), self.num_bins,
+            self.num_heads)
         ctx = torch.cat([scores.flatten(3), attended, nhwc(feat_l)], dim=-1)
         v = self.fuse2(torch.relu(self.fuse1(ctx.permute(0, 3, 1, 2))))
         for block in self.agg:

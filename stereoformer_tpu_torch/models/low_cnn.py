@@ -1,4 +1,4 @@
-"""LowCNN, float32: every refinement of the family.
+"""LowCNN, float32 or bf16: every refinement of the family.
 
 Counterpart of ``stereoformer_tpu/models/low_cnn.py::LowCNN``: a siamese
 backbone and FPN to 1/8, a 24-bin cost volume (``cost_volume=
@@ -31,6 +31,16 @@ checkpoints load as they are; the modules the reference keys do not name
 are named after the JAX modules (``concat_proj1``, ``concat_proj2``,
 ``feature_encode``).
 
+``dtype=torch.bfloat16`` is the JAX model's deployment dtype: the
+parameters stay float32 and are cast at each op (``nn/conv.py``); the
+images are cast before ``conv1``; the backbone, the FPN, the volume (the
+correlation summed in float32 and rounded once, or the concat volume's
+projections) and the aggregation ResBlocks compute in bf16; from the
+aggregated volume on (soft-argmin, softmax, candidates, the local
+soft-argmin) everything is float32, except the GRU step's convs and hidden
+state and ``ConvAffinityUpsample``'s convs, which are bf16 with float32
+outputs. The learned bounds run in float32, as JAX runs them.
+
 ``model.train()`` normalises with batch statistics and moves the running
 ones (``nn/norm.py``); gradients flow through every refinement step, the
 current disparity included, as in the JAX model.
@@ -42,7 +52,7 @@ import torch
 from torch import nn
 
 from ..nn import ConvLReLU, FPNFusion, GRUUpdate, LearnedBounds, ResBlock
-from ..nn.conv import Conv
+from ..nn.conv import Conv, Linear, check_dtype
 from ..ops import (
     concat_volume,
     correlation_volume,
@@ -62,22 +72,18 @@ class ConvAffinityUpsample(nn.Module):
     """conv3x3-ReLU-conv1x1 -> 8*8*9 convex-upsample mask logits, x0.25;
     keys ``upsample_mask.0`` and ``upsample_mask.2``."""
 
-    def __init__(self, in_channels: int = 256, hidden: int = 128):
+    def __init__(self, in_channels: int = 256, hidden: int = 128,
+                 dtype=None):
         super().__init__()
-        self.upsample_mask = nn.Sequential(Conv(in_channels, hidden, 3),
-                                           nn.ReLU(),
-                                           Conv(hidden, 8 * 8 * 9, 1))
+        self.upsample_mask = nn.Sequential(
+            Conv(in_channels, hidden, 3, dtype=dtype), nn.ReLU(),
+            Conv(hidden, 8 * 8 * 9, 1, dtype=dtype))
 
     def forward(self, feature):
-        """feature [B, C, H, W] -> mask [B, H, W, 576]."""
-        return 0.25 * self.upsample_mask(feature).permute(0, 2, 3, 1)
-
-
-def check_float32(dtype) -> None:
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"dtype={dtype!r} is not ported yet (bf16 comes in a later "
-            f"slice); the port computes in float32")
+        """feature [B, C, H, W] -> mask [B, H, W, 576], float32."""
+        conv1, relu, conv2 = self.upsample_mask
+        return 0.25 * conv2.forward_f32(relu(conv1(feature))).permute(
+            0, 2, 3, 1)
 
 
 class SiameseStereo(nn.Module):
@@ -87,20 +93,24 @@ class SiameseStereo(nn.Module):
     span both images, as in the JAX models; the GRU refinement loop over
     ``local_cost_volume``; and the 8x upsample picked by ``upsample``."""
 
-    def _build_backbone(self):
-        self.conv1 = ConvLReLU(3, 64, 7, 2)
-        self.conv2 = ResBlock(64, 128, stride=2)
-        self.conv3 = ResBlock(128, 256, stride=2)
-        self.downsample1 = ResBlock(256, 256)
-        self.downsample2 = ResBlock(256, 512, stride=2)
-        self.downsample3 = ResBlock(512, 512, stride=2)
-        self.feature_concated = FPNFusion((512, 512, 256))
+    def _build_backbone(self, dtype):
+        self.compute_dtype = dtype
+        self.conv1 = ConvLReLU(3, 64, 7, 2, dtype=dtype)
+        self.conv2 = ResBlock(64, 128, stride=2, dtype=dtype)
+        self.conv3 = ResBlock(128, 256, stride=2, dtype=dtype)
+        self.downsample1 = ResBlock(256, 256, dtype=dtype)
+        self.downsample2 = ResBlock(256, 512, stride=2, dtype=dtype)
+        self.downsample3 = ResBlock(512, 512, stride=2, dtype=dtype)
+        self.feature_concated = FPNFusion((512, 512, 256), dtype=dtype)
 
     def _features(self, left: torch.Tensor,
                   right: torch.Tensor) -> torch.Tensor:
         """left, right [B, H, W, 3] -> the fused features of both,
-        [2B, 256, H/8, W/8], the left images' first."""
+        [2B, 256, H/8, W/8], the left images' first, in the compute
+        dtype."""
         x = torch.cat([left, right], dim=0).permute(0, 3, 1, 2)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x = self.conv3(self.conv2(self.conv1(x)))
         f8 = self.downsample1(x)
         f16 = self.downsample2(f8)
@@ -145,24 +155,26 @@ class LowCNN(SiameseStereo):
             raise NotImplementedError(
                 f"loop={loop!r} is not ported: it is the JAX package's "
                 f"compile device; the port's GRU loop is always unrolled")
-        check_float32(dtype)
+        dtype = check_dtype(dtype)
         self.refinement, self.upsample = refinement, upsample
         self.concat = cost_volume != "correlation"
         self.num_samples, self.radius, self.gamma = num_samples, radius, gamma
         self.num_bins = max_disp // 8
-        self._build_backbone()
+        self._build_backbone(dtype)
         if self.concat:
-            self.concat_proj1 = nn.Linear(512, 64)
-            self.concat_proj2 = nn.Linear(64, 1)
+            self.concat_proj1 = Linear(512, 64, dtype=dtype)
+            self.concat_proj2 = Linear(64, 1, dtype=dtype)
         self.correlation_aggreagtion = nn.ModuleList(
-            ResBlock(self.num_bins, self.num_bins) for _ in range(3))
+            ResBlock(self.num_bins, self.num_bins, dtype=dtype)
+            for _ in range(3))
         if refinement in ("gru", "gru_feature"):
             self.local_cost_volume = GRUUpdate(
                 self.num_bins, gru_hidden, num_samples,
-                feature_dim=64 if refinement == "gru_feature" else 0)
+                feature_dim=64 if refinement == "gru_feature" else 0,
+                dtype=dtype)
             return
         if upsample == "convex":
-            self.upsample_mask = ConvAffinityUpsample()
+            self.upsample_mask = ConvAffinityUpsample(dtype=dtype)
         if refinement.startswith("learned"):
             self.local_cost_volume = LearnedBounds(
                 self.num_bins, num_samples,

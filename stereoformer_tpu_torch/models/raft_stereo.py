@@ -1,4 +1,4 @@
-"""RAFT-Stereo, train and eval, float32.
+"""RAFT-Stereo, train and eval, float32; eval also in bf16.
 
 Counterpart of ``stereoformer_tpu/models/raft_stereo.py::RAFTStereo``: a
 context net (per-scale hidden state and GRU gate biases) and a feature net
@@ -19,6 +19,12 @@ still carries it). ``remat_update=True`` checkpoints each iteration's
 update block (``torch.utils.checkpoint``, non-reentrant), as the JAX
 model's ``nn.remat``: less memory, the same values, the block run again in
 the backward.
+
+``dtype=torch.bfloat16`` is the JAX model's: the encoders, the context
+gates and the GRU cascade compute in bf16 (``nn/raft``); the all-pairs
+correlation is summed in float32 and stored as a bf16 pyramid; the lookup,
+the coordinates, the flow head's last conv, the mask and the upsample stay
+float32.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..nn.conv import Conv2d, check_dtype
 from ..nn.raft import (
     CORR_LEVELS,
     CORR_RADIUS,
@@ -41,17 +48,21 @@ from ..ops import allpairs_corr1d, corr_lookup, corr_pyramid, upsample_convex
 
 
 class RAFTStereo(nn.Module):
-    def __init__(self, input_norm: str = "raw", remat_update: bool = False):
+    def __init__(self, input_norm: str = "raw", remat_update: bool = False,
+                 dtype=None):
         super().__init__()
         if input_norm not in ("raw", "imagenet"):
             raise ValueError(f"unknown input_norm {input_norm!r}")
+        dtype = check_dtype(dtype)
         self.input_norm = input_norm
         self.remat_update = remat_update
-        self.cnet = MultiBasicEncoder()
-        self.fnet = BasicEncoder()
+        self.compute_dtype = dtype
+        self.cnet = MultiBasicEncoder(dtype)
+        self.fnet = BasicEncoder(dtype)
         self.context_zqr_convs = nn.ModuleList(
-            nn.Conv2d(HIDDEN, 3 * HIDDEN, 3, padding=1) for _ in range(3))
-        self.update_block = MultiUpdateBlock()
+            Conv2d(HIDDEN, 3 * HIDDEN, 3, padding=1, dtype=dtype)
+            for _ in range(3))
+        self.update_block = MultiUpdateBlock(dtype)
 
     def _normalize(self, x):
         """To [-1, 1] from 0..255 ("raw") or from ImageNet normalisation."""
@@ -89,7 +100,10 @@ class RAFTStereo(nn.Module):
         net = [torch.tanh(h) for h, _ in cnet_list]
         ctx = self.context_gates([torch.relu(c) for _, c in cnet_list])
 
-        pyramid = corr_pyramid(allpairs_corr1d(fmap1, fmap2), CORR_LEVELS)
+        corr = allpairs_corr1d(fmap1, fmap2)
+        if self.compute_dtype is not None:
+            corr = corr.to(self.compute_dtype)
+        pyramid = corr_pyramid(corr, CORR_LEVELS)
         B, H4, W4 = fmap1.shape[:3]
         coords0 = torch.arange(W4, dtype=torch.float32,
                                device=left.device).expand(B, H4, W4)

@@ -4,6 +4,13 @@ Counterparts of ``stereoformer_tpu/nn/blocks.py`` (``FusedConv``,
 ``ConvLReLU``, ``ConvBnRelu``, ``ResBlock``, ``DeformConv``, ``DeformBlock``,
 ``FPNFusion``). Submodule names follow the reference ``state_dict`` keys.
 BatchNorm is ``norm.BatchNorm2d``, Flax's.
+
+``dtype`` is the JAX modules' compute dtype (``nn/conv.py``): None computes
+in float32, ``torch.bfloat16`` casts each conv's input and kernel and
+rounds where the JAX module rounds; BatchNorm computes in float32 and casts
+its output. ``DeformConv`` samples and multiplies in float32 whatever
+``dtype`` (its kernel ``deform_sample`` is float32) and casts only its
+output.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from torch import nn
 from ..ops.deform import deform_conv_fused, modulated_deform_conv
 from ..ops.fused_conv import conv3x3_fused
 from ..ops.resize import resize_bilinear
-from .conv import Conv
+from . import bf16
+from .conv import Conv, Conv2d, check_dtype
 from .norm import BatchNorm2d
 
 
@@ -24,7 +32,16 @@ from .norm import BatchNorm2d
 FUSED_MAX_C = 96
 
 
-class FusedConv(nn.Conv2d):
+def prologue_fma(x, s, t):
+    """relu(x * s + t) for NCHW x and [B, C] s, t, x*s + t rounded once to
+    float32, as XLA's FMA gives it (the product of a bf16 or float32 x and
+    a float32 s is exact in float64)."""
+    u = (x.double() * s[:, :, None, None].double()
+         + t[:, :, None, None].double())
+    return torch.relu(u.float())
+
+
+class FusedConv(Conv2d):
     """A 3x3 stride-1 conv padded by 1, with bias, that routes to the fused
     conv (``ops/fused_conv.py``) where the JAX package routes to its Pallas
     kernel: 64 <= C_in <= ``FUSED_MAX_C``. Other sites are a plain
@@ -37,23 +54,36 @@ class FusedConv(nn.Conv2d):
     (y, (S1, S2)), the output's per-sample channel sums [B, Co], or
     (y, None) at a site that is not routed. At a routed site the gradients
     of x, s, t, the weight and the bias come from the fused conv's own
-    backward (``ops/fused_conv.py::fused_conv_backward``)."""
+    backward (``ops/fused_conv.py::fused_conv_backward``).
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(in_channels, out_channels, 3, padding=1)
+    ``dtype=torch.bfloat16``: x, the weight and the bias are cast to bf16
+    and the output is bf16; s and t stay float32 and relu(x*s + t) is
+    rounded to bf16 before the conv (JAX ``FusedConv``). A routed site
+    takes the fused conv's bf16 form (float32 sums, one rounding); a site
+    that is not routed is the JAX XLA route, ``Conv2d``'s two roundings."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+        super().__init__(in_channels, out_channels, 3, padding=1,
+                         dtype=dtype)
         self.routed = 64 <= in_channels <= FUSED_MAX_C
 
     def forward(self, x, prologue=None, with_stats=False):
         s, t = prologue or (None, None)
+        dt = self.compute_dtype
         if not self.routed:
-            if s is not None:
+            if s is not None and dt is None:
                 x = torch.relu(x * s[:, :, None, None] + t[:, :, None, None])
+            elif s is not None:
+                x = prologue_fma(x, s, t).to(dt)
             y = super().forward(x)
             return (y, None) if with_stats else y
         if not x.is_contiguous(memory_format=torch.channels_last):
             raise ValueError("FusedConv: a routed site takes channels_last x")
-        w = self.weight.permute(2, 3, 1, 0).contiguous()
-        out = conv3x3_fused(x.permute(0, 2, 3, 1), w, self.bias, s=s, t=t,
+        w, b = self.weight, self.bias
+        if dt is not None:
+            x, w, b = x.to(dt), w.to(dt), b.to(dt)
+        out = conv3x3_fused(x.permute(0, 2, 3, 1),
+                            w.permute(2, 3, 1, 0).contiguous(), b, s=s, t=t,
                             with_stats=with_stats)
         if with_stats:
             y, s1, s2 = out
@@ -61,27 +91,35 @@ class FusedConv(nn.Conv2d):
         return out.permute(0, 3, 1, 2)
 
 
+class LeakyReLU(nn.Module):
+    """LeakyReLU(0.1) with JAX's bf16 slope (``nn/bf16.py``)."""
+
+    def forward(self, x):
+        return bf16.leaky_relu(x, 0.1)
+
+
 class ConvLReLU(nn.Sequential):
     """conv + LeakyReLU(0.1); keys ``0.weight``, ``0.bias``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1):
-        super().__init__(Conv(in_channels, out_channels, kernel_size, stride),
-                         nn.LeakyReLU(0.1))
+                 kernel_size: int = 3, stride: int = 1, dtype=None):
+        super().__init__(Conv(in_channels, out_channels, kernel_size, stride,
+                              dtype=dtype),
+                         LeakyReLU())
 
 
 class ConvBnRelu(nn.Module):
     """conv (no bias) + BatchNorm + ReLU; keys ``conv``, ``bn``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1):
+                 kernel_size: int = 3, stride: int = 1, dtype=None):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
-                         bias=False)
-        self.bn = BatchNorm2d(out_channels)
+                         bias=False, dtype=dtype)
+        self.bn = BatchNorm2d(out_channels, dtype=dtype)
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        return F.relu(self.bn(self.conv.forward_f32(x)))
 
 
 class ResBlock(nn.Module):
@@ -90,22 +128,26 @@ class ResBlock(nn.Module):
     ``bn2``, ``shortcut.0``, ``shortcut.1``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1):
+                 kernel_size: int = 3, stride: int = 1, dtype=None):
         super().__init__()
-        self.conv1 = Conv(in_channels, out_channels, kernel_size, stride)
-        self.bn1 = BatchNorm2d(out_channels)
-        self.conv2 = Conv(out_channels, out_channels, 3)
-        self.bn2 = BatchNorm2d(out_channels)
+        self.conv1 = Conv(in_channels, out_channels, kernel_size, stride,
+                          dtype=dtype)
+        self.bn1 = BatchNorm2d(out_channels, dtype=dtype)
+        self.conv2 = Conv(out_channels, out_channels, 3, dtype=dtype)
+        self.bn2 = BatchNorm2d(out_channels, dtype=dtype)
         self.shortcut = None
         if stride != 1 or in_channels != out_channels:
             self.shortcut = nn.Sequential(
-                Conv(in_channels, out_channels, 1, stride),
-                BatchNorm2d(out_channels))
+                Conv(in_channels, out_channels, 1, stride, dtype=dtype),
+                BatchNorm2d(out_channels, dtype=dtype))
 
     def forward(self, x):
-        residual = x if self.shortcut is None else self.shortcut(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        # each conv's bias add feeds a BatchNorm, which reads it in float32
+        residual = x
+        if self.shortcut is not None:
+            residual = self.shortcut[1](self.shortcut[0].forward_f32(x))
+        out = F.relu(self.bn1(self.conv1.forward_f32(x)))
+        out = self.bn2(self.conv2.forward_f32(out))
         return F.relu(out + residual)
 
 
@@ -119,12 +161,13 @@ class DeformConv(nn.Module):
     ``window`` (stride 1 only): offsets clamped to +-window px, through
     ``ops.deform_conv_fused``, the kernel on the GPU. ``window=None``: the
     exact gather form ``ops.modulated_deform_conv``, any stride. x and the
-    output are NCHW."""
+    output are NCHW. Everything is float32; ``dtype`` is the output's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 dilation: int = 1, window: int | None = 2):
+                 dilation: int = 1, window: int | None = 2, dtype=None):
         super().__init__()
+        self.out_dtype = check_dtype(dtype)
         if window is not None and stride != 1:
             raise ValueError(
                 "DeformConv: window-clamped form supports stride=1 only; "
@@ -141,6 +184,7 @@ class DeformConv(nn.Module):
 
     def forward(self, x):
         K = self.kernel_size * self.kernel_size
+        x = x.float()
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)   # NHWC, 3K
         offsets = om[..., :2 * K].reshape(*om.shape[:3], K, 2).contiguous()
         mask = torch.sigmoid(om[..., 2 * K:]).contiguous()
@@ -157,7 +201,8 @@ class DeformConv(nn.Module):
             out = deform_conv_fused(xh, offsets, mask, weight,
                                     self.kernel_size, self.padding,
                                     self.dilation, self.window)
-        return (out + self.bias).permute(0, 3, 1, 2)
+        out = (out + self.bias).permute(0, 3, 1, 2)
+        return out if self.out_dtype is None else out.to(self.out_dtype)
 
 
 class DeformBlock(nn.Module):
@@ -166,20 +211,23 @@ class DeformBlock(nn.Module):
     width changes, then ReLU of the sum; keys as ``ResBlock``'s (``conv2``
     is the DeformConv)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__()
-        self.conv1 = Conv(in_channels, out_channels, 3)
-        self.bn1 = BatchNorm2d(out_channels)
-        self.conv2 = DeformConv(out_channels, out_channels)
-        self.bn2 = BatchNorm2d(out_channels)
+        self.conv1 = Conv(in_channels, out_channels, 3, dtype=dtype)
+        self.bn1 = BatchNorm2d(out_channels, dtype=dtype)
+        self.conv2 = DeformConv(out_channels, out_channels, dtype=dtype)
+        self.bn2 = BatchNorm2d(out_channels, dtype=dtype)
         self.shortcut = None
         if in_channels != out_channels:
-            self.shortcut = nn.Sequential(Conv(in_channels, out_channels, 1),
-                                          BatchNorm2d(out_channels))
+            self.shortcut = nn.Sequential(
+                Conv(in_channels, out_channels, 1, dtype=dtype),
+                BatchNorm2d(out_channels, dtype=dtype))
 
     def forward(self, x):
-        residual = x if self.shortcut is None else self.shortcut(x)
-        out = F.relu(self.bn1(self.conv1(x)))
+        residual = x
+        if self.shortcut is not None:
+            residual = self.shortcut[1](self.shortcut[0].forward_f32(x))
+        out = F.relu(self.bn1(self.conv1.forward_f32(x)))
         out = self.bn2(self.conv2(out))
         return F.relu(out + residual)
 
@@ -189,10 +237,11 @@ class FPNFusion(nn.Module):
     the skip's size (align_corners=True), concat [up, skip], conv-BN-ReLU;
     keys ``layer_list.{i}``."""
 
-    def __init__(self, channels=(512, 512, 256)):
+    def __init__(self, channels=(512, 512, 256), dtype=None):
         super().__init__()
         self.layer_list = nn.ModuleList(
-            ConvBnRelu(channels[i] + channels[i + 1], channels[i + 1])
+            ConvBnRelu(channels[i] + channels[i + 1], channels[i + 1],
+                       dtype=dtype)
             for i in range(len(channels) - 1))
 
     def forward(self, features):
@@ -200,5 +249,5 @@ class FPNFusion(nn.Module):
         for skip, layer in zip(features[1:], self.layer_list):
             up = resize_bilinear(out.permute(0, 2, 3, 1), skip.shape[2:],
                                  align_corners=True).permute(0, 3, 1, 2)
-            out = layer(torch.cat([up, skip], dim=1))
+            out = layer(torch.cat([up, skip.to(up.dtype)], dim=1))
         return out

@@ -5,6 +5,12 @@ Counterparts of ``stereoformer_tpu/nn/raft/update.py`` (``pool2x``,
 ``MultiUpdateBlock``). Submodule names follow the reference ``state_dict``
 keys: the JAX package fuses each GRU's z and r gate convs into ``convzr``;
 here they are the reference's ``convz`` and ``convr``.
+
+``dtype=torch.bfloat16``, as the JAX block: the GRUs (their hidden states,
+gates and context biases) and the motion encoder compute in bf16, the flow
+among the motion features rounded to bf16 too; the flow head's last conv
+and the mask head's ``mask.2`` compute in float32 (they feed coordinates
+and a softmax), so the block returns a float32 flow update and mask.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.resize import resize_bilinear
+from .. import bf16
+from ..conv import Conv2d
 
 # RAFT-Stereo's widths: a 128-channel hidden state at each of the 3 GRU
 # levels, a correlation pyramid of 4 levels read at radius 4, and features
@@ -25,8 +33,18 @@ FACTOR = 4
 
 
 def pool2x(x):
-    """3x3 stride-2 average pool, padding 1, the padding counted."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    """3x3 stride-2 average pool, padding 1, the padding counted. A bf16 x
+    is pooled as XLA pools it: the window summed in bf16, each add
+    rounded, row by row, then multiplied by the float32 1/9 and rounded."""
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    Ho, Wo = (x.shape[2] - 1) // 2 + 1, (x.shape[3] - 1) // 2 + 1
+    xp = F.pad(x, (1, 1, 1, 1))
+    acc = torch.zeros_like(xp[:, :, :Ho, :Wo])
+    for ky in range(3):
+        for kx in range(3):
+            acc = acc + xp[:, :, ky:ky + 2 * Ho - 1:2, kx:kx + 2 * Wo - 1:2]
+    return acc * (1.0 / 9.0)
 
 
 def interp_to(x, ref):
@@ -36,17 +54,17 @@ def interp_to(x, ref):
     return out.permute(0, 3, 1, 2)
 
 
-def _conv3(cin, cout):
-    return nn.Conv2d(cin, cout, 3, padding=1)
+def _conv3(cin, cout, dtype=None):
+    return Conv2d(cin, cout, 3, padding=1, dtype=dtype)
 
 
 class FlowHead(nn.Module):
-    """conv-ReLU-conv -> the 2-channel flow update."""
+    """conv-ReLU-conv -> the 2-channel flow update (the last conv float32)."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
-        self.conv1 = _conv3(HIDDEN, 256)
-        self.conv2 = _conv3(256, 2)
+        self.conv1 = _conv3(HIDDEN, 256, dtype)
+        self.conv2 = _conv3(256, 2, torch.float32)
 
     def forward(self, x):
         return self.conv2(torch.relu(self.conv1(x)))
@@ -58,18 +76,18 @@ class ContextConvGRU(nn.Module):
     q = tanh(convq([r*h, x]) + cq), h' = (1 - z)*h + z*q, with x the
     inputs concatenated."""
 
-    def __init__(self, hidden_dim: int, input_dim: int):
+    def __init__(self, hidden_dim: int, input_dim: int, dtype=None):
         super().__init__()
-        self.convz = _conv3(hidden_dim + input_dim, hidden_dim)
-        self.convr = _conv3(hidden_dim + input_dim, hidden_dim)
-        self.convq = _conv3(hidden_dim + input_dim, hidden_dim)
+        self.convz = _conv3(hidden_dim + input_dim, hidden_dim, dtype)
+        self.convr = _conv3(hidden_dim + input_dim, hidden_dim, dtype)
+        self.convq = _conv3(hidden_dim + input_dim, hidden_dim, dtype)
 
     def forward(self, h, context, *inputs):
         cz, cr, cq = context
-        x = torch.cat(inputs, dim=1)
+        x = torch.cat([i.to(h.dtype) for i in inputs], dim=1)
         hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(self.convz(hx) + cz)
-        r = torch.sigmoid(self.convr(hx) + cr)
+        z = bf16.sigmoid(self.convz(hx) + cz)
+        r = bf16.sigmoid(self.convr(hx) + cr)
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
 
@@ -78,19 +96,20 @@ class BasicMotionEncoder(nn.Module):
     """corr [B, L(2r+1), H, W] and flow [B, 2, H, W] -> 128 channels, the
     last two of them the flow itself."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
-        self.convc1 = nn.Conv2d(CORR_LEVELS * (2 * CORR_RADIUS + 1), 64, 1)
-        self.convc2 = _conv3(64, 64)
-        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
-        self.convf2 = _conv3(64, 64)
-        self.conv = _conv3(128, 128 - 2)
+        self.convc1 = Conv2d(CORR_LEVELS * (2 * CORR_RADIUS + 1), 64, 1,
+                             dtype=dtype)
+        self.convc2 = _conv3(64, 64, dtype)
+        self.convf1 = Conv2d(2, 64, 7, padding=3, dtype=dtype)
+        self.convf2 = _conv3(64, 64, dtype)
+        self.conv = _conv3(128, 128 - 2, dtype)
 
     def forward(self, flow, corr):
         c = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
         f = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
         out = torch.relu(self.conv(torch.cat([c, f], dim=1)))
-        return torch.cat([out, flow], dim=1)
+        return torch.cat([out, flow.to(out.dtype)], dim=1)
 
 
 class MultiUpdateBlock(nn.Module):
@@ -99,16 +118,17 @@ class MultiUpdateBlock(nn.Module):
     convex-upsample mask head read the finest level. ``net`` and ``inp``
     are finest-first lists of ``HIDDEN``-channel maps."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
         hd = HIDDEN
-        self.encoder = BasicMotionEncoder()
-        self.gru08 = ContextConvGRU(hd, 128 + hd)
-        self.gru16 = ContextConvGRU(hd, 2 * hd)
-        self.gru32 = ContextConvGRU(hd, hd)
-        self.flow_head = FlowHead()
-        self.mask = nn.Sequential(_conv3(hd, 256), nn.ReLU(),
-                                  nn.Conv2d(256, FACTOR * FACTOR * 9, 1))
+        self.encoder = BasicMotionEncoder(dtype)
+        self.gru08 = ContextConvGRU(hd, 128 + hd, dtype)
+        self.gru16 = ContextConvGRU(hd, 2 * hd, dtype)
+        self.gru32 = ContextConvGRU(hd, hd, dtype)
+        self.flow_head = FlowHead(dtype)
+        self.mask = nn.Sequential(
+            _conv3(hd, 256, dtype), nn.ReLU(),
+            Conv2d(256, FACTOR * FACTOR * 9, 1, dtype=torch.float32))
 
     def forward(self, net, inp, corr, flow, need_mask: bool = True):
         """-> (net, mask [B, 9 f^2, H, W] or None, delta_flow [B, 2, H, W])."""

@@ -8,6 +8,12 @@ Counterparts of ``stereoformer_tpu/nn/update.py`` (``_images_at``,
 package's NHWC layouts; the convolutions and the hidden state are NCHW.
 Submodule names follow the reference ``state_dict`` keys where they are
 known (the GRU step's).
+
+``dtype=torch.bfloat16`` (the GRU step only, as in JAX): the encoder convs
+and BatchNorms, the GRU and the heads' convs compute in bf16; the warp, the
+error map, the uncertainty volume, the bounds, the mask and the local
+soft-argmin stay float32. ``LearnedBounds`` has no ``dtype``: JAX runs it
+in float32 in a bf16 model.
 """
 
 from __future__ import annotations
@@ -56,9 +62,19 @@ def _guidance(cur_disp, left, right, prob):
             _nchw(uncertainty_volume(prob, cur_disp)))
 
 
-def _conv_bn_relu(in_channels, out_channels):
-    return nn.Sequential(Conv(in_channels, out_channels, 3, bias=False),
-                         BatchNorm2d(out_channels), nn.ReLU())
+class _ConvBnReLU(nn.Sequential):
+    """conv3x3 (no bias), BatchNorm, ReLU; keys ``0``, ``1``. The norm
+    reads the conv in float32 (``Conv2d.forward_f32``)."""
+
+    def forward(self, x):
+        conv, bn, relu = self
+        return relu(bn(conv.forward_f32(x)))
+
+
+def _conv_bn_relu(in_channels, out_channels, dtype=None):
+    return _ConvBnReLU(
+        Conv(in_channels, out_channels, 3, bias=False, dtype=dtype),
+        BatchNorm2d(out_channels, dtype=dtype), nn.ReLU())
 
 
 class GuidanceEncoder(nn.Module):
@@ -66,10 +82,10 @@ class GuidanceEncoder(nn.Module):
     disparity, minus left) and the uncertainty volume into 2*hidden
     channels, concatenated [error, uncertainty]."""
 
-    def __init__(self, num_bins: int, hidden: int = 32):
+    def __init__(self, num_bins: int, hidden: int = 32, dtype=None):
         super().__init__()
-        self.disparity_error_encoder = _conv_bn_relu(3, hidden)
-        self.uncertain_encoder = _conv_bn_relu(num_bins, hidden)
+        self.disparity_error_encoder = _conv_bn_relu(3, hidden, dtype)
+        self.uncertain_encoder = _conv_bn_relu(num_bins, hidden, dtype)
 
     def forward(self, cur_disp, left, right, prob):
         """cur_disp [B, H, W, 1]; left, right [B, H, W, 3] at the
@@ -80,15 +96,16 @@ class GuidanceEncoder(nn.Module):
 
 
 class OffsetHead(nn.Module):
-    """conv-ReLU-conv-ReLU -> 2 non-negative range offsets."""
+    """conv-ReLU-conv-ReLU -> 2 non-negative range offsets, float32 (the
+    bounds are coordinates)."""
 
-    def __init__(self, input_dim: int, hidden: int = 64):
+    def __init__(self, input_dim: int, hidden: int = 64, dtype=None):
         super().__init__()
-        self.conv1 = Conv(input_dim, hidden, 3)
-        self.conv2 = Conv(hidden, 2, 3)
+        self.conv1 = Conv(input_dim, hidden, 3, dtype=dtype)
+        self.conv2 = Conv(hidden, 2, 3, dtype=dtype)
 
     def forward(self, x):
-        return F.relu(self.conv2(F.relu(self.conv1(x))))
+        return F.relu(self.conv2(F.relu(self.conv1(x)))).float()
 
 
 class GRUUpdate(nn.Module):
@@ -103,18 +120,20 @@ class GRUUpdate(nn.Module):
     ``feature_encode_bn``."""
 
     def __init__(self, num_bins: int, hidden: int = 32, num_samples: int = 20,
-                 feature_dim: int = 0):
+                 feature_dim: int = 0, dtype=None):
         super().__init__()
         gru_dim = 2 * hidden + feature_dim
         self.num_samples = num_samples
-        self.encoder = GuidanceEncoder(num_bins, hidden)
+        self.encoder = GuidanceEncoder(num_bins, hidden, dtype)
         if feature_dim:
-            self.feature_encode = Conv(256, feature_dim, 3, bias=False)
-            self.feature_encode_bn = BatchNorm2d(feature_dim)
-        self.gru = ConvGRU(gru_dim, gru_dim)
-        self.offset = OffsetHead(gru_dim)
-        self.mask = nn.Sequential(Conv(gru_dim, 256, 3), nn.ReLU(),
-                                  Conv(256, 64 * 9, 1))
+            self.feature_encode = Conv(256, feature_dim, 3, bias=False,
+                                       dtype=dtype)
+            self.feature_encode_bn = BatchNorm2d(feature_dim, dtype=dtype)
+        self.gru = ConvGRU(gru_dim, gru_dim, dtype)
+        self.offset = OffsetHead(gru_dim, dtype=dtype)
+        self.mask = nn.Sequential(Conv(gru_dim, 256, 3, dtype=dtype),
+                                  nn.ReLU(),
+                                  Conv(256, 64 * 9, 1, dtype=dtype))
 
     def forward(self, volume, cur_disp, left, right, hidden, prob,
                 left_feature=None):
@@ -125,10 +144,13 @@ class GRUUpdate(nn.Module):
         Returns (disp [B, H, W, 1], hidden, mask [B, H, W, 576])."""
         feats = self.encoder(cur_disp, left, right, prob)
         if left_feature is not None:
-            lf = self.feature_encode_bn(self.feature_encode(left_feature))
+            lf = self.feature_encode_bn(
+                self.feature_encode.forward_f32(left_feature))
             feats = torch.cat([feats, F.relu(lf)], dim=1)
         hidden = self.gru(feats, hidden)
-        mask = 0.25 * _nhwc(self.mask(hidden))
+        # the mask logits are cast to float32 right after mask.2's bias add
+        mask = 0.25 * _nhwc(self.mask[2].forward_f32(
+            self.mask[1](self.mask[0](hidden))))
         bounds = _nhwc(self.offset(hidden))
         lower = cur_disp - bounds[..., 0:1]
         upper = cur_disp + bounds[..., 1:2]

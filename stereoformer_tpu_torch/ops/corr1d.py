@@ -16,15 +16,18 @@ import torch
 
 
 def allpairs_corr1d(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
-    """fmap1, fmap2 [B, H, W, C] -> corr [B, H, W, W2], one product per row,
-    scaled by 1/sqrt(C)."""
-    corr = torch.matmul(fmap1, fmap2.transpose(-1, -2))
+    """fmap1, fmap2 [B, H, W, C] -> corr [B, H, W, W2] float32, one product
+    per row, scaled by 1/sqrt(C). bf16 features are multiplied in float32
+    (their products are exact there, and in TF32), as JAX's
+    ``preferred_element_type=float32``."""
+    corr = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2))
     return corr / math.sqrt(fmap1.shape[-1])
 
 
 def corr_pyramid(corr: torch.Tensor, num_levels: int) -> list:
     """Average-pool the last axis by 2 per level -> [corr_0, ..., corr_{L-1}]
-    (an odd last column is dropped)."""
+    (an odd last column is dropped). A bf16 level is the float32 mean of
+    two bf16 values, rounded, as ``jnp.mean`` gives it."""
     out = [corr]
     for _ in range(num_levels - 1):
         W2 = out[-1].shape[-1] // 2
@@ -35,7 +38,7 @@ def corr_pyramid(corr: torch.Tensor, num_levels: int) -> list:
 
 def _sample_last_gather(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Linear sample of the last axis of x [..., W] at coords [..., S], zero
-    outside [0, W - 1]."""
+    outside [0, W - 1]; in coords' dtype (float32) whatever x's."""
     W = x.shape[-1]
     x0 = torch.floor(coords)
     t = coords - x0

@@ -12,6 +12,13 @@ the CUDA kernel ``csrc/corr_band.cu`` for CUDA tensors, counting launches in
 ``correlation_volume.launches``. Its gradient on the GPU is the shift form of
 ``ops/pallas/corr_band.py::_bwd``, which the JAX package leaves to XLA: D
 shifted products in plain torch ops (``correlation_volume_backward``).
+
+bf16 features give a bf16 volume, as ``correlation_volume_matmul`` gives
+it: the products summed in float32, divided by C and rounded once. CPU
+tensors take the plain version of that form; CUDA tensors launch the
+kernel's bf16 form (``corr_band_forward_bf16``), counted in
+``correlation_volume.bf16_launches``. Its backward is the bf16 training
+slice's and raises.
 """
 
 from __future__ import annotations
@@ -24,7 +31,12 @@ from .local_volume import D_MAX
 
 def correlation_volume_plain(left: torch.Tensor, right: torch.Tensor,
                              max_disp: int) -> torch.Tensor:
-    """The plain version: D shifted products, each averaged over C."""
+    """The plain version: D shifted products, each averaged over C. bf16
+    features are multiplied and summed in float32 (their products are
+    exact there) and the volume is rounded to bf16 once."""
+    if left.dtype == torch.bfloat16:
+        return correlation_volume_plain(left.float(), right.float(),
+                                        max_disp).to(torch.bfloat16)
     B, H, W, _ = left.shape
     out = left.new_zeros((B, H, W, max_disp))
     for d in range(min(max_disp, W)):
@@ -52,27 +64,37 @@ def correlation_volume_backward(left: torch.Tensor, right: torch.Tensor,
 class _CorrBand(torch.autograd.Function):
     @staticmethod
     def forward(ctx, left, right, max_disp):
-        kernels.check_inputs("corr_band", left, right)
+        bf16 = left.dtype == torch.bfloat16
+        name = "corr_band_bf16" if bf16 else "corr_band"
+        kernels.check_inputs(name, left, right)
         if left.dim() != 4 or left.shape != right.shape:
             raise ValueError(
                 f"corr_band: left and right must be [B, H, W, C] of one "
                 f"shape, got {tuple(left.shape)} and {tuple(right.shape)}")
         B, H, W, C = left.shape
-        if C % 4 or not 0 < max_disp <= D_MAX:
+        mult = 8 if bf16 else 4   # 16 bytes
+        if C % mult or not 0 < max_disp <= D_MAX:
             raise ValueError(
-                f"corr_band: the kernel takes C a multiple of 4 and "
+                f"{name}: the kernel takes C a multiple of {mult} and "
                 f"0 < max_disp <= {D_MAX}, got C={C}, max_disp={max_disp}")
-        out = torch.empty((B, H, W, max_disp), dtype=torch.float32,
+        out = torch.empty((B, H, W, max_disp), dtype=left.dtype,
                           device=left.device)
-        kernels.launch("corr_band", left.device, left.data_ptr(),
+        kernels.launch(name, left.device, left.data_ptr(),
                        right.data_ptr(), out.data_ptr(), B, H, W, C, max_disp)
-        correlation_volume.launches += 1
+        if bf16:
+            correlation_volume.bf16_launches += 1
+        else:
+            correlation_volume.launches += 1
         ctx.save_for_backward(left, right)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         left, right = ctx.saved_tensors
+        if left.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "corr_band: the bf16 backward is not ported yet (it comes "
+                "with the bf16 training slice)")
         return (*correlation_volume_backward(left, right, grad), None)
 
 
@@ -87,6 +109,7 @@ def correlation_volume(left: torch.Tensor, right: torch.Tensor,
 
 
 correlation_volume.launches = 0
+correlation_volume.bf16_launches = 0
 
 
 def concat_volume(left: torch.Tensor, right: torch.Tensor,

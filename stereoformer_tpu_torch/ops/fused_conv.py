@@ -25,6 +25,16 @@ fused conv with flipped, io-transposed weights, the weight gradient is
 ``dw_conv.conv2d_dw``, the rest is elementwise torch ops and [B, C]
 reductions, as XLA does them in the JAX package.
 
+bf16 x, w, b and residual (s and t stay float32) give the bf16 form of
+every entry point, the Pallas kernel's at ``out_dtype`` bf16: the products
+summed in float32, the bias and the residual added and the ReLU applied in
+float32, one rounding to bf16; the prologue's relu(x*s + t), x*s + t one
+FMA, rounded to bf16 before the conv; the moments float32, of the rounded
+outputs. CPU tensors
+take its plain version; CUDA tensors launch ``conv2d_fused_forward_bf16``
+(the same source), counted in ``conv2d_fused.bf16_launches``. Its backward
+is the bf16 training slice's and raises.
+
 Beside them, as the JAX module keeps it, the stride-2 entry point
 
     conv2d_fused_s2(x, w, b, relu=False)   y = relu?(conv3x3_s2(x, w) + b)
@@ -67,7 +77,25 @@ def fused_blocks(B: int, H: int, W: int, Co: int) -> int:
 def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
                   with_stats=False):
     """The plain version of every entry point (same arguments); the moments
-    are summed in float64 and returned as float32."""
+    are summed in float64 and returned as float32. bf16 inputs: float32
+    arithmetic from them, one rounding of y (and of the prologue's
+    output), the moments of the rounded y."""
+    if x.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        x32 = x.float()
+        if s is not None:
+            # x * s + t rounded once (an FMA, as XLA computes it): the
+            # product of a bf16 and a float32 is exact in float64
+            u = (x.double() * s[:, None, None, :].double()
+                 + t[:, None, None, :].double()).float()
+            x32 = torch.relu(u).to(bf).float()
+        y = conv3x3_plain(x32, w.float(), b.float(),
+                          None if residual is None else residual.float(),
+                          relu).to(bf)
+        if not with_stats:
+            return y
+        y64 = y.double()
+        return (y, y64.sum((1, 2)).float(), y64.square().sum((1, 2)).float())
     if s is not None:
         x = torch.relu(x * s[:, None, None, :] + t[:, None, None, :])
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
@@ -83,9 +111,18 @@ def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
 
 
 def _launch(x, w, b, residual, s, t, relu, with_stats):
-    """One launch of the kernel: y, or (y, S1, S2) with the moments."""
-    given = [a for a in (x, w, b, residual, s, t) if a is not None]
-    kernels.check_inputs("conv2d_fused", *given)
+    """One launch of the kernel (its bf16 form for a bf16 x): y, or
+    (y, S1, S2) with the moments."""
+    bf16 = x.dtype == torch.bfloat16
+    name = "conv2d_fused_bf16" if bf16 else "conv2d_fused"
+    if bf16:
+        kernels.check_inputs(
+            name, *[a for a in (x, w, b, residual) if a is not None])
+        if s is not None:
+            kernels.check_inputs(name, s, t, dtype=torch.float32)
+    else:
+        kernels.check_inputs(
+            name, *[a for a in (x, w, b, residual, s, t) if a is not None])
     if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3):
         raise ValueError(
             f"conv2d_fused: the kernel takes x [B, H, W, C] and w "
@@ -108,16 +145,20 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
     y = x.new_empty((B, H, W, Co))
     part = s1 = s2 = None
     if with_stats:
-        part = x.new_empty((B, fused_tiles(H, W), 2, Co))
-        s1, s2 = x.new_empty((B, Co)), x.new_empty((B, Co))
+        f32 = dict(dtype=torch.float32)
+        part = x.new_empty((B, fused_tiles(H, W), 2, Co), **f32)
+        s1, s2 = x.new_empty((B, Co), **f32), x.new_empty((B, Co), **f32)
 
     def ptr(a):
         return None if a is None else a.data_ptr()
 
-    kernels.launch("conv2d_fused", x.device, x.data_ptr(), w.data_ptr(),
+    kernels.launch(name, x.device, x.data_ptr(), w.data_ptr(),
                    b.data_ptr(), ptr(s), ptr(t), ptr(residual), y.data_ptr(),
                    ptr(part), ptr(s1), ptr(s2), B, H, W, C, Co, int(relu))
-    conv2d_fused.launches += 1
+    if bf16:
+        conv2d_fused.bf16_launches += 1
+    else:
+        conv2d_fused.launches += 1
     return (y, s1, s2) if with_stats else y
 
 
@@ -182,6 +223,10 @@ class _FusedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gs1=None, gs2=None):
         x, w, s, t, y = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "conv2d_fused: the bf16 backward is not ported yet (it "
+                "comes with the bf16 training slice)")
         grads = fused_conv_backward(x, w, y, gy, gs1, gs2, s, t, ctx.relu,
                                     ctx.has_residual, ctx.needs_input_grad[:6])
         return (*grads, None, None)
@@ -217,6 +262,7 @@ def conv2d_fused_prologue_stats(x, w, b, s, t, relu: bool = False):
 
 
 conv2d_fused.launches = 0
+conv2d_fused.bf16_launches = 0
 # copies of a cotangent to NHWC that the backward had to make
 conv2d_fused.grad_copies = 0
 

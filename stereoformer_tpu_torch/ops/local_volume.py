@@ -134,7 +134,7 @@ class _LocalSoftArgmin(torch.autograd.Function):
     def backward(ctx, grad):
         volume, candidates = ctx.saved_tensors
         g = grad.contiguous()
-        kernels.check_inputs("local_soft_argmin backward", volume,
+        kernels.check_inputs("local_soft_argmin_bwd", volume,
                              candidates, g)
         dvolume = torch.empty_like(volume)
         dcandidates = torch.empty_like(candidates)

@@ -2,7 +2,9 @@
 
 Counterpart of ``stereoformer_tpu/ops/resize.py``: each axis is resized by a
 static interpolation matrix built in numpy, with the source coordinate
-clipped to the input for ``align_corners=False``.
+clipped to the input for ``align_corners=False``. A bf16 x is resized as
+JAX resizes it: each axis in float32 against the float32 matrix, the result
+rounded to bf16 after each axis.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
     H, W = size
     Mh = torch.from_numpy(_interp_matrix(H, x.shape[-3], align_corners))
     Mw = torch.from_numpy(_interp_matrix(W, x.shape[-2], align_corners))
+    if x.dtype == torch.bfloat16:
+        Mh, Mw = Mh.to(x.device), Mw.to(x.device)
+        x = torch.einsum("oh,...hwc->...owc", Mh, x.float()).to(x.dtype)
+        return torch.einsum("ow,...hwc->...hoc", Mw, x.float()).to(x.dtype)
     Mh = Mh.to(device=x.device, dtype=x.dtype)
     Mw = Mw.to(device=x.device, dtype=x.dtype)
     x = torch.einsum("oh,...hwc->...owc", Mh, x)

@@ -108,8 +108,8 @@ class DisparityTrainer:
                 "one device")
         if dtype not in (None, "f32", "float32"):
             raise NotImplementedError(
-                f"dtype={dtype!r} is not ported yet (bf16 comes in a later "
-                f"slice); the port trains in float32")
+                f"dtype={dtype!r} is not ported yet (bf16 training comes "
+                f"with the bf16 training slice); the port trains in float32")
         if gru_loop != "unroll":
             raise NotImplementedError(
                 f"gru_loop={gru_loop!r} is not ported: it is the JAX "

@@ -111,6 +111,14 @@ def test_cli_unported_flags_raise(tmp_path, flags):
     assert not os.path.exists(tmp_path / "models")
 
 
+def test_cli_dtype_bf16_still_raises_naming_the_training_slice(tmp_path):
+    """bf16 serves (get_model(..., dtype=torch.bfloat16)) but does not
+    train yet: the flag raises and says where bf16 training comes."""
+    with pytest.raises(NotImplementedError, match="bf16 training slice"):
+        main(_args(tmp_path) + ["--epochs", "1", "--dtype", "bf16"])
+    assert not os.path.exists(tmp_path / "models")
+
+
 def test_cli_devices_takes_one_index(tmp_path):
     with pytest.raises(ValueError, match="one index"):
         main(_args(tmp_path, device="cuda") + ["--devices", "0,1"])

@@ -315,15 +315,19 @@ def test_bridge_lands_every_jax_leaf_in_one_port_key(jax_model_variables):
 
 def test_registry_builds_cross_attention():
     """The registry entry drops ``loop`` and ``scan_unroll`` as JAX's does;
-    bf16 raises; the seeded weights repeat."""
+    bf16 builds and takes the float32 state dict, float16 raises; the
+    seeded weights repeat."""
     a = get_model("CrossAttentionStereo", device="cpu", loop="scan",
                   scan_unroll=2, **MODEL_KW)
     b = get_model("CrossAttentionStereo", device="cpu", **MODEL_KW)
     assert isinstance(a, CrossAttentionStereo) and not a.training
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="bf16|float32"):
-        CrossAttentionStereo(dtype=torch.bfloat16)
+    bf16 = CrossAttentionStereo(dtype=torch.bfloat16, **MODEL_KW)
+    bf16.load_state_dict(b.state_dict(), strict=True)
+    assert all(v.dtype != torch.bfloat16 for v in bf16.state_dict().values())
+    with pytest.raises(NotImplementedError, match="float16"):
+        CrossAttentionStereo(dtype=torch.float16)
     with pytest.raises(ValueError, match="upsample"):
         CrossAttentionStereo(upsample="bilinear")
 

@@ -909,3 +909,142 @@ def test_row_gather_refuses_an_index_out_of_range(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         ops.take_rows(img, torch.zeros((3, 4), dtype=torch.int64,
                                        device=cuda_device))
+
+
+# --- the bf16 forms ---------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7
+# where the float32 sums cancel to near 0 the two summation orders' own
+# error, relative to the largest output, exceeds a bf16 ulp of the output
+F32_SUM_RTOL = 2.0 ** -20
+
+
+def _bf16_close(got, want):
+    """Each output within one bf16 ulp of the plain version's (or the float32
+    sums' error near 0)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape
+    big = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = BF16_ULP * torch.exp2(torch.floor(torch.log2(big)))
+    tol = ulp.clamp(min=F32_SUM_RTOL * want.abs().max().item())
+    assert ((got - want).abs() <= tol).all(), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("shape,D", [((8, 72, 120, 256), 24),
+                                     ((8, 72, 120, 256), 96),
+                                     ((4, 40, 80, 256), 24),
+                                     ((1, 3, 10, 40), 24),
+                                     ((1, 2, 97, 64), 50),
+                                     ((1, 2, 300, 16), 256)],
+                         ids=["eval", "eval-D96", "train", "W<D",
+                              "ragged-W-D50", "W>tile-D256"])
+def test_corr_band_bf16_matches_plain(cuda_device, shape, D):
+    """The bf16 form: float32 sums over C, / C, one rounding; counted
+    apart from the float32 form."""
+    rng = np.random.default_rng(21)
+    left = _randn(rng, shape, cuda_device).bfloat16()
+    right = _randn(rng, shape, cuda_device).bfloat16()
+    n32 = ops.correlation_volume.launches
+    n16 = ops.correlation_volume.bf16_launches
+    got = ops.correlation_volume(left, right, D)
+    want = ops.correlation_volume_plain(left, right, D)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert ops.correlation_volume.bf16_launches == n16 + 1
+    assert ops.correlation_volume.launches == n32
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 576, 960, 64, 64), (2, 288, 480, 96, 96),
+                                   (1, 37, 53, 96, 96), (2, 19, 40, 64, 64),
+                                   (1, 35, 70, 64, 64)],
+                         ids=["fnet-layer1", "cnet-layer2", "edge-C96",
+                              "H-tail-C64", "tails-4x32-C64"])
+@pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
+                                     "stats", "prologue-stats"])
+def test_conv2d_fused_bf16_matches_plain(cuda_device, shape, variant):
+    """Every entry in bf16: one bf16 ulp per output, the moments (float32
+    sums of the rounded outputs) within MOMENT_RTOL."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(22)
+    x, w, b, s, t, r = _conv_inputs(rng, shape, cuda_device)
+    x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
+    kw = {"res-relu": dict(residual=r, relu=True), "bare": {},
+          "prologue": dict(s=s, t=t, relu=True),
+          "stats": dict(with_stats=True),
+          "prologue-stats": dict(s=s, t=t, with_stats=True)}[variant]
+    n32 = ops.conv2d_fused.launches
+    n16 = ops.conv2d_fused.bf16_launches
+    if "s" in kw and kw.get("with_stats"):
+        got = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+    elif kw.get("with_stats"):
+        got = ops.conv2d_fused_stats(x, w, b)
+    elif "s" in kw:
+        got = ops.conv2d_fused_prologue(x, w, b, s, t, True)
+    else:
+        got = ops.conv2d_fused(x, w, b, kw.get("residual"),
+                               kw.get("relu", False))
+    want = ops.conv3x3_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert ops.conv2d_fused.bf16_launches == n16 + 1
+    assert ops.conv2d_fused.launches == n32
+    if not kw.get("with_stats"):
+        got, want = (got,), (want,)
+    assert got[0].dtype == torch.bfloat16
+    _bf16_close(got[0], want[0])
+    # the moments within MOMENT_RTOL, beyond what the outputs that round
+    # to the neighbouring bf16 (the sums' order) move them by
+    yg, yw = got[0].double(), want[0].double()
+    slack = ((yg - yw).abs().sum((1, 2)), (yg ** 2 - yw ** 2).abs().sum((1, 2)))
+    for g, m, sl in zip(got[1:], want[1:], slack):
+        assert g.dtype == torch.float32
+        m = m.double()
+        tol = MOMENT_RTOL * (m.abs() + m.abs().max()) + sl
+        assert ((g.double() - m).abs() <= tol).all()
+
+
+def test_bf16_forms_reject_what_they_do_not_take(cuda_device):
+    rng = np.random.default_rng(23)
+    feat = _randn(rng, (1, 2, 30, 20), cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.correlation_volume(feat, feat, 24)
+    x, w, b, s, t, _ = _conv_inputs(rng, (1, 8, 16, 64, 64), cuda_device)
+    with pytest.raises(TypeError, match="conv2d_fused_bf16"):
+        ops.conv2d_fused(x.bfloat16(), w, b.bfloat16())
+    with pytest.raises(TypeError, match="conv2d_fused_bf16"):
+        ops.conv2d_fused_prologue(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                                  s.bfloat16(), t.bfloat16())
+    with pytest.raises(TypeError, match="local_soft_argmin"):
+        ops.local_soft_argmin(_randn(rng, (1, 2, 30, 24), cuda_device)
+                              .bfloat16(),
+                              _randn(rng, (1, 2, 30, 21), cuda_device))
+    y = ops.conv2d_fused(x.bfloat16().requires_grad_(True), w.bfloat16(),
+                         b.bfloat16(), None, False)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        y.float().sum().backward()
+
+
+def test_bf16_models_launch_the_bf16_forms(cuda_device):
+    """LowCNN_gru and RAFT_Stereo in bf16 on the card: the bf16 forms
+    launch (corr_band once, the fused conv 14 times), the float32 forms of
+    those two never; finite float32 disparities."""
+    from stereoformer_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(24)
+    counts = ("launches", "bf16_launches")
+    for name, want16 in (("LowCNN_gru", (1, 0)), ("RAFT_Stereo", (0, 14))):
+        model = get_model(name, device=cuda_device, dtype=torch.bfloat16)
+        left = _randn(rng, (1, 64, 128, 3), cuda_device)
+        right = _randn(rng, (1, 64, 128, 3), cuda_device)
+        before = [getattr(op, c) for op in (ops.correlation_volume,
+                                            ops.conv2d_fused) for c in counts]
+        with torch.inference_mode():
+            out = model(left, right, iters=2)
+        torch.cuda.synchronize()
+        after = [getattr(op, c) for op in (ops.correlation_volume,
+                                           ops.conv2d_fused) for c in counts]
+        d = [a - b for a, b in zip(after, before)]
+        assert (d[0], d[2]) == (0, 0), d
+        assert (d[1], d[3]) == want16, d
+        disp = out["disparities"][-1]
+        assert disp.dtype == torch.float32 and torch.isfinite(disp).all()

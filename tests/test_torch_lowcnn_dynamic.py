@@ -301,10 +301,14 @@ def test_registry_and_seeded_weights(refinement):
 
 
 def test_unported_refinement_raises():
-    """Every refinement of the JAX family is ported now; what is not yet
-    (bf16) raises, and so does an unknown refinement."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LowCNN(refinement="learned", dtype=torch.bfloat16)
+    """Every refinement of the JAX family is ported now, in float32 and
+    bf16 (which takes the float32 state dict); a dtype the port does not
+    compute in (float16) raises, and so does an unknown refinement."""
+    bf16 = LowCNN(refinement="learned", dtype=torch.bfloat16)
+    bf16.load_state_dict(LowCNN(refinement="learned").state_dict(),
+                         strict=True)
+    with pytest.raises(NotImplementedError, match="float16"):
+        LowCNN(refinement="learned", dtype=torch.float16)
     with pytest.raises(ValueError, match="unknown refinement"):
         LowCNN(refinement="learned_bogus")
 

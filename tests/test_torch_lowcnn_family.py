@@ -127,8 +127,12 @@ def test_options_the_port_does_not_take_raise():
         LowCNN(refinement="bogus")
     with pytest.raises(NotImplementedError, match="scan"):
         LowCNN(loop="scan")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        LowCNN(dtype=torch.bfloat16)
+    # bf16 builds and takes the float32 state dict; float16 raises
+    bf16 = LowCNN(dtype=torch.bfloat16)
+    bf16.load_state_dict(LowCNN().state_dict(), strict=True)
+    assert all(v.dtype != torch.bfloat16 for v in bf16.state_dict().values())
+    with pytest.raises(NotImplementedError, match="float16"):
+        LowCNN(dtype=torch.float16)
     with pytest.raises(ValueError, match="unknown upsample"):
         LowCNN(upsample="nearest")
     with pytest.raises(ValueError, match="unknown cost_volume"):
