@@ -151,10 +151,12 @@ any failure exits nonzero and prints no result:
    float32 sums' own error, 2^-20 of the largest output; the moments
    within 1e-5 relative beyond what the outputs that round to the
    neighbouring bf16 move them by), corr_band's at the eval, train and
-   D = 96 shapes and every conv2d_fused entry at RAFT's four eval sites,
-   each timed by graph replay beside its bound (bytes at the HBM rate or
-   operations at the bf16 tensor-core rate), its plain version and the
-   library (cuDNN's F.conv2d with bias in bf16; none for corr_band); every
+   D = 96 shapes and every conv2d_fused entry at RAFT's four eval sites
+   and at edge shapes (H and W off its tile, C = 72, Co 64 and 96 from
+   C 64, 72 or 96), each timed at the main path's shapes by graph replay
+   beside its bound (bytes at the HBM rate or operations at the bf16
+   tensor-core rate), its plain version and the library (cuDNN's F.conv2d
+   with bias in bf16, and the kernel/cuDNN ratio; none for corr_band); every
    registry name's eval at bench.py's protocol (576x960, B=8, RAFT at B=2
    and B=8 on uniform 0..255 images, 12 iterations, seed-0 weights) in
    bf16 and float32: ms/batch (float32 with TF32 on and off, from the
@@ -2815,6 +2817,15 @@ def bf16_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+# the bf16 fused conv's edge shapes (B, H, W, C, Co): H and W no multiple
+# of its 4 x 32 tile; C = 72, a 32-channel chunk with 24 zero-filled
+# channels; Co 64 (one 64-channel block a tile) and 96 (two of 48) from
+# either C
+EDGE_BF16_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 72, 64),
+                   (1, 17, 45, 72, 96), (1, 9, 33, 64, 96),
+                   (2, 35, 70, 96, 64)]
+
+
 def check_bf16_kernels(ops, rng) -> dict:
     """Phase 17: the bf16 forms against their plain bf16 versions."""
     print("bf16 kernels vs plain (TF32 off):", flush=True)
@@ -2832,15 +2843,18 @@ def check_bf16_kernels(ops, rng) -> dict:
     # the moments: within 1e-5 relative (of each and of the largest),
     # beyond what the outputs that round to the neighbouring bf16 move them
     moment_rtol = 1e-5
-    for where, (B_, H_, W_, C) in RAFT_CONVS.items():
-        x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, C)
+    shapes = [(where, (B_, H_, W_, C, C))
+              for where, (B_, H_, W_, C) in RAFT_CONVS.items()]
+    shapes += [("edge", shape) for shape in EDGE_BF16_CONVS]
+    for where, shape in shapes:
+        x, w, b, s, t, r = conv_inputs(rng, *shape)
         x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
         for variant, (call, kw) in conv_calls(ops, x, w, b, s, t,
                                               r).items():
             got, want = call(), ops.conv3x3_plain(x, w, b, **kw)
             if not kw.get("with_stats"):
                 got, want = (got,), (want,)
-            label = f"conv2d_fused_bf16 {variant} {where} {[B_, H_, W_, C]}"
+            label = f"conv2d_fused_bf16 {variant} {where} {list(shape)}"
             err["conv2d_fused_bf16"] = max(err["conv2d_fused_bf16"],
                                            bf16_close(label, got[0], want[0]))
             yg, yw = got[0].double(), want[0].double()
@@ -2969,6 +2983,7 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
     import torch.nn.functional as F
 
     from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
     rows, times = [], {"corr_band_bf16": {}, "conv2d_fused_bf16": {}}
     C = 256
@@ -3015,20 +3030,21 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
                    lambda: ops.conv3x3_plain(x, w, b, **kw), 3),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               # one TF32 MMA per product caps the kernel's design
-               "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3),
+               "blocks": fused_blocks(B_, H_, W_, C_, torch.bfloat16),
                "library_ms": graph_ms(
                    lambda: F.conv2d(xc, wc, b, padding=1), 10)}
+        row["kernel_vs_library"] = row["ms"] / row["library_ms"]
         times["conv2d_fused_bf16"][where] = row
         print(f"  conv2d_fused_bf16 {variant} {where} {row['shape']}: "
               f"{row['ms']:.4f} ms on the device "
-              f"({nops / row['ms'] / 1e9:.1f} TFLOP/s); bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({100 * row['bound_ms'] / row['ms']:.0f}% of it), one TF32 "
-              f"pass {row['bound_tf32_ms']:.4f} ms; plain "
-              f"{row['plain_ms']:.4f} ms; cuDNN F.conv2d+bias bf16 "
-              f"{row['library_ms']:.4f} ms (kernel/cuDNN "
-              f"{row['ms'] / row['library_ms']:.2f})", flush=True)
+              f"({nops / row['ms'] / 1e9:.1f} TFLOP/s, {row['blocks']} "
+              f"blocks); bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.0f}% "
+              f"of it); plain {row['plain_ms']:.4f} ms; cuDNN F.conv2d+bias "
+              f"bf16 {row['library_ms']:.4f} ms; kernel/cuDNN "
+              f"{row['kernel_vs_library']:.2f} ("
+              f"{'beats' if row['kernel_vs_library'] < 1 else 'loses to'} "
+              f"cuDNN)", flush=True)
         del x, w, b, s, t_, r, xc, wc
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"].update(times)

@@ -112,33 +112,6 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[M][N][4],
     for (int j = 0; j < N; ++j) mma_tf32(d[i][j], a[i].big, b[j].big);
 }
 
-// Operands exact in TF32 (bf16 values widened to float32: 8 significant
-// bits of TF32's 11) need no split: one pass gives their exact products.
-struct FragA1 {
-  uint32_t v[4];
-};
-
-struct FragB1 {
-  uint32_t v[2];
-};
-
-// d[i][j] += A_i B_j for operands exact in TF32: one MMA a tile
-template <int M, int N>
-__device__ __forceinline__ void mma_tf32x1(float (&d)[M][N][4],
-                                           const FragA1 (&a)[M],
-                                           const FragB1 (&b)[N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) mma_tf32(d[i][j], a[i].v, b[j].v);
-}
-
-// the float32 bits of a bf16 given as its 16 bits: exact, and a valid TF32
-// operand (its low 13 bits are 0)
-__device__ __forceinline__ uint32_t bf16_bits_to_f32(uint32_t h) {
-  return h << 16;
-}
-
 // total += part with round-to-nearest adds; part = 0
 template <int M, int N>
 __device__ __forceinline__ void fold(float (&total)[M][N][4],

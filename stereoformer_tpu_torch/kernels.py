@@ -128,7 +128,7 @@ _MANGLED_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
     ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``,
-    ``conv3x3_kernel<__nv_bfloat16>``."""
+    ``corr_band_kernel<__nv_bfloat16>``, ``conv3x3_bf16_kernel<64>``."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     name = mangled
     while (m := re.match(r"\d+", rest)):

@@ -142,7 +142,9 @@ class LowCNN(SiameseStereo):
                  upsample: str = "convex", cost_volume: str = "correlation",
                  num_samples: int = 20, gru_hidden: int = 32,
                  radius: float = 2.0, gamma: float = 1.0, dtype=None,
-                 loop: str = "unroll"):
+                 loop: str = "unroll", scan_unroll: int = 1):
+        # scan_unroll: the JAX model's lax.scan unroll factor, read only
+        # under loop="scan"; accepted and unused under "unroll"
         super().__init__()
         if refinement not in REFINEMENTS:
             raise ValueError(f"unknown refinement {refinement!r}; one of "

@@ -32,8 +32,9 @@ float32, one rounding to bf16; the prologue's relu(x*s + t), x*s + t one
 FMA, rounded to bf16 before the conv; the moments float32, of the rounded
 outputs. CPU tensors
 take its plain version; CUDA tensors launch ``conv2d_fused_forward_bf16``
-(the same source), counted in ``conv2d_fused.bf16_launches``. Its backward
-is the bf16 training slice's and raises.
+(the same source, its own mainloop on the bf16 tensor cores), counted in
+``conv2d_fused.bf16_launches``. Its backward is the bf16 training slice's
+and raises.
 
 Beside them, as the JAX module keeps it, the stride-2 entry point
 
@@ -56,22 +57,30 @@ import torch.nn.functional as F
 from .. import kernels
 from .dw_conv import conv2d_dw
 
-# the kernel's block (csrc/conv2d_fused.cu: TH, TW, CB): output rows,
-# output columns and output channels of one 3xTF32 implicit-GEMM tile; one
-# moment partial per tile and channel block
-_TILE_H, _TILE_W, _CB = 4, 32, 32
+# the kernel's blocks (csrc/conv2d_fused.cu): output rows and columns of
+# a tile, and output channels of a block by Co; the 3xTF32 form's 4 x 32
+# tiles and 32-channel blocks (TH, TW, CB), the bf16 form's 8 x 32 tiles
+# and blocks of all 64 or half of 96 channels (bfk::BTH, TW and the NB of
+# conv3x3_bf16_kernel); one moment partial per tile and output channel,
+# written by the tile's channel blocks
+_TILE = {torch.float32: (4, 32), torch.bfloat16: (8, 32)}
+_CB = {torch.float32: {64: 32, 96: 32}, torch.bfloat16: {64: 64, 96: 48}}
 # the output widths RAFT routes to the kernel
 _KERNEL_CO = (64, 96)
 
 
-def fused_tiles(H: int, W: int) -> int:
-    """The output tiles of the fused conv's grid for one image of H x W."""
-    return -(-H // _TILE_H) * -(-W // _TILE_W)
+def fused_tiles(H: int, W: int, dtype: torch.dtype = torch.float32) -> int:
+    """The output tiles of the fused conv's grid for one image of H x W of
+    ``dtype`` (the 3xTF32 form for float32, the bf16 form for bf16)."""
+    th, tw = _TILE[dtype]
+    return -(-H // th) * -(-W // tw)
 
 
-def fused_blocks(B: int, H: int, W: int, Co: int) -> int:
-    """The blocks of the fused conv's grid for y [B, H, W, Co]."""
-    return B * fused_tiles(H, W) * -(-Co // _CB)
+def fused_blocks(B: int, H: int, W: int, Co: int,
+                 dtype: torch.dtype = torch.float32) -> int:
+    """The blocks of the fused conv's grid for y [B, H, W, Co] of
+    ``dtype``."""
+    return B * fused_tiles(H, W, dtype) * (Co // _CB[dtype][Co])
 
 
 def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
@@ -146,7 +155,7 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
     part = s1 = s2 = None
     if with_stats:
         f32 = dict(dtype=torch.float32)
-        part = x.new_empty((B, fused_tiles(H, W), 2, Co), **f32)
+        part = x.new_empty((B, fused_tiles(H, W, x.dtype), 2, Co), **f32)
         s1, s2 = x.new_empty((B, Co), **f32), x.new_empty((B, Co), **f32)
 
     def ptr(a):

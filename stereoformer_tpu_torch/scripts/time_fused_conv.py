@@ -11,8 +11,11 @@ this file, with that script's inputs (``conv_inputs``, seed 0) and timing
 (``RAFT_CONVS``; the feature net's prologue+stats, the context net's
 prologue) and the backward's dx conv at the RAFT train step B=4
 (``RAFT_TRAIN_CONVS``; the cotangent with flipped, io-transposed weights
-and no bias). Every root runs this one protocol, so an older checkout is
-timed on the same work. Prints one JSON line per root, with the card's
+and no bias); then the bf16 form (``conv2d_fused_bf16``) at the four eval
+sites, the same entries on the same inputs rounded to bf16, each beside
+cuDNN's bf16 ``F.conv2d`` with bias (channels_last) on those inputs.
+Every root runs this one protocol, so an older checkout is timed on the
+same work. Prints one JSON line per root, with the card's
 name. To compare two versions on one card, give their roots as parent,
 change, change, parent. Run it by path, not with ``-m``, so that each
 process imports the checkout it is given.
@@ -34,6 +37,7 @@ def time_root(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from stereoformer_tpu_torch import ops
 
@@ -57,6 +61,18 @@ def time_root(root: str) -> dict:
         out[f"dx {where}"] = smoke.graph_ms(
             lambda: ops.conv2d_fused(g, w_rot, zero, None, False), 10)
         del g, w, w_rot
+    for where, (B, H, W, C) in smoke.RAFT_CONVS.items():
+        x, w, b, s, t, r = smoke.conv_inputs(rng, B, H, W, C, C)
+        x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
+        variant = "prologue+stats" if where.startswith("fnet") else "prologue"
+        kern, _ = smoke.conv_calls(ops, x, w, b, s, t, r)[variant]
+        out[f"bf16 fwd {where} {variant}"] = smoke.graph_ms(kern, 10)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out[f"bf16 cudnn {where}"] = smoke.graph_ms(
+            lambda: F.conv2d(xc, wc, b, padding=1), 10)
+        del x, w, b, s, t, r, xc, wc
     return out
 
 

@@ -957,9 +957,13 @@ def test_corr_band_bf16_matches_plain(cuda_device, shape, D):
 
 @pytest.mark.parametrize("shape", [(4, 576, 960, 64, 64), (2, 288, 480, 96, 96),
                                    (1, 37, 53, 96, 96), (2, 19, 40, 64, 64),
-                                   (1, 35, 70, 64, 64)],
+                                   (1, 35, 70, 64, 64), (2, 19, 40, 72, 64),
+                                   (1, 17, 45, 72, 96), (1, 9, 33, 64, 96),
+                                   (2, 35, 70, 96, 64)],
                          ids=["fnet-layer1", "cnet-layer2", "edge-C96",
-                              "H-tail-C64", "tails-4x32-C64"])
+                              "H-tail-C64", "tails-4x32-C64",
+                              "C72-tail-chunk-Co64", "C72-tail-chunk-Co96",
+                              "C64-Co96", "C96-Co64"])
 @pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
                                      "stats", "prologue-stats"])
 def test_conv2d_fused_bf16_matches_plain(cuda_device, shape, variant):

@@ -122,6 +122,23 @@ def test_registry_builds_the_family(name):
         assert sd["local_cost_volume.gru.conv_z.weight"].shape[:2] == (128, 256)
 
 
+LOWCNN_NAMES = ("LowCNN", "LowCNN_simple", "LowCNN_ada", "LowCNN_dynamic",
+                "LowCNN_dynamic_supervised", "LowCNN_gru", "LowCNN_gru2")
+
+
+@pytest.mark.parametrize("name", LOWCNN_NAMES)
+def test_registry_takes_scan_unroll_as_jax_does(name):
+    """JAX's LowCNN has a scan_unroll field, read only under loop="scan":
+    every LowCNN name builds with it in both registries; the port's
+    loop="scan" still raises."""
+    assert name in available_models()
+    assert jax_get_model(name, scan_unroll=1).scan_unroll == 1
+    model = get_model(name, device="cpu", scan_unroll=1)
+    assert model.refinement == jax_get_model(name).refinement
+    with pytest.raises(NotImplementedError, match="scan"):
+        get_model(name, device="cpu", loop="scan", scan_unroll=1)
+
+
 def test_options_the_port_does_not_take_raise():
     with pytest.raises(ValueError, match="unknown refinement"):
         LowCNN(refinement="bogus")

@@ -11,9 +11,12 @@ each sum it accumulates; emulated with round-toward-zero adds, a long sum
 drifts past DW_RTOL unless each tile's sum is folded into a float32 total,
 as the kernels do. The stride-1 fused conv is emulated whole, as its kernel
 sums it: prologue, 3xTF32 k-steps with truncating adds folded per 8-channel
-chunk, bias, and the moments of the result. Also on the CPU: the kernels'
-grids on the card, the fused conv's moment scratch, and their build hash
-over the headers.
+chunk, bias, and the moments of the result; and its bf16 form, as its own
+mainloop sums it: exact bf16 products in k-steps of 16 (mma.sync
+m16n8k16) with one truncating add each into one float32 fragment over all
+of C (no fold), one rounding to bf16. Also on the CPU: the kernels' grids
+on the card (both forms of the fused conv), the fused conv's moment
+scratch, and their build hash over the headers.
 """
 
 import numpy as np
@@ -217,17 +220,21 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     assert kernels._library_path("probe") != after
 
 
-def _fused_gemm_operands(z, w):
+def _fused_gemm_operands(z, w, kc=8):
     """The fused conv's implicit GEMM for one image: z [H, W, C] (the
-    prologue's output), w [3, 3, C, Co] -> Xcol [H W, 9 C] and W [9 C, Co]
-    with K in the kernel's order: 8-channel chunk, then tap, then channel."""
+    prologue's output), w [3, 3, C, Co] -> Xcol [H W, 9 C'] and W [9 C', Co]
+    with K in the kernel's order: kc-channel chunk, then tap, then channel;
+    C' is C rounded up to a whole chunk, the channels past C zero (as the
+    kernel zero-fills them)."""
     H, W, C = z.shape
-    zp = np.pad(z, ((1, 1), (1, 1), (0, 0)))
+    Cp = -(-C // kc) * kc
+    zp = np.pad(z, ((1, 1), (1, 1), (0, Cp - C)))
+    w = np.pad(w, ((0, 0), (0, 0), (0, Cp - C), (0, 0)))
     taps = np.stack([zp[ky:ky + H, kx:kx + W] for ky in range(3)
-                     for kx in range(3)], axis=2)            # [H, W, 9, C]
-    xcol = taps.reshape(H, W, 9, C // 8, 8).transpose(0, 1, 3, 2, 4)
-    wk = w.reshape(9, C // 8, 8, -1).transpose(1, 0, 2, 3)
-    return xcol.reshape(H * W, 9 * C), wk.reshape(9 * C, -1)
+                     for kx in range(3)], axis=2)            # [H, W, 9, C']
+    xcol = taps.reshape(H, W, 9, Cp // kc, kc).transpose(0, 1, 3, 2, 4)
+    wk = w.reshape(9, Cp // kc, kc, -1).transpose(1, 0, 2, 3)
+    return xcol.reshape(H * W, 9 * Cp), wk.reshape(9 * Cp, -1)
 
 
 @pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 96, 96)],
@@ -270,22 +277,132 @@ def test_fused_conv_in_three_tf32_products_holds_the_float32_tolerance(shape):
                                    atol=MOMENT_RTOL * np.abs(ref_m).max())
 
 
-@pytest.mark.parametrize("site", RAFT_FUSED_SITES,
-                         ids=[f"{s[0]}x{s[1]}x{s[2]}x{s[3]}"
-                              for s in RAFT_FUSED_SITES])
-def test_fused_grid_puts_a_block_on_every_sm(site):
+def mma_sum_bf16(a: np.ndarray, b: np.ndarray, fold_every: int) -> np.ndarray:
+    """a [M, K] . b [K, N] of bf16 values as the bf16 fused conv sums it
+    (mma.sync m16n8k16, float32 accumulators): k-steps of 16, each adding
+    its 16 exact products (a bf16 x bf16 product is exact in float32) to a
+    float32 fragment with one round-toward-zero add; every ``fold_every``
+    k-steps the fragment is added to a float32 total with a round-to-nearest
+    add and restarts from zero (``fold``; 0: never)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    frag = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    total = np.zeros_like(frag)
+    for i, k in enumerate(range(0, a.shape[1], 16)):
+        frag = round_toward_zero(frag + a[:, k:k + 16] @ b[k:k + 16])
+        if fold_every and (i + 1) % fold_every == 0:
+            total, frag = total + frag, np.zeros_like(frag)
+    return total + frag
+
+
+def to_bf16(a) -> np.ndarray:
+    """Round to bf16 (to nearest, ties to even), as float32 values."""
+    return _t(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+# the bf16 form's chunk by Co and its tile (csrc/conv2d_fused.cu,
+# bfk::Cfg::KC, bfk::BTH and TW): 16 input channels (one k-step a tap) in
+# the blocks of Co = 64, 32 (two) in those of Co = 96; 8 x 32 pixels
+BF16_KC = {64: 16, 96: 32}
+BF16_TILE = (8, 32)
+
+
+@pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 72, 96),
+                                   (9, 33, 96, 96)],
+                         ids=["19x40-C64", "9x33-C72-tail-96", "9x33-C96"])
+def test_fused_conv_bf16_mma_holds_one_bf16_ulp(shape):
+    """The bf16 form as its mainloop sums it, for one image: the prologue
+    bf16(relu(x s + t)), k-steps of 16 channels (a tap's) in chunks of 16
+    (Co = 64) or 32 channels (Co = 96), the channels past C zero (C = 72:
+    a tail chunk of 8), exact
+    products and one truncating add per MMA into one float32 fragment over
+    all of C (36 to 54 MMAs: the kernel does not fold), then the bias and
+    one rounding to bf16. Every output is within one bf16 ulp of the plain
+    version (float32 sums, one rounding), or near 0 within 2^-20 of the
+    largest output, as chip_smoke.py's bf16_close holds the card; the
+    moments of the rounded output, summed per 8 x 32 tile in float32 and
+    across tiles in float64, within MOMENT_RTOL beyond what the outputs
+    that round to the neighbouring bf16 move them by."""
+    H, W, C, Co = shape
+    rng = np.random.default_rng(5)
+    x = to_bf16(rng.standard_normal((1, H, W, C)))
+    w = to_bf16(rng.standard_normal((3, 3, C, Co)) / np.sqrt(9 * C))
+    b = to_bf16(0.1 * rng.standard_normal(Co))
+    s = rng.uniform(0.5, 1.5, (1, C)).astype(np.float32)
+    t = (0.5 * rng.standard_normal((1, C))).astype(np.float32)
+    want, *want_m = ops.conv3x3_plain(
+        *(_t(a).bfloat16() for a in (x, w, b)), s=_t(s), t=_t(t),
+        with_stats=True)
+    want = want[0].float().numpy()
+    # the prologue's FMA (the float64 product is exact), rounded to bf16
+    z = to_bf16(np.maximum(
+        (x[0].astype(np.float64) * s[0] + t[0]).astype(np.float32), 0))
+    xcol, wk = _fused_gemm_operands(z, w, BF16_KC[Co])
+    y = to_bf16((mma_sum_bf16(xcol, wk, fold_every=0) + b).reshape(H, W, Co))
+    big = np.maximum(np.abs(y), np.abs(want)).clip(1e-30)
+    ulp = 2.0 ** -7 * np.exp2(np.floor(np.log2(big)))
+    tol = np.maximum(ulp, 2.0 ** -20 * np.abs(want).max())
+    assert (np.abs(y - want) <= tol).all()
+    # the kernel's moments: float32 sums per 8 x 32 tile, then float64
+    th, tw = BF16_TILE
+    Hp, Wp = -(-H // th) * th, -(-W // tw) * tw
+    tiles = np.pad(y, ((0, Hp - H), (0, Wp - W), (0, 0))).reshape(
+        Hp // th, th, Wp // tw, tw, Co)
+    yg, yw = y.astype(np.float64), want.astype(np.float64)
+    slack = (np.abs(yg - yw).sum((0, 1)),
+             np.abs(yg ** 2 - yw ** 2).sum((0, 1)))
+    for got, ref, sl in zip((tiles, tiles * tiles), want_m, slack):
+        part = got.sum((1, 3), dtype=np.float32)
+        got_m = part.astype(np.float64).sum((0, 1))
+        ref_m = ref[0].double().numpy()
+        tol_m = MOMENT_RTOL * (np.abs(ref_m) + np.abs(ref_m).max()) + sl
+        assert (np.abs(got_m - ref_m) <= tol_m).all()
+
+
+def _site_id(s):
+    return "x".join(map(str, s[:4])) + (f"-{s[4]}" if len(s) > 4 else "")
+
+
+# the float32 form at every site, the bf16 form at every site (the eval's
+# forward; the train sites are the bf16 dx's shapes)
+FUSED_FORMS = [pytest.param(s, torch.float32, id=_site_id(s))
+               for s in RAFT_FUSED_SITES] + [
+    pytest.param(s, torch.bfloat16, id="bf16-" + _site_id(s))
+    for s in RAFT_FUSED_SITES]
+# output rows and columns of a tile, and output channels of a block by Co:
+# 4 x 32 and 32 in the 3xTF32 form; 8 x 32 and all of Co = 64, half of
+# Co = 96 in the bf16 form
+FUSED_TILE = {torch.float32: (4, 32), torch.bfloat16: (8, 32)}
+FUSED_CB = {torch.float32: {64: 32, 96: 32},
+            torch.bfloat16: {64: 64, 96: 48}}
+
+
+@pytest.mark.parametrize("site,dtype", FUSED_FORMS)
+def test_fused_grid_puts_a_block_on_every_sm(site, dtype):
     B, H, W, Co = site
-    blocks = fused_blocks(B, H, W, Co)
-    # 4 x 32 output pixels and 32 output channels a block
-    assert blocks == B * -(-H // 4) * -(-W // 32) * (Co // 32)
+    blocks = fused_blocks(B, H, W, Co, dtype)
+    th, tw = FUSED_TILE[dtype]
+    cb = FUSED_CB[dtype][Co]
+    assert blocks == B * -(-H // th) * -(-W // tw) * (Co // cb)
     assert blocks >= H100_SMS
 
 
-@pytest.mark.parametrize("shape", [(2, 19, 40, 64, 96), (1, 37, 53, 96, 64)],
-                         ids=["H-tail-C64-96", "tails-C96-64"])
-def test_fused_moment_scratch_has_one_partial_per_block(shape, monkeypatch):
+SCRATCH_SHAPES = [(2, 19, 40, 64, 96), (1, 37, 53, 96, 64),
+                  (1, 17, 45, 72, 96), (2, 9, 33, 96, 96)]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    pytest.param(SCRATCH_SHAPES[0], torch.float32, id="H-tail-C64-96"),
+    pytest.param(SCRATCH_SHAPES[1], torch.float32, id="tails-C96-64"),
+    pytest.param(SCRATCH_SHAPES[0], torch.bfloat16, id="bf16-H-tail-C64-96"),
+    pytest.param(SCRATCH_SHAPES[1], torch.bfloat16, id="bf16-tails-C96-64"),
+    pytest.param(SCRATCH_SHAPES[2], torch.bfloat16, id="bf16-C72-96"),
+    pytest.param(SCRATCH_SHAPES[3], torch.bfloat16, id="bf16-C96-96")])
+def test_fused_moment_scratch_has_one_partial_per_block(shape, dtype,
+                                                        monkeypatch):
     """The wrapper sizes the moments' scratch [B, tiles, 2, Co] by the
-    kernel's tile: B * tiles * (Co / 32) is the grid of fused_blocks. The
+    form's tile (4 x 32 or 8 x 32 pixels): B * tiles * (Co / CB) is the grid
+    of fused_blocks, with CB the form's output channels a block, so every
+    (tile, channel block) writes its own channels' partials. The
     allocations are recorded and the launch replaced, so no card is
     needed."""
     B, H, W, C, Co = shape
@@ -299,10 +416,15 @@ def test_fused_moment_scratch_has_one_partial_per_block(shape, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "new_empty", recording_new_empty)
     monkeypatch.setattr(kernels, "check_inputs", lambda *a: None)
     monkeypatch.setattr(kernels, "launch", lambda *a: launched.append(a))
-    x = torch.zeros(B, H, W, C)
-    w, b = torch.zeros(3, 3, C, Co), torch.zeros(Co)
+    x = torch.zeros(B, H, W, C, dtype=dtype)
+    w, b = torch.zeros(3, 3, C, Co, dtype=dtype), torch.zeros(Co, dtype=dtype)
     fused_conv._launch(x, w, b, None, None, None, False, True)
-    assert launched and launched[0][-6:] == (B, H, W, C, Co, 0)
+    name = "conv2d_fused_bf16" if dtype == torch.bfloat16 else "conv2d_fused"
+    assert launched and launched[0][0] == name
+    assert launched[0][-6:] == (B, H, W, C, Co, 0)
     part = [sh for sh in shapes if len(sh) == 4 and sh[2] == 2]
     assert len(part) == 1 and part[0][0] == B and part[0][3] == Co
-    assert B * part[0][1] * (Co // 32) == fused_blocks(B, H, W, Co)
+    th, tw = FUSED_TILE[dtype]
+    assert part[0][1] == -(-H // th) * -(-W // tw)
+    assert (B * part[0][1] * (Co // FUSED_CB[dtype][Co])
+            == fused_blocks(B, H, W, Co, dtype))
