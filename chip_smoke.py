@@ -169,7 +169,35 @@ any failure exits nonzero and prints no result:
    then the card's bf16 against the port's bf16 on the CPU, LowCNN_gru at
    64x256 and RAFT at 64x128, TF32 off: the gap may be no larger than the
    CPU port's own bf16-against-float32 gap on the same input;
-18. one JSON line with each kernel's numbers; the last line says the run
+18. bf16 training, the JAX package's training dtype: conv2d_dw_bf16 (the
+   bf16 form of conv2d_dw) against the plain version on float64 copies of
+   the same bf16 inputs, rounded once, and the bf16 backward's dx conv
+   (conv2d_fused_bf16 on the flipped weights) against its plain version
+   (TF32 off), at RAFT's four train sites and at edge shapes, each within
+   one bf16 ulp per output (or near 0 the float32 sums' own error) and
+   bit-equal to itself on a second call; the bf16 train step at bench.py's
+   widths: LowCNN_gru at 320x640, B=4 and B=8, RAFT_Stereo at 320x720,
+   B=4 (AMSGrad at RAFT_LR), every other registry name at 320x640, B=4,
+   12 iterations: launch counts per step (RAFT: conv2d_fused_bf16 28, of
+   them 14 dx, conv2d_dw_bf16 14, no float32 conv form; LowCNN_gru:
+   corr_band_bf16 1, local_soft_argmin and its backward 12 each), finite
+   gradients for every parameter, float32 parameters, a loss that falls
+   over 5 steps on one batch, peak memory beside the float32 step's, and
+   ms/step by CUDA events, bf16 and float32 steps timed in turns (10
+   pairs: the medians and the range of the per-pair ratio); the two new
+   forms' device time at RAFT's four train sites beside their bound, their
+   plain versions, cuDNN's bf16 conv2d_weight and conv2d_input, and the
+   float32 forms; one bf16 train step of LowCNN_gru (64x256) and RAFT
+   (64x128) on the card against the port's bf16 step on the CPU, TF32 off:
+   2 iterations: the loss, the forward's disparities, each parameter's
+   gradient tensor and the updated parameters within 1.5 times the CPU's
+   own floor (the largest distance of a CPU step with one bf16 ulp changed
+   at 0.1% of the left image, five seeds), as the tests hold the CPU port
+   to JAX, the floors narrow enough that a gradient in a random direction
+   would fail at two thirds of the leaves or more; cli.train
+   --dtype bf16 on dummy data at 320x640, B=4: an epoch, --resume to a
+   second, float32 parameters and moments in the checkpoints;
+19. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -255,6 +283,9 @@ KERNELS = {
     "conv2d_fused_bf16": (
         "cuda", "stereoformer_tpu_torch/csrc/conv2d_fused.cu",
         "stereoformer_tpu/ops/pallas/conv2d.py:218"),
+    "conv2d_dw_bf16": (
+        "cuda", "stereoformer_tpu_torch/csrc/conv2d_dw.cu",
+        "stereoformer_tpu/ops/pallas/dw_conv.py:118"),
 }
 # RAFT's stride-2 3x3 sites at eval, B=2, 576x960 (the first conv of the
 # first block of layer2 and layer3 in both encoders, and of the context
@@ -406,6 +437,8 @@ def reset_counts(ops) -> None:
     ops.correlation_volume.launches = 0
     ops.correlation_volume.bf16_launches = 0
     ops.conv2d_fused.bf16_launches = 0
+    ops.conv2d_fused.bf16_dx_launches = 0
+    ops.conv2d_dw.bf16_launches = 0
     ops.local_soft_argmin.launches = 0
     ops.local_soft_argmin.backward_launches = 0
     ops.conv2d_fused.launches = 0
@@ -426,7 +459,10 @@ def read_counts(ops) -> dict:
             "conv2d_s2": ops.conv2d_fused_s2.launches,
             "row_gather": ops.take_rows.launches,
             "corr_band_bf16": ops.correlation_volume.bf16_launches,
-            "conv2d_fused_bf16": ops.conv2d_fused.bf16_launches}
+            "conv2d_fused_bf16": ops.conv2d_fused.bf16_launches,
+            # of conv2d_fused_bf16's, those of the backward's dx conv
+            "conv2d_fused_bf16_dx": ops.conv2d_fused.bf16_dx_launches,
+            "conv2d_dw_bf16": ops.conv2d_dw.bf16_launches}
 
 
 def check_launches(label: str, got: dict, **want) -> None:
@@ -543,6 +579,21 @@ def main() -> int:
     record["bf16_parity_vs_cpu"] = bf16_parity_vs_cpu()
     record["bf16_phase_s"] = time.perf_counter() - t17
     print(f"bf16 phase: {record['bf16_phase_s']:.1f} s", flush=True)
+    # 18. bf16 training
+    t18 = time.perf_counter()
+    err.update(check_bf16_train_kernels(ops, rng))
+    launches.update(bf16_train_phase(ops, record))
+    rows.extend(bf16_train_kernel_rows(ops, rng, err, launches, record))
+    # the bf16 dx conv is conv2d_fused_bf16 launched from the backward
+    fused16 = next(r for r in rows if r["name"] == "conv2d_fused_bf16")
+    fused16["dx"] = dict(
+        record["kernel_times"]["conv2d_fused_bf16_dx"]["fnet layer1"],
+        max_abs_err=err["conv2d_fused_bf16_dx"])
+    record["bf16_train_parity_vs_cpu"] = bf16_train_parity_vs_cpu()
+    launches["bf16_trainer_cli"] = bf16_cli_phase(ops, record)
+    record["bf16_train_phase_s"] = time.perf_counter() - t18
+    print(f"bf16 training phase: {record['bf16_train_phase_s']:.1f} s",
+          flush=True)
     # phases 14-16 share a temporary tree (checkpoints of 290 MB, the
     # files), removed whatever the outcome
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1312,12 +1363,13 @@ def raft_eval_phase(ops, rng, batch: int, record,
     return launches
 
 
-def raft_train_setup():
+def raft_train_setup(dtype=None):
     """The RAFT train protocol on the card: RAFT_Stereo with random weights
-    from the torch seed as it stands, AMSGrad at RAFT_LR, the sequence loss
-    over ITERS iterations and one batch of RAFT_TRAIN_B pairs at
-    RAFT_TRAIN_H x RAFT_TRAIN_W from seed 4. Returns (model, tx, state,
-    step, data). ``scripts/time_raft_step.py`` times the same protocol."""
+    from the torch seed as it stands (computing in ``dtype``: float32, or
+    bf16), AMSGrad at RAFT_LR, the sequence loss over ITERS iterations and
+    one batch of RAFT_TRAIN_B pairs at RAFT_TRAIN_H x RAFT_TRAIN_W from seed
+    4. Returns (model, tx, state, step, data).
+    ``scripts/time_raft_step.py`` times the same protocol."""
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.train import (
         Amsgrad,
@@ -1325,7 +1377,7 @@ def raft_train_setup():
         make_train_step,
     )
 
-    model = get_model("RAFT_Stereo", device="cuda")
+    model = get_model("RAFT_Stereo", device="cuda", dtype=dtype)
     tx = Amsgrad(RAFT_LR)
     state = TrainState.create(model, tx)
     step = make_train_step(tx, "sequence", iters=ITERS)
@@ -2792,25 +2844,29 @@ def entry_points_phase(ops, record, work: str) -> dict:
     return launches
 
 
-def bf16_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Phase 17: every output within one bf16 ulp of the plain version's,
-    or near 0, where the sums cancel, within the float32 sums' own error,
-    2^-20 of the largest output. Returns the largest absolute error."""
+def bf16_close(label: str, got: torch.Tensor, want: torch.Tensor,
+               rtol: float = 2.0 ** -20) -> float:
+    """Phases 17 and 18: every output of the bf16 ``got`` within one bf16
+    ulp of ``want`` (bf16, or float64 sums rounded to bf16 once), or near
+    0, where the sums cancel, within the float32 sums' own error, ``rtol``
+    of the largest |want|. Returns the largest absolute error."""
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
+    ref = want.to(torch.bfloat16)
+    if (got.shape != ref.shape or got.dtype != ref.dtype
+            or want.dtype not in (torch.bfloat16, torch.float64)):
         raise SmokeFailure(f"{label}: {got.dtype} {tuple(got.shape)} != "
                            f"{want.dtype} {tuple(want.shape)}")
-    g, w = got.float(), want.float()
+    g, w = got.double(), ref.double()
     big = torch.maximum(g.abs(), w.abs()).clamp(min=1e-30)
     ulp = 2.0 ** -7 * torch.exp2(torch.floor(torch.log2(big)))
-    tol = ulp.clamp(min=2.0 ** -20 * w.abs().max().item())
+    tol = ulp.clamp(min=rtol * want.abs().max().item())
     diff = (g - w).abs()
     share = (diff / tol).max().item()
     ok = bool(torch.isfinite(g).all()) and bool((diff <= tol).all())
     err = diff.max().item()
     print(f"  {label}: max_abs_err {err:.3e}, {(diff > 0).float().mean():.1e} "
           f"of the outputs differ, the worst at {share:.2f} of its "
-          f"tolerance (one bf16 ulp, or 2^-20 of the largest output) "
+          f"tolerance (one bf16 ulp, or {rtol:.3g} of the largest output) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SmokeFailure(f"{label}: beyond one bf16 ulp")
@@ -3110,6 +3166,516 @@ def bf16_parity_vs_cpu() -> dict:
         out[name] = {"card_vs_cpu_bf16_px": card, "cpu_bf16_vs_f32_px": gap}
     torch.backends.cudnn.allow_tf32 = True
     return out
+
+
+# phase 18: the bf16 train steps, at bench.py's train rows' widths (its
+# LowCNN_gru rows at 320x640, B=4 and B=8, and RAFT at 320x720, B=4; every
+# other registry name at 320x640, B=4): name -> (the trainer's loss, batch
+# sizes)
+BF16_TRAIN = {
+    "LowCNN_gru": ("sequence", TRAIN_BATCHES),
+    "LowCNN_gru2": ("sequence", (4,)), "LowCNN": ("single", (4,)),
+    "LowCNN_simple": ("single", (4,)), "LowCNN_ada": ("equal", (4,)),
+    "LowCNN_dynamic": ("equal", (4,)),
+    "LowCNN_dynamic_supervised": ("range_supervised", (4,)),
+    "CrossAttentionStereo": ("sequence", (4,)),
+}
+# conv2d_dw_bf16's and the bf16 dx conv's edge shapes (B, H, W, C): H and W
+# off the dw kernel's 2 x 32 and the fused conv's 8 x 32 tiles, C 64 and 96
+EDGE_BF16_TRAIN = [(1, 37, 53, 96), (2, 19, 40, 64), (1, 9, 33, 96),
+                   (2, 3, 5, 64)]
+# the bf16 dw against float64 sums: where they cancel to near 0, the float32
+# tile sums' own error, relative to the largest |dw| (the float32 form's
+# bound, phase 3)
+DW_BF16_RTOL = 2e-5
+
+
+def check_bf16_train_kernels(ops, rng) -> dict:
+    """Phase 18: conv2d_dw_bf16 and the bf16 dx conv against their plain
+    versions at RAFT's four train sites and at edge shapes, and bit-equal to
+    themselves on a second call."""
+    from stereoformer_tpu_torch.ops.fused_conv import _dx_conv
+
+    print("bf16 training kernels vs plain (TF32 off):", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    err = {"conv2d_dw_bf16": 0.0, "conv2d_fused_bf16_dx": 0.0}
+    shapes = [(where, v) for where, v in RAFT_TRAIN_CONVS.items()]
+    shapes += [("edge", v) for v in EDGE_BF16_TRAIN]
+    for where, shape in shapes:
+        C = shape[3]
+        x = randn(rng, *shape).bfloat16()
+        g = randn(rng, *shape).bfloat16()
+        got = ops.conv2d_dw(x, g)
+        err["conv2d_dw_bf16"] = max(err["conv2d_dw_bf16"], bf16_close(
+            f"conv2d_dw_bf16 {where} {list(shape)}", got,
+            ops.conv2d_dw_plain(x.double(), g.double()), DW_BF16_RTOL))
+        if not torch.equal(ops.conv2d_dw(x, g), got):
+            raise SmokeFailure(f"conv2d_dw_bf16 {shape}: two calls differ")
+        w = (randn(rng, 3, 3, C, C) / np.sqrt(9 * C)).bfloat16()
+        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+        zero = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
+        got = _dx_conv(g, w_rot, zero)
+        err["conv2d_fused_bf16_dx"] = max(
+            err["conv2d_fused_bf16_dx"],
+            bf16_close(f"conv2d_fused_bf16 as dx {where} {list(shape)}", got,
+                       ops.conv3x3_plain(g, w_rot, zero)))
+        if not torch.equal(_dx_conv(g, w_rot, zero), got):
+            raise SmokeFailure(f"bf16 dx {shape}: two calls differ")
+        del x, g, got, w, w_rot
+    print("  conv2d_dw_bf16 and the bf16 dx conv: two calls on the same "
+          "inputs gave the same bits at every shape", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    return err
+
+
+# phase 18: steps of each dtype timed in turns, one bf16 step then one
+# float32 step, this many pairs after a warm-up pair
+BF16_TIMED_PAIRS = 10
+
+
+def paired_ms(a, b, pairs: int) -> tuple:
+    """``a`` and ``b`` called in turns, each call timed by CUDA events:
+    (a's times, b's times) in ms, one of each per pair. Taken in turns so
+    that a slow or fast stretch of the host falls on both."""
+    a(), b()
+    times = ([], [])
+    for _ in range(pairs):
+        for fn, out in zip((a, b), times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return times
+
+
+def bf16_train_case(ops, record, label: str, build, batch: int,
+                    want: dict, profile_kernels=None) -> dict:
+    """Phase 18: one bf16 train case. ``build(dtype)`` returns (model, step,
+    state, data). The bf16 step: launch counts (``want``), finite
+    gradients and float32 parameters, a falling loss over 5 steps on one
+    batch, peak memory; then the float32 step (TF32 convs) built beside it,
+    its peak memory, and the two timed in turns (``paired_ms``): the median
+    ms/step of each, the median of the per-pair ratio bf16/float32 and its
+    range. Returns the launch counts of one bf16 step."""
+    model, step, state, data = build(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    state, m = step(state, data)
+    counts = read_counts(ops)
+    check_launches(f"{label} bf16 train step", counts, **want)
+    finite = torch.stack([torch.isfinite(p.grad).all()
+                          for p in model.parameters()]).all().item()
+    f32 = all(p.dtype == torch.float32 for p in model.parameters())
+    if not (finite and f32):
+        raise SmokeFailure(f"{label} bf16 step: gradients finite={finite}, "
+                           f"parameters float32={f32}")
+    curve = [float(m["loss"])]
+    for _ in range(4):
+        state, m = step(state, data)
+        curve.append(float(m["loss"]))
+    if not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise SmokeFailure(f"{label} bf16 loss not finite or not falling: "
+                           f"{curve}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def one_step():
+        step(state, data)
+
+    row = {"loss_curve": curve, "launches": counts}
+    if profile_kernels is not None:
+        row["bf16_profile"] = profile(one_step, f"{label} bf16 train step",
+                                      kernels=profile_kernels)
+    # the float32 step's peak, less what the bf16 side holds meanwhile
+    held = torch.cuda.memory_allocated()
+    model32, step32, state32, data32 = build(None)
+    torch.cuda.reset_peak_memory_stats()
+    state32, _ = step32(state32, data32)
+    peak32 = (torch.cuda.max_memory_allocated() - held) / 1e9
+    t16, t32 = paired_ms(one_step, lambda: step32(state32, data32),
+                         BF16_TIMED_PAIRS)
+    del model, step, state, data, one_step, model32, step32, state32, data32
+    torch.cuda.empty_cache()
+    ratios = [a / b for a, b in zip(t16, t32)]
+    ms, ms32 = float(np.median(t16)), float(np.median(t32))
+    row.update({
+        "bf16": {"ms_per_step": ms, "pairs_per_s": batch / ms * 1e3,
+                 "peak_mem_gb": peak, "ms_all": t16},
+        "f32": {"ms_per_step": ms32, "pairs_per_s": batch / ms32 * 1e3,
+                "peak_mem_gb": peak32, "ms_all": t32},
+        "bf16_over_f32": float(np.median(ratios)),
+        "bf16_over_f32_range": [min(ratios), max(ratios)]})
+    print(f"  {label}: bf16 {ms:.2f} ms/step ({min(t16):.2f}-"
+          f"{max(t16):.2f}; {batch / ms * 1e3:.2f} pairs/s), peak "
+          f"{peak:.2f} GB; float32 (TF32 convs) {ms32:.2f} ms/step "
+          f"({min(t32):.2f}-{max(t32):.2f}), peak {peak32:.2f} GB; bf16/f32 "
+          f"{row['bf16_over_f32']:.2f} (median of {BF16_TIMED_PAIRS} pairs "
+          f"taken in turns, {min(ratios):.2f}-{max(ratios):.2f}); loss over "
+          f"5 steps {', '.join(f'{x:.3f}' for x in curve)}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; gradients finite, "
+          f"parameters float32", flush=True)
+    record.setdefault("bf16_train", {})[label] = row
+    return counts
+
+
+def bf16_train_phase(ops, record) -> dict:
+    """Phase 18: every registry name's bf16 train step at bench.py's widths;
+    returns the launch counts per path."""
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.train import (
+        Amsgrad,
+        TrainState,
+        make_train_step,
+    )
+
+    print(f"bf16 training: every registry name's train step, iters={ITERS}, "
+          f"AMSGrad, bf16 beside float32:", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    launches = {}
+    for name, (loss, batches) in BF16_TRAIN.items():
+        for batch in batches:
+            def build(dtype, name=name, loss=loss, batch=batch):
+                model = get_model(name, device="cuda", dtype=dtype)
+                tx = Amsgrad(LR)
+                return (model, make_train_step(tx, loss, iters=ITERS),
+                        TrainState.create(model, tx),
+                        train_batch(3, batch, TRAIN_H, TRAIN_W))
+
+            want = {("corr_band_bf16" if k == "corr_band" else k): v
+                    for k, v in train_launches(name).items()}
+            label = f"{name} {TRAIN_H}x{TRAIN_W} B={batch}"
+            launches[f"bf16_{name}_train_b{batch}"] = bf16_train_case(
+                ops, record, label, build, batch, want,
+                ("corr_band_kernel", "local_soft_argmin")
+                if (name, batch) == ("LowCNN_gru", 4) else None)
+
+    def build_raft(dtype):
+        model, _, state, step, data = raft_train_setup(dtype)
+        return model, step, state, data
+
+    launches["bf16_raft_train_step"] = bf16_train_case(
+        ops, record,
+        f"RAFT_Stereo {RAFT_TRAIN_H}x{RAFT_TRAIN_W} B={RAFT_TRAIN_B}",
+        build_raft, RAFT_TRAIN_B,
+        {"conv2d_fused_bf16": 28, "conv2d_fused_bf16_dx": 14,
+         "conv2d_dw_bf16": 14},
+        ("conv3x3_bf16_kernel", "dw_bf16_kernel", "dw_reduce_bf16_kernel",
+         "moments_kernel"))
+    return launches
+
+
+def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
+    """Phase 18: conv2d_dw_bf16 and the bf16 dx conv at RAFT's four train
+    sites by graph replay, beside their bound (bytes at the HBM rate or
+    operations at the bf16 tensor-core rate), their plain versions, cuDNN's
+    bf16 conv2d_weight and conv2d_input, and the float32 forms (conv2d_dw,
+    conv2d_fused as dx) in the same call. Returns conv2d_dw_bf16's row and
+    adds the dx conv's times to conv2d_fused_bf16's."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.fused_conv import _dx_conv, fused_blocks
+
+    torch.backends.cudnn.allow_tf32 = False
+    times = {"conv2d_dw_bf16": {}, "conv2d_fused_bf16_dx": {}}
+    for where, (B_, H_, W_, C) in RAFT_TRAIN_CONVS.items():
+        x32, g32 = randn(rng, B_, H_, W_, C), randn(rng, B_, H_, W_, C)
+        w32 = randn(rng, 3, 3, C, C) / np.sqrt(9 * C)
+        x, g, w = x32.bfloat16(), g32.bfloat16(), w32.bfloat16()
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+        w_rot32 = w32.flip((0, 1)).transpose(2, 3).contiguous()
+        zero = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
+        zero32 = torch.zeros(C, device="cuda")
+        nops = 2 * 9 * C * C * B_ * H_ * W_
+        t_ops = nops / BF16_FLOPS_PER_S * 1e3
+        for name, nbytes, kern, plain, lib, f32 in (
+                ("conv2d_dw_bf16", (2 * B_ * H_ * W_ * C + 9 * C * C) * 2,
+                 lambda: ops.conv2d_dw(x, g),
+                 lambda: ops.conv2d_dw_plain(x, g),
+                 lambda: conv2d_weight(xc, (C, C, 3, 3), gc, padding=1),
+                 lambda: ops.conv2d_dw(x32, g32)),
+                ("conv2d_fused_bf16_dx",
+                 (2 * B_ * H_ * W_ * C + 9 * C * C) * 2,
+                 lambda: _dx_conv(g, w_rot, zero),
+                 lambda: ops.conv3x3_plain(g, w_rot, zero),
+                 lambda: conv2d_input((B_, C, H_, W_), wc, gc, padding=1),
+                 lambda: _dx_conv(g32, w_rot32, zero32))):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"shape": [B_, H_, W_, C, C], "gflop": nops / 1e9,
+                   "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
+                   "plain_ms": graph_ms(plain, 3),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": graph_ms(lib, 10),
+                   "f32_form_ms": graph_ms(f32, 10)}
+            if name == "conv2d_fused_bf16_dx":
+                row["blocks"] = fused_blocks(B_, H_, W_, C, torch.bfloat16)
+            row["kernel_vs_library"] = row["ms"] / row["library_ms"]
+            times[name][where] = row
+            print(f"  {name} {where} {row['shape']}: {row['ms']:.4f} ms on "
+                  f"the device ({nops / row['ms'] / 1e9:.1f} TFLOP/s); "
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+                  f"({100 * row['bound_ms'] / row['ms']:.0f}% of it); plain "
+                  f"{row['plain_ms']:.4f} ms; cuDNN bf16 "
+                  f"{'conv2d_weight' if 'dw' in name else 'conv2d_input'} "
+                  f"{row['library_ms']:.4f} ms (kernel/cuDNN "
+                  f"{row['kernel_vs_library']:.2f}); the float32 form "
+                  f"{row['f32_form_ms']:.4f} ms", flush=True)
+        del x32, g32, w32, x, g, w, xc, gc, wc, w_rot, w_rot32
+    torch.backends.cudnn.allow_tf32 = True
+    record["kernel_times"].update(times)
+    usage = kernels.ptxas_usage("conv2d_dw_bf16")
+    print("  ptxas: " + ", ".join(
+        f"{e} {u.get('registers')} registers, {u.get('spill_stores')} B "
+        f"spilled" for e, u in usage.items() if "bf16" in e), flush=True)
+    main = times["conv2d_dw_bf16"]["fnet layer1"]
+    route, source, replaces = KERNELS["conv2d_dw_bf16"]
+    return [{
+        "name": "conv2d_dw_bf16", "route": route, "source": source,
+        "replaces": replaces,
+        "launches": launches["bf16_raft_train_step"]["conv2d_dw_bf16"],
+        "launches_by_path": {p: c["conv2d_dw_bf16"]
+                             for p, c in launches.items()},
+        "max_abs_err": err["conv2d_dw_bf16"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "f32_form_ms": main["f32_form_ms"], "shape": main["shape"],
+        "ptxas": usage}]
+
+
+def step_summary(name: str, where: str, dtype, sd: dict, batch: dict,
+                 iters: int, loss: str) -> dict:
+    """One train step (AMSGrad lr 1e-3) of model ``name`` from ``sd`` on
+    ``where`` in ``dtype``: the train-mode forward's disparities (every
+    output, the running statistics held), the step's loss and gradient
+    norm, each parameter's gradient and updated value, brought to the
+    CPU."""
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.nn.norm import frozen_statistics
+    from stereoformer_tpu_torch.train import (
+        Amsgrad,
+        TrainState,
+        make_train_step,
+    )
+
+    m = get_model(name, device=where, dtype=dtype)
+    m.load_state_dict(sd)
+    data = {k: v.to(where) for k, v in batch.items()}
+    m.train()
+    with torch.no_grad(), frozen_statistics(m):
+        out = m(data["img_left"], data["img_right"], iters=iters)
+    tx = Amsgrad(LR)
+    _, metrics = make_train_step(tx, loss, iters=iters)(
+        TrainState.create(m, tx), data)
+    return {"disparities": torch.cat([d.flatten() for d in
+                                      out["disparities"]]).cpu().double(),
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grads": {k: p.grad.cpu().double()
+                      for k, p in m.named_parameters()},
+            "params": {k: p.detach().cpu().double()
+                       for k, p in m.named_parameters()}}
+
+
+# phase 18's gate on the card's bf16 train step, the tests' gate on the CPU
+# port against JAX: each quantity no further from the CPU port's bf16 step
+# than BF16_FLOOR_FACTOR times the CPU port's own floor, the largest
+# distance from it of a CPU bf16 step with one bf16 ulp added at 0.1% of the
+# left image's values (one run for each seed of BF16_NUDGE_SEEDS)
+BF16_FLOOR_FACTOR = 1.5
+BF16_NUDGE_SEEDS = (9, 10, 11, 12, 13)
+# the share of gradient leaves at which the gate must be able to see a
+# gradient in a wrong direction
+BF16_GATE_POWER = 2 / 3
+
+
+def nudged(left: torch.Tensor, seed: int) -> torch.Tensor:
+    """``left`` with one bf16 ulp added at 0.1% of its values."""
+    pick = np.random.default_rng(seed).random(tuple(left.shape)) < 1e-3
+    out = left.clone()
+    out[torch.from_numpy(pick)] *= 1 + 2.0 ** -7
+    return out
+
+
+def bf16_train_parity_vs_cpu() -> dict:
+    """Phase 18: one bf16 train step on the card against the port's bf16
+    step on the CPU, TF32 off, moderate weights: LowCNN_gru at 64x256 and
+    RAFT_Stereo at 64x128, 2 iterations each (as the CPU tests take them:
+    over 12 GRU iterations a nudge moves LowCNN_gru's median gradient leaf
+    by more than its norm, and no gate could see a wrong direction).
+
+    A bf16 step is chaotic at the scale of its own rounding: two summation
+    orders, or one bf16 ulp changed at a few input values, move the
+    backbone's gradient leaves by about half their norm. So each quantity
+    is held, as the CPU tests hold the port to JAX, within
+    BF16_FLOOR_FACTOR times the CPU's own floor (the largest distance of a
+    nudged CPU step, BF16_NUDGE_SEEDS): the loss; the forward's
+    disparities (every output, mean abs); every parameter's gradient, leaf
+    by leaf, as the norm of the difference of the two gradient tensors (so
+    a gradient of the right norm and the wrong direction fails), its floor
+    at least one bf16 ulp of the leaf's norm; and the updated parameters
+    (the norm of the difference over all leaves: AMSGrad's first step moves
+    each by about lr, so a leaf's difference is the few gradients whose sign
+    flips). The step's gradient norm is printed. The gate has to be able
+    to see a wrong direction: a gradient of each leaf's norm in a seeded
+    random direction would fail it at BF16_GATE_POWER of the leaves or
+    more."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("bf16 train step: the card against the CPU port's bf16 step, "
+          f"within {BF16_FLOOR_FACTOR}x the CPU's floor (one bf16 ulp at "
+          f"0.1% of the left image, {len(BF16_NUDGE_SEEDS)} seeds), TF32 "
+          "off:", flush=True)
+    out = {}
+    for name, h, w, iters, seed in (("LowCNN_gru", 64, 256, 2, 2),
+                                    ("RAFT_Stereo", 64, 128, 2, 6)):
+        srng = np.random.default_rng(seed)
+        batch = {k: torch.from_numpy(srng.standard_normal(
+            (2, h, w, 3), dtype=np.float32)) for k in ("img_left",
+                                                       "img_right")}
+        batch["gt_disp"] = torch.from_numpy(
+            (6 + 3 * srng.standard_normal((2, h, w, 1))).astype(np.float32))
+        sd = moderate_weights(name)
+
+        def run(where, left):
+            return step_summary(name, where, torch.bfloat16, sd,
+                                {**batch, "img_left": left}, iters,
+                                "sequence")
+
+        cpu = run("cpu", batch["img_left"])
+        card = run("cuda", batch["img_left"])
+        nudges = [run("cpu", nudged(batch["img_left"], s))
+                  for s in BF16_NUDGE_SEEDS]
+
+        def dist(key, a):
+            if key == "loss":
+                return abs(a[key] - cpu[key])
+            if key == "disparities":
+                return (a[key] - cpu[key]).abs().mean().item()
+            return float(torch.sqrt(sum(((a[key][k] - cpu[key][k]) ** 2)
+                                        .sum() for k in cpu[key])))
+
+        row = {}
+        for key in ("loss", "disparities", "params"):
+            floor = max(dist(key, n) for n in nudges)
+            got = dist(key, card)
+            ok = got <= BF16_FLOOR_FACTOR * floor
+            print(f"  {name} {key}: card vs CPU {got:.4e}, the CPU's floor "
+                  f"{floor:.4e}: {got / floor:.2f} of it "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SmokeFailure(f"{name} bf16 step {key}: the card is "
+                                   f"{got} from the CPU, above "
+                                   f"{BF16_FLOOR_FACTOR} x {floor}")
+            row[key] = {"card_vs_cpu": got, "floor": floor}
+        leaves = {}
+        seen = 0
+        drng = torch.Generator().manual_seed(0)
+        for k, g in cpu["grads"].items():
+            norm = g.norm().item()
+            floor = max([2.0 ** -7 * norm] + [(n["grads"][k] - g).norm()
+                                              .item() for n in nudges])
+            got = (card["grads"][k] - g).norm().item()
+            finite = bool(torch.isfinite(card["grads"][k]).all())
+            wrong = torch.randn(g.shape, generator=drng, dtype=g.dtype)
+            seen += ((wrong * (norm / wrong.norm()) - g).norm().item()
+                     > BF16_FLOOR_FACTOR * floor)
+            leaves[k] = {"card_vs_cpu": got, "floor": floor, "norm": norm}
+            if not (finite and got <= BF16_FLOOR_FACTOR * floor):
+                raise SmokeFailure(
+                    f"{name} bf16 step, the gradient of {k}: the card is "
+                    f"{got:.4e} from the CPU (finite {finite}), above "
+                    f"{BF16_FLOOR_FACTOR} x {floor:.4e} (leaf norm "
+                    f"{norm:.4e})")
+        share = sorted((v["card_vs_cpu"] / v["floor"], k)
+                       for k, v in leaves.items())
+        rel = [v["card_vs_cpu"] / max(v["norm"], 1e-30)
+               for v in leaves.values()]
+        power = seen / len(leaves)
+        print(f"  {name} gradients, {len(leaves)} leaves: the worst "
+              f"{share[-1][1]} at {share[-1][0]:.2f} of its floor, the "
+              f"median at {share[len(share) // 2][0]:.2f}; the card's "
+              f"distance from the CPU relative to the leaf's norm up to "
+              f"{max(rel):.3f} (median {float(np.median(rel)):.3f}) ok; a "
+              f"gradient in a random direction would fail at {seen} of "
+              f"them ({power:.0%}, at least {BF16_GATE_POWER:.0%} needed) "
+              f"{'ok' if power >= BF16_GATE_POWER else 'FAIL'}; gradient "
+              f"norm card {card['grad_norm']:.4e}, CPU "
+              f"{cpu['grad_norm']:.4e}", flush=True)
+        if power < BF16_GATE_POWER:
+            raise SmokeFailure(f"{name} bf16 step: the floors are so wide "
+                               f"that a random gradient would pass at "
+                               f"{len(leaves) - seen} of {len(leaves)} "
+                               f"leaves")
+        row["grads"] = {"worst": share[-1][1], "worst_share": share[-1][0],
+                        "median_share": share[len(share) // 2][0],
+                        "max_rel": max(rel), "power": power,
+                        "leaves": leaves}
+        row["grad_norm"] = {"card": card["grad_norm"],
+                            "cpu": cpu["grad_norm"]}
+        out[name] = row
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def bf16_cli_phase(ops, record) -> dict:
+    """Phase 18: cli.train --dtype bf16 on dummy data at 320x640, B=4, 12
+    iterations (phase 14's arguments, dummy:8): one epoch, then --resume to
+    a second; the checkpoints hold float32 parameters, statistics and
+    moments. Returns the first run's launch counts."""
+    from stereoformer_tpu_torch.scripts.resume_determinism import (
+        TRAINER_ARGS,
+        train_run,
+    )
+
+    args = list(TRAINER_ARGS)
+    args[args.index("dummy:32")] = "dummy:8"
+    args += ["--dtype", "bf16"]
+    print(f"cli.train --dtype bf16 LowCNN_gru dummy:8 {TRAIN_H}x{TRAIN_W} B=4 "
+          f"iters={ITERS}:", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        reset_counts(ops)
+        first = train_run(args, root, "run", "--epochs", "1")
+        launches = read_counts(ops)
+        steps = sum(h["steps"] for h in first.history)
+        val = len(first.val_loader)
+        check_launches("cli.train --dtype bf16", launches,
+                       corr_band_bf16=steps + val,
+                       local_soft_argmin=ITERS * (steps + val),
+                       local_soft_argmin_bwd=ITERS * steps)
+        resumed = train_run(args, root, "run", "--epochs", "2", "--resume")
+        ckpts = sorted(n for n in os.listdir(os.path.join(root, "run"))
+                       if n.startswith("LowCNN_gru_0_"))
+        state = torch.load(os.path.join(root, "run", ckpts[-1]),
+                           map_location="cpu", weights_only=True)
+        dtypes = {str(v.dtype) for v in state["model"].values()} | {
+            str(v.dtype) for m in ("mu", "nu", "nu_max")
+            for v in state["opt_state"][m].values()}
+        losses = [h["loss"] for h in first.history + resumed.history]
+        ok = (resumed.is_pretrain and resumed.state.step == 2 * steps
+              and len(ckpts) == 2 and dtypes <= {"torch.float32",
+                                                 "torch.int64"}
+              and np.all(np.isfinite(losses))
+              and resumed.net.compute_dtype == torch.bfloat16)
+        print(f"  launches in epoch 1 ({steps} steps, {val} validation "
+              f"forwards): { {k: v for k, v in launches.items() if v} }; "
+              f"resumed to step {resumed.state.step}; checkpoints {ckpts}; "
+              f"checkpoint dtypes {sorted(dtypes)}; mean losses "
+              f"{', '.join(f'{x:.3f}' for x in losses)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure("cli.train --dtype bf16: the run or its "
+                               "resume failed its checks")
+        record["bf16_trainer_cli"] = {"launches": launches, "losses": losses,
+                                      "checkpoint_dtypes": sorted(dtypes)}
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def device_busy(fn) -> dict:

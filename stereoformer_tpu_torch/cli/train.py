@@ -13,8 +13,14 @@ the best EPE, ``--resume`` from the latest complete checkpoint in
 Runs on the GPU unless ``--device cpu`` is given; ``--devices`` picks one
 card by index (or ``all``, the first: training runs on one device).
 
-Not ported yet, and raising: ``--fsdp``, ``--dtype bf16`` and ``--gru_loop
-scan``. Accepted and ignored: ``--use_deform`` (as in the JAX CLI),
+``--dtype bf16`` (or ``bfloat16``) trains in bf16 as the JAX CLI does: the
+net computes in bf16, and the parameters, the AMSGrad state and the
+checkpoints stay float32, so ``--resume`` continues a bf16 run. ``--dtype``
+is free text, as the JAX CLI's is; a value other than f32, float32, bf16
+or bfloat16 raises, naming it.
+
+Not ported yet, and raising: ``--fsdp`` and ``--gru_loop scan``. Accepted
+and ignored: ``--use_deform`` (as in the JAX CLI),
 ``--no_mesh`` (there is one device) and ``--scan_unroll`` (a knob of the
 scanned loop). ``--profile_dir`` writes a ``torch.profiler`` trace of the
 first epoch.
@@ -76,9 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fsdp", action="store_true",
                    help="not ported yet: raises")
     p.add_argument("--dtype", type=str, default=None,
-                   choices=[None, "f32", "bf16"],
-                   help="compute dtype; bf16 training is not ported yet "
-                        "and raises")
+                   help="compute dtype: f32 (the default) or bf16 "
+                        "(parameters and optimizer state stay float32)")
     p.add_argument("--color_aug", action="store_true")
     p.add_argument("--no_mesh", action="store_true",
                    help="accepted and ignored: the port trains on one device")
@@ -128,11 +133,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--gru_loop scan is not ported: it is the JAX package's compile "
             "device; the port's GRU loop is unrolled")
-    if opt.dtype == "bf16":
-        raise NotImplementedError(
-            "--dtype bf16 is not ported yet: bf16 training comes with the "
-            "bf16 training slice (bf16 serving is get_model(name, "
-            "dtype=torch.bfloat16)); the port trains in float32")
     import torch
 
     from ..device import resolve_device
@@ -143,8 +143,12 @@ def main(argv=None):
         save_checkpoint,
     )
     from ..train.checkpoint import checkpoint_meta
+    from ..train.trainer import DTYPE_NAMES
     from ..utils import get_logger, load_loss_scheme
 
+    if opt.dtype not in DTYPE_NAMES:
+        raise ValueError(f"--dtype {opt.dtype!r}: one of "
+                         f"{[k for k in DTYPE_NAMES if k]}")
     device = resolve_device(_device(opt))   # raises before any file is made
     # live diagnosis: `kill -USR1 <pid>` dumps every thread's stack to
     # stderr without stopping training

@@ -103,6 +103,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -416,41 +417,10 @@ __device__ __forceinline__ int xunit(int p, int u) {
   return (p * UP + (u ^ (((unsigned)p / (8 / UP)) % UP))) << 4;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// the four 8x8 bf16 matrices whose rows lane i gives, rows i of matrix i/8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// the same, each matrix transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += A B for one m16n8k16 tile, bf16 operands, float32 accumulators.
-// Fragments (PTX ISA, "mma.m16n8k16" for .bf16), g = lane / 4, t = lane % 4:
-//     a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],
-//     a[2] = A[g][2t+8..+9],   a[3] = A[g+8][2t+8..+9]
-//     b[0] = B[2t..2t+1][g],   b[1] = B[2t+8..2t+9][g]
-// and d as the m16n8k8 C fragment (tf32x3.cuh).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using bf16mma::ldmatrix_x4;
+using bf16mma::ldmatrix_x4_trans;
+using bf16mma::mma_bf16;
+using bf16mma::smem_addr;
 
 // Epilogue: bias, residual, ReLU and the rounding to bf16 of the block's
 // output tile (a thread: channels 8 j + 2 tig (+1) of n8 tile j at its

@@ -49,6 +49,8 @@ KERNELS = {
     "conv2d_fused_bf16": ("conv2d_fused.cu", "conv2d_fused_forward_bf16",
                           (_P,) * 10 + (_I,) * 6 + (_P,)),
     "conv2d_dw": ("conv2d_dw.cu", "conv2d_dw", (_P,) * 4 + (_I,) * 6 + (_P,)),
+    "conv2d_dw_bf16": ("conv2d_dw.cu", "conv2d_dw_bf16",
+                       (_P,) * 4 + (_I,) * 6 + (_P,)),
     "deform_sample": ("deform_sample.cu", "deform_sample_forward",
                       (_P,) * 5 + (_I,) * 9 + (_P, _P)),
     "conv2d_s2": ("conv2d_s2.cu", "conv2d_s2_forward",
@@ -128,7 +130,8 @@ _MANGLED_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
     ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``,
-    ``corr_band_kernel<__nv_bfloat16>``, ``conv3x3_bf16_kernel<64>``."""
+    ``corr_band_kernel<__nv_bfloat16>``, ``conv3x3_bf16_kernel<64>``,
+    ``dw_bf16_kernel<96>``."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     name = mangled
     while (m := re.match(r"\d+", rest)):

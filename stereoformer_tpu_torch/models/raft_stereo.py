@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..nn import bf16
 from ..nn.conv import Conv2d, check_dtype
 from ..nn.raft import (
     CORR_LEVELS,
@@ -97,7 +98,7 @@ class RAFTStereo(nn.Module):
         ``test_mode``), "flow_low": [B, H/4, W/4, 1], "disp_low": its
         negation}."""
         cnet_list, fmap1, fmap2 = self.encode(left, right)
-        net = [torch.tanh(h) for h, _ in cnet_list]
+        net = [bf16.tanh(h) for h, _ in cnet_list]
         ctx = self.context_gates([torch.relu(c) for _, c in cnet_list])
 
         corr = allpairs_corr1d(fmap1, fmap2)

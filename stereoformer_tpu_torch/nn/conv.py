@@ -15,7 +15,9 @@ Where the JAX module casts a bf16 op's result to float32 right away (a
 BatchNorm's ``x - mean``, an ``.astype(float32)``), XLA computes that op in
 float32 and never rounds it to bf16: ``conv + bias`` is the conv rounded to
 bf16 plus the bias in float32, a conv without bias is the float32 conv.
-``Conv2d.forward_f32`` gives that value.
+``Conv2d.forward_f32`` gives that value. The value is still a bf16 array to
+JAX's autodiff, so its cotangent is rounded to bf16 before it reaches the
+conv and the bias: ``forward_f32`` rounds it there too.
 """
 
 from __future__ import annotations
@@ -44,6 +46,19 @@ def compute_dtype(dtype, x: torch.Tensor) -> torch.dtype:
     return dtype or torch.promote_types(x.dtype, torch.float32)
 
 
+class _Bf16Cotangent(torch.autograd.Function):
+    """The identity on a float32 value that JAX holds as bf16: its
+    cotangent is rounded to bf16 (and widened back), as JAX's is."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with the JAX ``Conv``'s compute dtype (``dtype``); its
     parameters and ``state_dict`` keys are ``nn.Conv2d``'s."""
@@ -65,16 +80,19 @@ class Conv2d(nn.Conv2d):
         """The output as a consumer that casts it to float32 reads it: in
         a bf16 compute dtype the conv rounded to bf16 plus the bf16 bias,
         added in float32 and not rounded, or without a bias the conv of the
-        bf16 operands in float32; else ``forward(x)``."""
+        bf16 operands in float32, its cotangent rounded to bf16; else
+        ``forward(x)``."""
         dt = compute_dtype(self.compute_dtype, x)
         if dt == torch.float32:
             return self.forward(x)
         if self.bias is None:
-            return F.conv2d(x.to(dt).float(), self.weight.to(dt).float(),
-                            None, self.stride, self.padding, self.dilation,
-                            self.groups)
-        y = self._conv(x, dt).float()
-        return y + self.bias.to(dt).float()[:, None, None]
+            y = F.conv2d(x.to(dt).float(), self.weight.to(dt).float(), None,
+                         self.stride, self.padding, self.dilation,
+                         self.groups)
+        else:
+            y = (self._conv(x, dt).float()
+                 + self.bias.to(dt).float()[:, None, None])
+        return _Bf16Cotangent.apply(y)
 
     def _conv(self, x, dt):
         return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,

@@ -8,8 +8,8 @@ reference's two convs ``conv_z`` and ``conv_b`` (the weight bridge splits
 ``dtype=torch.bfloat16``: the gate convs compute in bf16 (``nn/conv.py``),
 and the hidden state starts at zeros of x's dtype and stays in it, as in
 JAX: a bf16 x carries a bf16 state through every iteration; every
-elementwise op rounds to bf16, the sigmoid as JAX expands it
-(``nn/bf16.py``).
+elementwise op rounds to bf16, the sigmoid as JAX expands it, and the
+gates' gradients follow JAX's rules (``nn/bf16.py``).
 """
 
 from __future__ import annotations
@@ -39,5 +39,5 @@ class ConvGRU(nn.Module):
         xh = torch.cat([x, h], dim=1)
         z = bf16.sigmoid(self.conv_z(xh))
         b = bf16.sigmoid(self.conv_b(xh))
-        g = torch.tanh(self.conv_g(torch.cat([b * h, x], dim=1)))
+        g = bf16.tanh(self.conv_g(torch.cat([b * h, x], dim=1)))
         return (1.0 - z) * h + z * g

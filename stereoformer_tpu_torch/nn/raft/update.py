@@ -88,7 +88,7 @@ class ContextConvGRU(nn.Module):
         hx = torch.cat([h, x], dim=1)
         z = bf16.sigmoid(self.convz(hx) + cz)
         r = bf16.sigmoid(self.convr(hx) + cr)
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
+        q = bf16.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
 
 

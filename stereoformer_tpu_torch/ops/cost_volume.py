@@ -17,8 +17,9 @@ bf16 features give a bf16 volume, as ``correlation_volume_matmul`` gives
 it: the products summed in float32, divided by C and rounded once. CPU
 tensors take the plain version of that form; CUDA tensors launch the
 kernel's bf16 form (``corr_band_forward_bf16``), counted in
-``correlation_volume.bf16_launches``. Its backward is the bf16 training
-slice's and raises.
+``correlation_volume.bf16_launches``. Its backward is the Pallas ``_bwd``'s
+in bf16: the shift form in float32 on the widened features and cotangent,
+dleft and dright each rounded once to bf16.
 """
 
 from __future__ import annotations
@@ -92,9 +93,9 @@ class _CorrBand(torch.autograd.Function):
     def backward(ctx, grad):
         left, right = ctx.saved_tensors
         if left.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "corr_band: the bf16 backward is not ported yet (it comes "
-                "with the bf16 training slice)")
+            dleft, dright = correlation_volume_backward(
+                left.float(), right.float(), grad.float())
+            return dleft.to(left.dtype), dright.to(right.dtype), None
         return (*correlation_volume_backward(left, right, grad), None)
 
 

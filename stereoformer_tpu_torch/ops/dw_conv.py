@@ -13,6 +13,13 @@ plain version (``conv2d_dw_plain``); CUDA tensors launch the kernel
 ``csrc/conv2d_dw.cu`` or raise, counting launches in ``conv2d_dw.launches``.
 The kernel takes C = Co = 64 or 96, the widths of the sites RAFT routes to
 the fused conv.
+
+bf16 x and g give a bf16 dw, as the fused conv's bf16 backward takes it
+(the Pallas kernel's float32 sums cast to the bf16 weight by ``_dw``): the
+products summed in float32, one rounding. CPU tensors take the plain
+version of that form; CUDA tensors launch the kernel's bf16 form
+(``conv2d_dw_bf16``, the same source, on the bf16 tensor cores), counted in
+``conv2d_dw.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,11 @@ def dw_plan(C: int, sms: int) -> tuple:
 def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The tap formulation (``stereoformer_tpu/ops/convgrad.py::
     conv2d_dw_tap``): one contraction over (b, h, w) per tap, of the shifted
-    slice of the zero-padded x with g."""
+    slice of the zero-padded x with g. bf16 x and g are multiplied and
+    summed in float32 (their products are exact there) and dw is rounded
+    to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return conv2d_dw_plain(x.float(), g.float()).to(torch.bfloat16)
     B, H, W, C = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     taps = [torch.einsum("bhwc,bhwo->co", xp[:, di:di + H, dj:dj + W], g)
@@ -56,29 +67,35 @@ def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dw [3, 3, C, Co] of a stride-1 3x3 SAME conv with input x and output
-    cotangent g: the plain version on CPU tensors, the kernel on CUDA
-    tensors."""
+    cotangent g, of their dtype (float32 or bf16): the plain version on CPU
+    tensors, the kernel on CUDA tensors."""
     if x.device.type == "cpu" and g.device.type == "cpu":
         return conv2d_dw_plain(x, g)
-    kernels.check_inputs("conv2d_dw", x, g)
+    bf16 = x.dtype == torch.bfloat16
+    name = "conv2d_dw_bf16" if bf16 else "conv2d_dw"
+    kernels.check_inputs(name, x, g)
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(
-            f"conv2d_dw: the kernel takes x [B, H, W, C] and g [B, H, W, Co], "
+            f"{name}: the kernel takes x [B, H, W, C] and g [B, H, W, Co], "
             f"got {tuple(x.shape)} and {tuple(g.shape)}")
     B, H, W, C = x.shape
     Co = g.shape[3]
     if C != Co or C not in _KERNEL_C:
         raise ValueError(
-            f"conv2d_dw: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
+            f"{name}: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
             f"Co={Co}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit, _ = dw_plan(C, sms)
-    part = x.new_empty((nsplit, 9, C, Co))
+    part = x.new_empty((nsplit, 9, C, Co), dtype=torch.float32)
     dw = x.new_empty((3, 3, C, Co))
-    kernels.launch("conv2d_dw", x.device, x.data_ptr(), g.data_ptr(),
+    kernels.launch(name, x.device, x.data_ptr(), g.data_ptr(),
                    part.data_ptr(), dw.data_ptr(), B, H, W, C, Co, nsplit)
-    conv2d_dw.launches += 1
+    if bf16:
+        conv2d_dw.bf16_launches += 1
+    else:
+        conv2d_dw.launches += 1
     return dw
 
 
 conv2d_dw.launches = 0
+conv2d_dw.bf16_launches = 0

@@ -33,8 +33,14 @@ FMA, rounded to bf16 before the conv; the moments float32, of the rounded
 outputs. CPU tensors
 take its plain version; CUDA tensors launch ``conv2d_fused_forward_bf16``
 (the same source, its own mainloop on the bf16 tensor cores), counted in
-``conv2d_fused.bf16_launches``. Its backward is the bf16 training slice's
-and raises.
+``conv2d_fused.bf16_launches``. Its backward rounds where the Pallas VJPs
+do (``fused_conv_backward``): the moments' total cotangent summed in
+float32 and rounded once; db the float32 sum cast to bf16; dx the bf16
+fused conv of the bf16 cotangent (launched from the backward, counted in
+``conv2d_fused.bf16_launches`` and again in
+``conv2d_fused.bf16_dx_launches``); dw ``conv2d_dw``'s bf16 form; the
+prologue's relu(x*s + t) rounded to bf16 for dw, its gradients in float32
+from the widened dx conv, dx rounded once.
 
 Beside them, as the JAX module keeps it, the stride-2 entry point
 
@@ -83,6 +89,18 @@ def fused_blocks(B: int, H: int, W: int, Co: int,
     return B * fused_tiles(H, W, dtype) * (Co // _CB[dtype][Co])
 
 
+def _prologue(x, s, t):
+    """(u, z) = (x s + t, relu(u)), s and t [B, C]. A bf16 x: one FMA, as
+    XLA computes it (the product of a bf16 and a float32 is exact in
+    float64), u float32 and z rounded to bf16; else in x's dtype."""
+    s, t = s[:, None, None, :], t[:, None, None, :]
+    if x.dtype == torch.bfloat16:
+        u = (x.double() * s.double() + t.double()).float()
+        return u, torch.relu(u).to(torch.bfloat16)
+    u = x * s + t
+    return u, torch.relu(u)
+
+
 def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
                   with_stats=False):
     """The plain version of every entry point (same arguments); the moments
@@ -91,13 +109,7 @@ def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
     output), the moments of the rounded y."""
     if x.dtype == torch.bfloat16:
         bf = torch.bfloat16
-        x32 = x.float()
-        if s is not None:
-            # x * s + t rounded once (an FMA, as XLA computes it): the
-            # product of a bf16 and a float32 is exact in float64
-            u = (x.double() * s[:, None, None, :].double()
-                 + t[:, None, None, :].double()).float()
-            x32 = torch.relu(u).to(bf).float()
+        x32 = (x if s is None else _prologue(x, s, t)[1]).float()
         y = conv3x3_plain(x32, w.float(), b.float(),
                           None if residual is None else residual.float(),
                           relu).to(bf)
@@ -106,7 +118,7 @@ def conv3x3_plain(x, w, b, residual=None, relu=False, s=None, t=None,
         y64 = y.double()
         return (y, y64.sum((1, 2)).float(), y64.square().sum((1, 2)).float())
     if s is not None:
-        x = torch.relu(x * s[:, None, None, :] + t[:, None, None, :])
+        x = _prologue(x, s, t)[1]
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
                  padding=(w.shape[0] // 2, w.shape[1] // 2)).permute(0, 2, 3, 1)
     if residual is not None:
@@ -171,6 +183,19 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
     return (y, s1, s2) if with_stats else y
 
 
+def _dx_conv(g, w_rot, zero):
+    """The dx conv of the backward: the fused conv of the cotangent with
+    the flipped, io-transposed weights and no bias, plain on CPU tensors;
+    on CUDA tensors a launch of the kernel, its bf16 form counted also in
+    ``conv2d_fused.bf16_dx_launches``."""
+    if g.device.type == "cpu":
+        return conv3x3_plain(g, w_rot, zero)
+    y = _launch(g, w_rot, zero, None, None, None, False, False)
+    if g.dtype == torch.bfloat16:
+        conv2d_fused.bf16_dx_launches += 1
+    return y
+
+
 def fused_conv_backward(x, w, y, gy, gs1=None, gs2=None, s=None, t=None,
                         relu=False, has_residual=False, needs=(True,) * 6):
     """The VJP of ``conv3x3_fused`` (the Pallas ``_bwd``, ``_prologue_bwd``
@@ -185,33 +210,43 @@ def fused_conv_backward(x, w, y, gy, gs1=None, gs2=None, s=None, t=None,
     dw = conv2d_dw(z, gpre) with z = relu(x s + t) or x; dz = the fused conv
     of gpre with the flipped, io-transposed w and no bias; with the prologue
     du = dz where x s + t > 0, dx = du s, ds = sum_hw du x, dt = sum_hw du,
-    else dx = dz."""
+    else dx = dz.
+
+    bf16 x, w, y and gy (s, t and the moments' cotangents float32) round as
+    the Pallas VJPs: g summed in float32 and rounded once to bf16; db the
+    float32 sum, cast to bf16 (b's dtype); dw and dz bf16 (float32 sums,
+    one rounding); with the prologue x s + t one FMA in float32, z its ReLU
+    rounded to bf16, du from dz widened to float32, dx = du s rounded once,
+    ds and dt float32."""
     need_x, need_w, need_b, need_res, need_s, need_t = needs
     g = gy if gy is not None else torch.zeros_like(y)
-    if gs1 is not None:
-        g = g + gs1[:, None, None, :]
-    if gs2 is not None:
-        g = g + 2.0 * y * gs2[:, None, None, :]
+    if gs1 is not None or gs2 is not None:
+        g = g.float()
+        if gs1 is not None:
+            g = g + gs1[:, None, None, :]
+        if gs2 is not None:
+            g = g + 2.0 * y.float() * gs2[:, None, None, :]
+        g = g.to(y.dtype)
     if relu:
         g = torch.where(y > 0, g, 0.0)
     if not g.is_contiguous():
         # the cotangent of an NCHW consumer; the kernels read NHWC
         g = g.contiguous()
         conv2d_fused.grad_copies += 1
-    db = g.sum((0, 1, 2)) if need_b else None
+    db = g.float().sum((0, 1, 2)).to(w.dtype) if need_b else None
     dres = g if has_residual and need_res else None
-    u = None if s is None else x * s[:, None, None, :] + t[:, None, None, :]
-    dw = conv2d_dw(x if u is None else torch.relu(u), g) if need_w else None
+    u, z = (None, None) if s is None else _prologue(x, s, t)
+    dw = conv2d_dw(x if z is None else z, g) if need_w else None
     dx = ds = dt = None
     if need_x or need_s or need_t:
         w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
-        dz = conv3x3_fused(g, w_rot, w.new_zeros(w.shape[2]))
+        dz = _dx_conv(g, w_rot, w.new_zeros(w.shape[2]))
         if u is None:
             dx = dz
         else:
-            du = torch.where(u > 0, dz, 0.0)
-            dx = du * s[:, None, None, :] if need_x else None
-            ds = (du * x).sum((1, 2)) if need_s else None
+            du = torch.where(u > 0, dz.float(), 0.0)
+            dx = (du * s[:, None, None, :]).to(x.dtype) if need_x else None
+            ds = (du * x.float()).sum((1, 2)) if need_s else None
             dt = du.sum((1, 2)) if need_t else None
     return dx, dw, db, dres, ds, dt
 
@@ -232,10 +267,6 @@ class _FusedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gs1=None, gs2=None):
         x, w, s, t, y = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "conv2d_fused: the bf16 backward is not ported yet (it "
-                "comes with the bf16 training slice)")
         grads = fused_conv_backward(x, w, y, gy, gs1, gs2, s, t, ctx.relu,
                                     ctx.has_residual, ctx.needs_input_grad[:6])
         return (*grads, None, None)
@@ -272,6 +303,8 @@ def conv2d_fused_prologue_stats(x, w, b, s, t, relu: bool = False):
 
 conv2d_fused.launches = 0
 conv2d_fused.bf16_launches = 0
+# of the bf16 launches, those of the backward's dx conv
+conv2d_fused.bf16_dx_launches = 0
 # copies of a cotangent to NHWC that the backward had to make
 conv2d_fused.grad_copies = 0
 

@@ -41,7 +41,7 @@ from .. import kernels, ops
 from ..ops.fused_conv import fused_tiles
 
 OUT = kernels.BUILD_DIR.parent / "probe_bf16"
-SOURCES = ("conv2d_fused.cu", "tf32x3.cuh")
+SOURCES = ("conv2d_fused.cu", "tf32x3.cuh", "bf16mma.cuh")
 _RW = "constexpr int RW = 2;               // output rows per warp"
 _KC = "static constexpr int KC = NB == 64 ? 16 : 32;"
 _ST = "static constexpr int STAGES = NB == 64 ? 3 : 2;"

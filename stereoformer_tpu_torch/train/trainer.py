@@ -11,9 +11,15 @@ batches reach the device through ``data.DevicePrefetcher``. Metrics stay
 0-d tensors on the device and are read at log points and once at the end
 of an epoch, as the JAX trainer reads them.
 
-Not ported: the device mesh and FSDP (``mesh``, ``fsdp``), bf16
-(``dtype="bf16"``) and the scanned GRU loop (``gru_loop="scan"``); each
-raises ``NotImplementedError``.
+``dtype="bf16"`` (or ``"bfloat16"``) builds the net with
+``dtype=torch.bfloat16``, as the JAX trainer does: the forward, the
+backward and the validation compute in bf16 where the JAX modules do, and
+the parameters, the AMSGrad moments, the BatchNorm statistics and the
+checkpoints stay float32. ``None``, ``"f32"`` or ``"float32"`` train in
+float32; any other value raises ``ValueError``, naming it.
+
+Not ported: the device mesh and FSDP (``mesh``, ``fsdp``) and the scanned
+GRU loop (``gru_loop="scan"``); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ from .state import TrainState
 from .steps import make_eval_step, make_train_step
 
 logger = get_logger()
+
+# the trainer's dtype names -> the net's compute dtype (None: float32)
+DTYPE_NAMES = {None: None, "f32": None, "float32": None,
+               "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 # the default loss of each model family (the reference trainer that used it)
 _DEFAULT_LOSS = {
@@ -106,10 +116,10 @@ class DisparityTrainer:
                 "mesh and fsdp are not ported yet (data parallelism and "
                 "sharded state come in a later slice); the port trains on "
                 "one device")
-        if dtype not in (None, "f32", "float32"):
-            raise NotImplementedError(
-                f"dtype={dtype!r} is not ported yet (bf16 training comes "
-                f"with the bf16 training slice); the port trains in float32")
+        if dtype not in DTYPE_NAMES:
+            raise ValueError(
+                f"dtype={dtype!r} is not a training dtype; one of "
+                f"{list(DTYPE_NAMES)}")
         if gru_loop != "unroll":
             raise NotImplementedError(
                 f"gru_loop={gru_loop!r} is not ported: it is the JAX "
@@ -137,6 +147,7 @@ class DisparityTrainer:
         self.freeze_bn = freeze_bn
         self.data_cache = data_cache
         self.scale_size = scale_size
+        self.dtype = DTYPE_NAMES[dtype]
         self.device = resolve_device(device)
         self.current_lr = lr
         self.is_pretrain = False
@@ -189,6 +200,8 @@ class DisparityTrainer:
         from ..weights import init_state_dict
 
         kw = {"remat_update": True} if self.remat_update else {}
+        if self.dtype is not None:
+            kw["dtype"] = self.dtype
         self.net = get_model(self.model_name, device=self.device,
                              max_disp=self.maxdisp, **kw)
         # from scratch: the JAX models' distributions, drawn from the seed

@@ -919,15 +919,19 @@ BF16_ULP = 2.0 ** -7
 F32_SUM_RTOL = 2.0 ** -20
 
 
-def _bf16_close(got, want):
-    """Each output within one bf16 ulp of the plain version's (or the float32
-    sums' error near 0)."""
-    got, want = got.float().cpu(), want.float().cpu()
-    assert got.shape == want.shape
-    big = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+def _bf16_close(got, want, rtol=F32_SUM_RTOL):
+    """Each output of bf16 ``got`` within one bf16 ulp of ``want`` (the
+    plain version's bf16, or float64 sums rounded to bf16 once), or near 0
+    within the float32 sums' error, ``rtol`` of the largest |want|."""
+    assert got.dtype == torch.bfloat16
+    assert want.dtype in (torch.bfloat16, torch.float64)
+    ref = want.to(torch.bfloat16).double().cpu()
+    got = got.double().cpu()
+    assert got.shape == ref.shape
+    big = torch.maximum(got.abs(), ref.abs()).clamp(min=1e-30)
     ulp = BF16_ULP * torch.exp2(torch.floor(torch.log2(big)))
-    tol = ulp.clamp(min=F32_SUM_RTOL * want.abs().max().item())
-    assert ((got - want).abs() <= tol).all(), (got - want).abs().max()
+    tol = ulp.clamp(min=rtol * want.abs().max().item())
+    assert ((got - ref).abs() <= tol).all(), (got - ref).abs().max()
 
 
 @pytest.mark.parametrize("shape,D", [((8, 72, 120, 256), 24),
@@ -1022,10 +1026,19 @@ def test_bf16_forms_reject_what_they_do_not_take(cuda_device):
         ops.local_soft_argmin(_randn(rng, (1, 2, 30, 24), cuda_device)
                               .bfloat16(),
                               _randn(rng, (1, 2, 30, 21), cuda_device))
-    y = ops.conv2d_fused(x.bfloat16().requires_grad_(True), w.bfloat16(),
-                         b.bfloat16(), None, False)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        y.float().sum().backward()
+    g = _randn(rng, (1, 8, 16, 64), cuda_device)
+    with pytest.raises(TypeError, match="conv2d_dw_bf16"):
+        ops.conv2d_dw(x.bfloat16(), g)
+    with pytest.raises(ValueError, match="conv2d_dw_bf16"):
+        ops.conv2d_dw(x[..., :32].contiguous().bfloat16(), g.bfloat16())
+    # the bf16 backward's dx conv takes the kernel's widths: at a site with
+    # C = 32 it would have 32 outputs, and raises naming the kernel
+    x32 = x[..., :32].contiguous().bfloat16()
+    w32 = w[:, :, :32].contiguous().bfloat16()
+    y = ops.conv2d_fused(x32, w32, b.bfloat16(), None, False)
+    with pytest.raises(ValueError, match="conv2d_fused"):
+        ops.fused_conv.fused_conv_backward(x32, w32, y, y,
+                                           needs=(True,) + (False,) * 5)
 
 
 def test_bf16_models_launch_the_bf16_forms(cuda_device):
@@ -1052,3 +1065,145 @@ def test_bf16_models_launch_the_bf16_forms(cuda_device):
         assert (d[1], d[3]) == want16, d
         disp = out["disparities"][-1]
         assert disp.dtype == torch.float32 and torch.isfinite(disp).all()
+
+
+# --- bf16 training: the backward's kernel forms ----------------------------
+
+# the bf16 dw of a sum over up to B H W = 1.8 M pixels: each output within
+# one bf16 ulp of the float64 sum rounded once, or near 0, where the sum
+# cancels, within the float32 tile sums' own error, DW_RTOL of the largest
+BF16_TRAIN_SHAPES = [(8, 320, 720, 64), (4, 160, 360, 96), (1, 37, 53, 96),
+                     (2, 19, 40, 64), (1, 9, 33, 96), (2, 3, 5, 64)]
+BF16_TRAIN_IDS = ["fnet-layer1", "cnet-layer2", "edge-C96", "H-tail-C64",
+                  "tails-C96", "tiny-C64"]
+
+
+@pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)
+def test_conv2d_dw_bf16_matches_plain(cuda_device, shape):
+    """The bf16 form of conv2d_dw: bf16 x and g, float32 sums, one rounding;
+    counted apart from the float32 form, and the same bits on a second
+    call."""
+    rng = np.random.default_rng(25)
+    B, H, W, C = shape
+    x = _randn(rng, shape, cuda_device).bfloat16()
+    g = _randn(rng, shape, cuda_device).bfloat16()
+    n32, n16 = ops.conv2d_dw.launches, ops.conv2d_dw.bf16_launches
+    got = ops.conv2d_dw(x, g)
+    torch.cuda.synchronize()
+    assert (ops.conv2d_dw.launches, ops.conv2d_dw.bf16_launches) == (
+        n32, n16 + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 3, C, C)
+    _bf16_close(got, ops.conv2d_dw_plain(x.double(), g.double()), DW_RTOL)
+    assert torch.equal(ops.conv2d_dw(x, g), got)
+
+
+@pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)
+def test_conv2d_fused_bf16_dx_matches_plain(cuda_device, shape):
+    """The bf16 backward's dx conv (the bf16 fused conv of the cotangent
+    with the flipped, io-transposed weights, no bias) against the plain
+    version, counted in bf16_launches and bf16_dx_launches; the same bits
+    on a second call."""
+    from stereoformer_tpu_torch.ops.fused_conv import _dx_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(26)
+    C = shape[3]
+    g = _randn(rng, shape, cuda_device).bfloat16()
+    w = (_randn(rng, (3, 3, C, C), cuda_device) / np.sqrt(9 * C)).bfloat16()
+    w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+    zero = torch.zeros(C, device=cuda_device, dtype=torch.bfloat16)
+    n16 = ops.conv2d_fused.bf16_launches
+    ndx = ops.conv2d_fused.bf16_dx_launches
+    got = _dx_conv(g, w_rot, zero)
+    torch.cuda.synchronize()
+    assert (ops.conv2d_fused.bf16_launches,
+            ops.conv2d_fused.bf16_dx_launches) == (n16 + 1, ndx + 1)
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, ops.conv3x3_plain(g, w_rot, zero))
+    assert torch.equal(_dx_conv(g, w_rot, zero), got)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("variant", list(_BWD_VARIANTS))
+def test_conv2d_fused_bf16_backward_matches_plain(cuda_device, variant):
+    """The fused conv's bf16 backward on the card (the bf16 dx and dw
+    kernels) against the same backward on CPU copies (their plain
+    versions): the bf16 gradients within one bf16 ulp of the largest, s
+    and t's float32 gradients likewise; one forward, one dx and one dw
+    launch, no float32 form."""
+    res, pro, stats, relu = _BWD_VARIANTS[variant]
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(27)
+    x, w, b, s, t, r = _conv_inputs(rng, (2, 19, 40, 64, 64), cuda_device)
+    x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
+    gy = _randn(rng, (2, 19, 40, 64), cuda_device).bfloat16()
+    g1, g2 = (0.1 * _randn(rng, (2, 64), cuda_device) for _ in range(2))
+    names = ["x", "w", "b"] + (["r"] if res else []) + (["s", "t"] if pro
+                                                        else [])
+    vals = dict(x=x, w=w, b=b, r=r, s=s, t=t)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        v = {k: vals[k].to(dev).requires_grad_(True) for k in names}
+        before = (ops.conv2d_fused.launches, ops.conv2d_fused.bf16_launches,
+                  ops.conv2d_fused.bf16_dx_launches, ops.conv2d_dw.launches,
+                  ops.conv2d_dw.bf16_launches)
+        out = ops.fused_conv.conv3x3_fused(
+            v["x"], v["w"], v["b"], v.get("r"), relu, v.get("s"), v.get("t"),
+            stats)
+        outs = out if stats else (out,)
+        cots = ((gy.to(dev), g1.to(dev), g2.to(dev)) if stats
+                else (gy.to(dev),))
+        grads[str(dev)] = torch.autograd.grad(outs, [v[k] for k in names],
+                                              cots)
+        after = (ops.conv2d_fused.launches, ops.conv2d_fused.bf16_launches,
+                 ops.conv2d_fused.bf16_dx_launches, ops.conv2d_dw.launches,
+                 ops.conv2d_dw.bf16_launches)
+        want = (0, 0, 0, 0, 0) if dev == "cpu" else (0, 2, 1, 0, 1)
+        assert tuple(a - b_ for a, b_ in zip(after, before)) == want
+    torch.cuda.synchronize()
+    for k, got, ref in zip(names, grads[str(cuda_device)], grads["cpu"]):
+        assert got.dtype == ref.dtype, k
+        got, ref = got.float().cpu(), ref.float()
+        big = ref.abs().max().item()
+        tol = BF16_ULP * 2.0 ** np.floor(np.log2(big))
+        assert (got - ref).abs().max().item() <= tol, k
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def test_bf16_train_steps_launch_the_bf16_forms(cuda_device):
+    """One bf16 train step each: RAFT_Stereo launches the bf16 fused conv
+    14 times forward and 14 times as dx, the bf16 dw 14 times, and no
+    float32 conv form; LowCNN_gru corr_band's bf16 form once and the
+    refinement kernels once per iteration; every gradient finite and every
+    parameter float32."""
+    from stereoformer_tpu_torch import train
+    from stereoformer_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(28)
+    for name, iters in (("RAFT_Stereo", 2), ("LowCNN_gru", 2)):
+        model = get_model(name, device=cuda_device, dtype=torch.bfloat16)
+        tx = train.Amsgrad(1e-3)
+        state = train.TrainState.create(model, tx)
+        batch = {"img_left": _randn(rng, (2, 64, 128, 3), cuda_device),
+                 "img_right": _randn(rng, (2, 64, 128, 3), cuda_device),
+                 "gt_disp": 10 + _randn(rng, (2, 64, 128, 1), cuda_device)}
+        counters = [(ops.conv2d_fused, "launches"),
+                    (ops.conv2d_fused, "bf16_launches"),
+                    (ops.conv2d_fused, "bf16_dx_launches"),
+                    (ops.conv2d_dw, "launches"),
+                    (ops.conv2d_dw, "bf16_launches"),
+                    (ops.correlation_volume, "launches"),
+                    (ops.correlation_volume, "bf16_launches"),
+                    (ops.local_soft_argmin, "launches"),
+                    (ops.local_soft_argmin, "backward_launches")]
+        before = [getattr(o, c) for o, c in counters]
+        state, m = train.make_train_step(tx, "sequence", iters=iters)(
+            state, batch)
+        torch.cuda.synchronize()
+        d = [getattr(o, c) - b_ for (o, c), b_ in zip(counters, before)]
+        want = ([0, 28, 14, 0, 14, 0, 0, 0, 0] if name == "RAFT_Stereo"
+                else [0, 0, 0, 0, 0, 0, 1, iters, iters])
+        assert d == want, (name, d)
+        assert np.isfinite(float(m["loss"]))
+        for k, p in model.named_parameters():
+            assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), k

@@ -175,12 +175,25 @@ def test_conv2d_fused_bf16_moments_match_pallas(shape, prologue):
 
 
 def test_conv2d_fused_bf16_backward_raises():
-    """The bf16 backward comes with the bf16 training slice."""
+    """The bf16 backward no longer raises (``fused_conv_backward``):
+    gradients of x, w and b in bf16, each the float32 sums of the plain
+    backward rounded once
+    (dx the flipped conv of the bf16 cotangent, dw the plain dw, db the
+    float32 sum). Against the Pallas VJPs in
+    ``test_torch_bf16_train_ops.py``."""
     a = _conv_inputs(1, 5, 6, 64, 64, seed=13)
-    x = _port(a, "x").requires_grad_(True)
-    y = ops.conv2d_fused(x, _port(a, "w"), _port(a, "b"), None, False)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        y.float().sum().backward()
+    x, w, b = (_port(a, k).requires_grad_(True) for k in "xwb")
+    y = ops.conv2d_fused(x, w, b, None, False)
+    gy = _port(a, "r")
+    y.backward(gy)
+    assert x.grad.dtype == w.grad.dtype == b.grad.dtype == BF
+    w_rot = w.detach().flip((0, 1)).transpose(2, 3)
+    dx = ops.conv3x3_plain(gy.float(), w_rot.float(),
+                           torch.zeros(64)).to(BF)
+    assert torch.equal(x.grad, dx)
+    assert torch.equal(w.grad, ops.conv2d_dw_plain(x.detach().float(),
+                                                   gy.float()).to(BF))
+    assert torch.equal(b.grad, gy.float().sum((0, 1, 2)).to(BF))
 
 
 @pytest.mark.parametrize("groups,affine", [(64, False), (8, True)],

@@ -193,11 +193,11 @@ def test_trainer_follows_jax_trainer(jax_epoch, tmp_path):
 RUN_KW = dict(TRAINER_KW, dataset="dummy:4", num_workers=2)
 
 
-def _train(outf, epochs, pretrain=None, start=0):
+def _train(outf, epochs, pretrain=None, start=0, **kw):
     """The CLI's loop: train, validate and save every epoch from
     ``start``; returns the trainer and the epochs' mean losses."""
     trainer = train.DisparityTrainer(**RUN_KW, pretrain=pretrain,
-                                     device="cpu")
+                                     device="cpu", **kw)
     trainer.initialize()
     losses = []
     for epoch in range(start, epochs):
@@ -477,10 +477,36 @@ def test_pretrain_falls_back_to_parameters_only(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    for kw in ({"mesh": object()}, {"fsdp": True}, {"dtype": "bf16"},
-               {"gru_loop": "scan"}):
+    for kw in ({"mesh": object()}, {"fsdp": True}, {"gru_loop": "scan"}):
         with pytest.raises(NotImplementedError):
             train.DisparityTrainer(**TRAINER_KW, device="cpu", **kw)
+    # dtype names the JAX trainer's dtypes; any other raises, naming it
+    for dtype in ("fp16", "float16", "bf32"):
+        with pytest.raises(ValueError, match=dtype):
+            train.DisparityTrainer(**TRAINER_KW, device="cpu", dtype=dtype)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.DisparityTrainer(**TRAINER_KW)
+
+
+def test_bf16_trainer_trains_validates_and_resumes(tmp_path):
+    """``dtype="bf16"`` builds the net in bf16, as the JAX trainer does:
+    the steps and the validation run in bf16, the loss falls, and the
+    checkpoints hold float32 parameters, statistics and moments; a run
+    stopped after one epoch and resumed equals an uninterrupted one, bit for
+    bit."""
+    whole, losses = _train(str(tmp_path / "whole"), 3, dtype="bf16")
+    assert whole.net.compute_dtype == torch.bfloat16
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    part = str(tmp_path / "part")
+    _train(part, 1, dtype="bf16")
+    latest = train.latest_checkpoint(part, "LowCNN_gru")
+    ckpt = torch.load(latest, map_location="cpu", weights_only=True)
+    for k, v in ckpt["model"].items():
+        assert v.dtype in (torch.float32, torch.int64), k
+    for m in ("mu", "nu", "nu_max"):
+        assert all(v.dtype == torch.float32
+                   for v in ckpt["opt_state"][m].values())
+    resumed, _ = _train(part, 3, pretrain=latest, start=1, dtype="bf16")
+    assert resumed.is_pretrain and resumed.state.step == 6
+    _assert_states_equal(resumed.state, whole.state)
