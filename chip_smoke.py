@@ -185,9 +185,12 @@ any failure exits nonzero and prints no result:
    over 5 steps on one batch, peak memory beside the float32 step's, and
    ms/step by CUDA events, bf16 and float32 steps timed in turns (10
    pairs: the medians and the range of the per-pair ratio); the two new
-   forms' device time at RAFT's four train sites beside their bound, their
-   plain versions, cuDNN's bf16 conv2d_weight and conv2d_input, and the
-   float32 forms; one bf16 train step of LowCNN_gru (64x256) and RAFT
+   forms' device time at RAFT's four train sites beside their bound and the
+   share of it they reach, their plain versions, cuDNN's bf16
+   conv2d_weight and conv2d_input, and the float32 forms, and
+   conv2d_dw_bf16's 14 launches of one RAFT bf16 step by graph replay and
+   by the step's profile (dw_bf16_kernel and its reduction); one bf16
+   train step of LowCNN_gru (64x256) and RAFT
    (64x128) on the card against the port's bf16 step on the CPU, TF32 off:
    2 iterations: the loss, the forward's disparities, each parameter's
    gradient tensor and the updated parameters within 1.5 times the CPU's
@@ -3181,9 +3184,14 @@ BF16_TRAIN = {
     "CrossAttentionStereo": ("sequence", (4,)),
 }
 # conv2d_dw_bf16's and the bf16 dx conv's edge shapes (B, H, W, C): H and W
-# off the dw kernel's 2 x 32 and the fused conv's 8 x 32 tiles, C 64 and 96
+# off the fused conv's 8 x 32 tiles, C 64 and 96; for the dw kernel's walk
+# of 16-column strips down runs of rows, W off the strip (53, 33, 50, 21)
+# and under it (5, 7), images of 1 and 2 rows (the ring's first and last
+# rows at once), and runs that end inside an image (3 x 97 rows of 4
+# strips, 2 x 150 of 3, over the grid's 132 or 44 splits)
 EDGE_BF16_TRAIN = [(1, 37, 53, 96), (2, 19, 40, 64), (1, 9, 33, 96),
-                   (2, 3, 5, 64)]
+                   (2, 3, 5, 64), (1, 1, 40, 64), (1, 2, 21, 96),
+                   (1, 11, 7, 96), (3, 97, 50, 64), (2, 150, 48, 96)]
 # the bf16 dw against float64 sums: where they cancel to near 0, the float32
 # tile sums' own error, relative to the largest |dw| (the float32 form's
 # bound, phase 3)
@@ -3366,13 +3374,20 @@ def bf16_train_phase(ops, record) -> dict:
     return launches
 
 
+# conv2d_dw's calls in one RAFT train step, by site
+RAFT_TRAIN_DW_CALLS = {"fnet layer1": 4, "cnet layer1": 4, "fnet layer2": 3,
+                       "cnet layer2": 3}
+
+
 def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
     """Phase 18: conv2d_dw_bf16 and the bf16 dx conv at RAFT's four train
     sites by graph replay, beside their bound (bytes at the HBM rate or
-    operations at the bf16 tensor-core rate), their plain versions, cuDNN's
-    bf16 conv2d_weight and conv2d_input, and the float32 forms (conv2d_dw,
-    conv2d_fused as dx) in the same call. Returns conv2d_dw_bf16's row and
-    adds the dx conv's times to conv2d_fused_bf16's."""
+    operations at the bf16 tensor-core rate) and the share of it they
+    reach, their plain versions, cuDNN's bf16 conv2d_weight and
+    conv2d_input, and the float32 forms (conv2d_dw, conv2d_fused as dx) in
+    the same call; conv2d_dw_bf16's 14 launches of one RAFT bf16 step by
+    graph replay and by the phase's profile. Returns conv2d_dw_bf16's row
+    and adds the dx conv's times to conv2d_fused_bf16's."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from stereoformer_tpu_torch import kernels
@@ -3415,11 +3430,12 @@ def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
             if name == "conv2d_fused_bf16_dx":
                 row["blocks"] = fused_blocks(B_, H_, W_, C, torch.bfloat16)
             row["kernel_vs_library"] = row["ms"] / row["library_ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             times[name][where] = row
             print(f"  {name} {where} {row['shape']}: {row['ms']:.4f} ms on "
                   f"the device ({nops / row['ms'] / 1e9:.1f} TFLOP/s); "
                   f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-                  f"({100 * row['bound_ms'] / row['ms']:.0f}% of it); plain "
+                  f"({100 * row['bound_share']:.0f}% of it); plain "
                   f"{row['plain_ms']:.4f} ms; cuDNN bf16 "
                   f"{'conv2d_weight' if 'dw' in name else 'conv2d_input'} "
                   f"{row['library_ms']:.4f} ms (kernel/cuDNN "
@@ -3432,7 +3448,28 @@ def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
     print("  ptxas: " + ", ".join(
         f"{e} {u.get('registers')} registers, {u.get('spill_stores')} B "
         f"spilled" for e, u in usage.items() if "bf16" in e), flush=True)
-    main = times["conv2d_dw_bf16"]["fnet layer1"]
+    # the 14 launches of one RAFT bf16 step: graph replay by site, and the
+    # phase's profile of the step (dw_bf16_kernel and its reduction)
+    dw = times["conv2d_dw_bf16"]
+    step = {"graph_ms": sum(n * dw[w]["ms"]
+                            for w, n in RAFT_TRAIN_DW_CALLS.items()),
+            "library_ms": sum(n * dw[w]["library_ms"]
+                              for w, n in RAFT_TRAIN_DW_CALLS.items()),
+            "bound_ms": sum(n * dw[w]["bound_ms"]
+                            for w, n in RAFT_TRAIN_DW_CALLS.items())}
+    prof = record["bf16_train"][
+        f"RAFT_Stereo {RAFT_TRAIN_H}x{RAFT_TRAIN_W} B={RAFT_TRAIN_B}"][
+        "bf16_profile"].get("kernels_ms")
+    step["profile_ms"] = ("not measured" if prof is None else
+                          prof["dw_bf16_kernel"]
+                          + prof["dw_reduce_bf16_kernel"])
+    print(f"  conv2d_dw_bf16's 14 launches in one RAFT bf16 step: "
+          f"{step['graph_ms']:.3f} ms by graph replay (cuDNN bf16 "
+          f"{step['library_ms']:.3f}, bound {step['bound_ms']:.3f}); by "
+          f"the step's profile " + (f"{step['profile_ms']:.3f} ms"
+                                    if prof is not None else "not measured"),
+          flush=True)
+    main = dw["fnet layer1"]
     route, source, replaces = KERNELS["conv2d_dw_bf16"]
     return [{
         "name": "conv2d_dw_bf16", "route": route, "source": source,
@@ -3443,8 +3480,8 @@ def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
         "max_abs_err": err["conv2d_dw_bf16"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "f32_form_ms": main["f32_form_ms"], "shape": main["shape"],
-        "ptxas": usage}]
+        "bound_share": main["bound_share"], "raft_step": step, "f32_form_ms": main["f32_form_ms"],
+        "shape": main["shape"], "ptxas": usage}]
 
 
 def step_summary(name: str, where: str, dtype, sd: dict, batch: dict,

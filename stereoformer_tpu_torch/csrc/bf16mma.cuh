@@ -36,6 +36,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(a));
 }
 
+// the first two of those (matrices whose rows lanes 0-15 give), transposed
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
 // d += A B for one m16n8k16 tile, bf16 operands, float32 accumulators.
 // Fragments (PTX ISA, "mma.m16n8k16" for .bf16), g = lane / 4, t = lane % 4:
 //     a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],

@@ -31,6 +31,30 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the bf16 weight gradient's tiling by C = Co (csrc/conv2d_dw.cu, bfd::Cfg):
+# input channels a block (KC), n8 tiles of outputs a warp (WN8), strip width
+# (TW), ring depth in stages (STAGES), resident blocks an SM (MINB), and
+# warpgroup MMAs or warp MMAs (WG 1 or 0). The source is built with it as
+# -D defines (``tiling_defines``), and ops/dw_conv.py plans its grid by it.
+DW_BF16_TILING = {
+    64: {"KC": 64, "WN8": 8, "TW": 16, "STAGES": 6, "MINB": 1, "WG": 1},
+    96: {"KC": 32, "WN8": 3, "TW": 32, "STAGES": 3, "MINB": 1, "WG": 0},
+}
+
+
+def tiling_defines(tiling: dict) -> tuple:
+    """The -D flags that give csrc/conv2d_dw.cu the bf16 tiling ``tiling``
+    (DW64_KC=64, ..)."""
+    return tuple(f"-DDW{C}_{k}={v}" for C, t in tiling.items()
+                 for k, v in t.items())
+
+
+def nvcc_flags(source: str) -> tuple:
+    """nvcc's flags for ``source``: NVCC_FLAGS and the source's defines."""
+    if source == "conv2d_dw.cu":
+        return NVCC_FLAGS + tiling_defines(DW_BF16_TILING)
+    return NVCC_FLAGS
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, C function, its argument types; the last is the stream)
@@ -76,7 +100,7 @@ def _library_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(nvcc_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
@@ -106,7 +130,8 @@ def build(names=None) -> float:
     procs = {}
     for n in todo:
         tmp = _library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        source = KERNELS[n][0]
+        cmd = [nvcc, *nvcc_flags(source), "-o", str(tmp), str(CSRC / source)]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -18,7 +18,9 @@ bf16 x and g give a bf16 dw, as the fused conv's bf16 backward takes it
 (the Pallas kernel's float32 sums cast to the bf16 weight by ``_dw``): the
 products summed in float32, one rounding. CPU tensors take the plain
 version of that form; CUDA tensors launch the kernel's bf16 form
-(``conv2d_dw_bf16``, the same source, on the bf16 tensor cores), counted in
+(``conv2d_dw_bf16``, the same source, on the bf16 tensor cores: a block
+takes a slice of input channels and all nine taps and walks strips of
+columns down runs of rows, each staged row read once), counted in
 ``conv2d_dw.bf16_launches``.
 """
 
@@ -39,15 +41,25 @@ _CHUNK = 32
 _BLOCKS_PER_SM = {64: 3, 96: 2}
 
 
-def dw_plan(C: int, sms: int) -> tuple:
-    """(nsplit, blocks) of the kernel's grid for C = Co on a card with
-    ``sms`` SMs: each run of pixel tiles has 3 * C/32 blocks (tap row,
-    channel chunk), and nsplit is the fewest runs whose blocks fill the
-    card's resident slots in whole waves."""
-    slots = sms * _BLOCKS_PER_SM[C]
-    per_split = 3 * (C // _CHUNK)
+def whole_waves(slots: int, per_split: int) -> tuple:
+    """(nsplit, blocks): the fewest splits of ``per_split`` blocks each
+    whose blocks fill ``slots`` resident slots in whole waves."""
     nsplit = slots // math.gcd(slots, per_split)
     return nsplit, nsplit * per_split
+
+
+def dw_plan(C: int, sms: int, dtype=torch.float32) -> tuple:
+    """(nsplit, blocks) of the kernel's grid for C = Co on a card with
+    ``sms`` SMs, nsplit the fewest splits of the pixels whose blocks fill
+    the card's resident slots in whole waves. The float32 form has 3 * C/32
+    blocks a split (tap row, channel chunk), the bf16 form C / KC (a slice
+    of KC input channels, all nine taps, by ``kernels.DW_BF16_TILING``);
+    each block writes one partial of dw, so the scratch holds
+    nsplit * 9 * C * Co floats."""
+    if dtype == torch.bfloat16:
+        tiling = kernels.DW_BF16_TILING[C]
+        return whole_waves(sms * tiling["MINB"], C // tiling["KC"])
+    return whole_waves(sms * _BLOCKS_PER_SM[C], 3 * (C // _CHUNK))
 
 
 def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -85,15 +97,25 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             f"{name}: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
             f"Co={Co}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit, _ = dw_plan(C, sms)
-    part = x.new_empty((nsplit, 9, C, Co), dtype=torch.float32)
-    dw = x.new_empty((3, 3, C, Co))
-    kernels.launch(name, x.device, x.data_ptr(), g.data_ptr(),
-                   part.data_ptr(), dw.data_ptr(), B, H, W, C, Co, nsplit)
+    dw = _launch(name, x, g, sms)
     if bf16:
         conv2d_dw.bf16_launches += 1
     else:
         conv2d_dw.launches += 1
+    return dw
+
+
+def _launch(name: str, x: torch.Tensor, g: torch.Tensor,
+            sms: int) -> torch.Tensor:
+    """Allocate dw and the partials' scratch by ``dw_plan`` for a card with
+    ``sms`` SMs, and launch kernel ``name``."""
+    B, H, W, C = x.shape
+    Co = g.shape[3]
+    nsplit, _ = dw_plan(C, sms, x.dtype)
+    part = x.new_empty((nsplit, 9, C, Co), dtype=torch.float32)
+    dw = x.new_empty((3, 3, C, Co))
+    kernels.launch(name, x.device, x.data_ptr(), g.data_ptr(),
+                   part.data_ptr(), dw.data_ptr(), B, H, W, C, Co, nsplit)
     return dw
 
 

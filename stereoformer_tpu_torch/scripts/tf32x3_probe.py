@@ -67,8 +67,8 @@ def build_variants() -> dict:
         for k in ("conv2d_dw", "conv2d_s2"):
             lib = d / f"{k}.so"
             procs[variant, k] = (lib, subprocess.Popen(
-                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
-                 str(d / f"{k}.cu")],
+                [kernels._nvcc(), *kernels.nvcc_flags(f"{k}.cu"), "-o",
+                 str(lib), str(d / f"{k}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():

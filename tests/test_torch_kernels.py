@@ -1071,11 +1071,19 @@ def test_bf16_models_launch_the_bf16_forms(cuda_device):
 
 # the bf16 dw of a sum over up to B H W = 1.8 M pixels: each output within
 # one bf16 ulp of the float64 sum rounded once, or near 0, where the sum
-# cancels, within the float32 tile sums' own error, DW_RTOL of the largest
+# cancels, within the float32 tile sums' own error, DW_RTOL of the largest.
+# The bf16 dw walks 16-column strips down runs of rows: W off the strip
+# (53, 33, 50, 21) and under it (5, 7), images of 1 and 2 rows (the ring's
+# first and last rows at once), and runs that end inside an image (3 x 97
+# rows of 4 strips, 2 x 150 of 3, over the 132 or 44 splits of the grid)
 BF16_TRAIN_SHAPES = [(8, 320, 720, 64), (4, 160, 360, 96), (1, 37, 53, 96),
-                     (2, 19, 40, 64), (1, 9, 33, 96), (2, 3, 5, 64)]
+                     (2, 19, 40, 64), (1, 9, 33, 96), (2, 3, 5, 64),
+                     (1, 1, 40, 64), (1, 2, 21, 96), (1, 11, 7, 96),
+                     (3, 97, 50, 64), (2, 150, 48, 96)]
 BF16_TRAIN_IDS = ["fnet-layer1", "cnet-layer2", "edge-C96", "H-tail-C64",
-                  "tails-C96", "tiny-C64"]
+                  "tails-C96", "tiny-C64", "H1-C64", "H2-C96",
+                  "W-under-strip-C96", "runs-end-inside-C64",
+                  "runs-end-inside-C96"]
 
 
 @pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)

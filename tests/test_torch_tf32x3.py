@@ -14,9 +14,15 @@ sums it: prologue, 3xTF32 k-steps with truncating adds folded per 8-channel
 chunk, bias, and the moments of the result; and its bf16 form, as its own
 mainloop sums it: exact bf16 products in k-steps of 16 (mma.sync
 m16n8k16) with one truncating add each into one float32 fragment over all
-of C (no fold), one rounding to bf16. Also on the CPU: the kernels' grids
-on the card (both forms of the fused conv), the fused conv's moment
-scratch, and their build hash over the headers.
+of C (no fold), one rounding to bf16. The bf16 weight gradient as its
+kernel sums it at RAFT's largest site (k-steps of 16 exact products,
+truncating adds, folded every 96 k-steps into float32 totals, the grid's
+partials in double): folded it holds DW_RTOL, unfolded it does not; and
+its walk of strips and runs of rows, with each of its two mainloops'
+choice of stage rows, takes every product once. Also on the CPU: the
+kernels' grids on the card (both forms of the fused conv and of dw), the
+fused conv's moment scratch and dw's partials, and their build hash over
+the headers.
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stereoformer_tpu_torch import kernels, ops  # noqa: E402
-from stereoformer_tpu_torch.ops import fused_conv  # noqa: E402
+from stereoformer_tpu_torch.ops import dw_conv, fused_conv  # noqa: E402
 from stereoformer_tpu_torch.ops.dw_conv import dw_plan  # noqa: E402
 from stereoformer_tpu_torch.ops.fused_conv import (  # noqa: E402
     fused_blocks,
@@ -220,6 +226,29 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     assert kernels._library_path("probe") != after
 
 
+
+def test_dw_bf16_tiling_is_built_from_one_table(monkeypatch):
+    """csrc/conv2d_dw.cu reads its bf16 tiling from -D defines, and the
+    build passes exactly the names it reads, from kernels.DW_BF16_TILING,
+    the table dw_plan plans the grid by; a change of the table names
+    another library and another plan."""
+    import re
+
+    read = set(re.findall(r"\b(DW(?:64|96)_[A-Z0-9]+)\b",
+                          (kernels.CSRC / "conv2d_dw.cu").read_text()))
+    flags = kernels.nvcc_flags("conv2d_dw.cu")
+    passed = {f[2:].split("=")[0] for f in flags if f.startswith("-D")}
+    assert read == passed and len(passed) == 12
+    assert kernels.nvcc_flags("conv2d_fused.cu") == kernels.NVCC_FLAGS
+    before = kernels._library_path("conv2d_dw_bf16")
+    tiling = {C: dict(t) for C, t in kernels.DW_BF16_TILING.items()}
+    tiling[96]["MINB"] = 2
+    monkeypatch.setattr(kernels, "DW_BF16_TILING", tiling)
+    assert kernels._library_path("conv2d_dw_bf16") != before
+    assert dw_plan(96, H100_SMS, torch.bfloat16) == dw_conv.whole_waves(
+        2 * H100_SMS, 96 // tiling[96]["KC"])
+
+
 def _fused_gemm_operands(z, w, kc=8):
     """The fused conv's implicit GEMM for one image: z [H, W, C] (the
     prologue's output), w [3, 3, C, Co] -> Xcol [H W, 9 C'] and W [9 C', Co]
@@ -356,6 +385,217 @@ def test_fused_conv_bf16_mma_holds_one_bf16_ulp(shape):
         ref_m = ref[0].double().numpy()
         tol_m = MOMENT_RTOL * (np.abs(ref_m) + np.abs(ref_m).max()) + sl
         assert (np.abs(got_m - ref_m) <= tol_m).all()
+
+
+# conv2d_dw's bf16 form (csrc/conv2d_dw.cu, bfd): k-steps an accumulator
+# takes between folds (FOLD_K) and x rows a stage (RS); its tiling by
+# C = Co is kernels.DW_BF16_TILING
+BF16_DW_FOLD = 96
+BF16_DW_RS = 3
+
+
+def dw_bf16_sum(xt: np.ndarray, g: np.ndarray, nsplit: int,
+                fold_every: int) -> np.ndarray:
+    """xt [M, K] . g [K, N] of bf16 values as conv2d_dw's bf16 form sums
+    it: K in nsplit equal runs (the grid's splits), each summed by its
+    block in k-steps of 16 pixels (one mma.sync m16n8k16: exact products,
+    one round-toward-zero add into a float32 fragment), the fragment added
+    to a float32 total with a round-to-nearest add every ``fold_every``
+    k-steps and at the end (0: at the end only); the nsplit partials summed
+    in double in split order and rounded once to float32 (the reduction)."""
+    M, K = xt.shape
+    steps = K // nsplit // 16
+    a = xt.astype(np.float64).reshape(M, nsplit, steps, 16).transpose(1, 2,
+                                                                      0, 3)
+    b = g.astype(np.float64).reshape(nsplit, steps, 16, -1)
+    frag = np.zeros((nsplit, M, g.shape[1]), np.float32)
+    total = np.zeros_like(frag)
+    for i in range(steps):
+        frag = round_toward_zero(frag + a[:, i] @ b[:, i])
+        if fold_every and (i + 1) % fold_every == 0:
+            total, frag = total + frag, np.zeros_like(frag)
+    total = total + frag
+    return total.astype(np.float64).sum(0).astype(np.float32)
+
+
+def _dw_bf16_sum_at_raft_fnet_layer1(fold_every, seed=6):
+    """dw_bf16_sum over the pixels of RAFT's largest site (fnet layer1 of
+    the train step, B=8, 320x720: 1.84 M) at the bf16 plan's split, for a
+    16 x 16 corner of dw; -> (the float32 sums, the float64 sums)."""
+    rng = np.random.default_rng(seed)
+    nsplit, _ = dw_plan(64, H100_SMS, torch.bfloat16)
+    K = 8 * 320 * 720
+    K = -(-K // (16 * nsplit)) * 16 * nsplit
+    xt = to_bf16(rng.standard_normal((16, K)))
+    g = to_bf16(rng.standard_normal((K, 16)))
+    want = xt.astype(np.float64) @ g.astype(np.float64)
+    return dw_bf16_sum(xt, g, nsplit, fold_every), want
+
+
+def test_dw_bf16_sums_hold_the_tolerance_with_the_fold():
+    """The bf16 dw as its mainloop sums it at RAFT's largest site, folded
+    every BF16_DW_FOLD k-steps: every output within one bf16 ulp of the
+    float64 sum rounded once, and the float32 sums within DW_RTOL of the
+    largest |dw| (the near-0 clause of DW_BF16_RTOL = 2e-5, and of the card
+    tests' stricter 1e-5: what an output whose sum cancels is held to)."""
+    got, want = _dw_bf16_sum_at_raft_fnet_layer1(BF16_DW_FOLD)
+    y, ref = to_bf16(got), to_bf16(want)
+    big = np.maximum(np.abs(y), np.abs(ref)).clip(1e-30)
+    ulp = 2.0 ** -7 * np.exp2(np.floor(np.log2(big)))
+    assert (np.abs(y - ref) <= np.maximum(
+        ulp, DW_RTOL * np.abs(want).max())).all()
+    assert np.abs(got - want).max() <= DW_RTOL * np.abs(want).max()
+
+
+def test_dw_bf16_needs_the_fold_of_its_truncating_sums():
+    """Without the fold each block sums its ~14 k pixels (870 MMAs) in one
+    fragment, and the truncating adds drift: the float32 sums miss DW_RTOL
+    of the largest |dw|, the card tests' tolerance for the bf16 dw, where
+    the fold holds a tenth of it."""
+    got, want = _dw_bf16_sum_at_raft_fnet_layer1(0)
+    assert np.abs(got - want).max() > DW_RTOL * np.abs(want).max()
+
+
+def dw_bf16_walk(x: np.ndarray, g: np.ndarray, nsplit: int, kc: int,
+                 tw: int, mainloop: int) -> np.ndarray:
+    """dw of x, g [B, H, W, C] (float64) as conv2d_dw's bf16 form walks
+    them: block (slice, split) takes KC = ``kc`` input channels and the
+    items [nitems s / nsplit, nitems (s + 1) / nsplit) of the rows of every
+    ``tw``-column strip of every image; each run of rows of one strip,
+    ha .. hb - 1, is walked as x rows ha - 1 .. hb in stages of RS rows,
+    the last padded. A stage holds what its TMA boxes hold, x rows
+    r .. r + RS - 1 (columns x0 - 1 .. x0 + tw) and g rows r + 1 .. r + RS
+    (columns x0 ..), zero outside the image, and flags (bit i: g row
+    r - 1 + i is in the run). The stage's products as ``mainloop`` takes
+    them (csrc/conv2d_dw.cu, WG): 0, step k of x row r + k with the g rows
+    r + k + 1 - di of a three-slot ring of g fragments (slot
+    (k + 2 - di) % 3, zeroed outside the run); 1, x row r + k with g row
+    r + k + 1 - di, row k - di of the stage or k - di + RS of the previous
+    one. The partials summed."""
+    B, H, W, C = x.shape
+    Co, rs = g.shape[3], BF16_DW_RS
+    nstrips = -(-W // tw)
+    nitems = B * nstrips * H
+    part = np.zeros((nsplit, 9, C, Co))
+
+    def box(t, b, rows, x0, w, c0, ch):
+        out = np.zeros((len(rows), w, ch))
+        for i, row in enumerate(rows):
+            if 0 <= row < H:
+                lo, hi = max(x0, 0), min(x0 + w, W)
+                out[i, lo - x0:hi - x0] = t[b, row, lo:hi, c0:c0 + ch]
+        return out
+
+    for c0 in range(0, C, kc):
+        for split in range(nsplit):
+            i0, i1 = nitems * split // nsplit, nitems * (split + 1) // nsplit
+            stages, i = [], i0
+            while i < i1:
+                n = min(H - i % H, i1 - i)
+                b, s = divmod(i // H, nstrips)
+                ha, hb = i % H, i % H + n
+                for r in range(ha - 1, hb + 1, rs):
+                    flags = [ha <= r - 1 + j < hb for j in range(rs + 2)]
+                    stages.append((
+                        box(x, b, range(r, r + rs), s * tw - 1, tw + 2, c0,
+                            kc),
+                        box(g, b, range(r + 1, r + rs + 1), s * tw, tw, 0,
+                            Co), flags))
+                i += n
+            acc = np.zeros((9, kc, Co))
+            ring = np.zeros((3, tw, Co))
+            prev = stages[0] if stages else None
+            for xs, gs, f in stages:
+                for k in range(rs):
+                    ring[(k + 2) % 3] = gs[k] if f[k + 2] else 0.0
+                    for di in range(3):
+                        if mainloop == 0:
+                            xr, gr = xs[k], ring[(k + 2 - di) % 3]
+                        else:
+                            if not f[k + 2 - di]:
+                                continue
+                            xr = xs[k]
+                            gr = (gs[k - di] if k - di >= 0
+                                  else prev[1][k - di + rs])
+                        for dj in range(3):
+                            acc[3 * di + dj] += xr[dj:dj + tw].T @ gr
+                prev = (xs, gs, f)
+            part[split, :, c0:c0 + kc] = acc
+    return part.sum(0).reshape(3, 3, C, Co)
+
+
+# (B, H, W, C, nsplit): W off the strip and under it, images of 1 and 2
+# rows, runs that end inside an image, splits with no rows (nsplit above
+# the items), and the plan's own nsplit
+WALK_CASES = [(2, 7, 37, 64, 5), (1, 1, 5, 64, 3), (1, 2, 9, 96, 4),
+              (2, 19, 40, 64, 7), (1, 9, 33, 96, None), (2, 3, 5, 64, 1),
+              (3, 4, 16, 64, None)]
+
+
+@pytest.mark.parametrize("mainloop", [0, 1], ids=["mma", "wgmma"])
+@pytest.mark.parametrize("case", WALK_CASES,
+                         ids=["x".join(map(str, c[:4])) + f"-s{c[4]}"
+                              for c in WALK_CASES])
+def test_dw_bf16_walk_takes_every_product_once(case, mainloop):
+    """The bf16 form's walk (runs, stages, the zero rows and the run's
+    flags) and each mainloop's choice of the stage rows a product reads
+    take each product of dw once: equal to the plain version in float64.
+    At the slice and strip widths of the plan for C."""
+    B, H, W, C, nsplit = case
+    nsplit = nsplit or dw_plan(C, H100_SMS, torch.bfloat16)[0]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, H, W, C))
+    g = rng.standard_normal((B, H, W, C))
+    tiling = kernels.DW_BF16_TILING[C]
+    got = dw_bf16_walk(x, g, nsplit, tiling["KC"], tiling["TW"], mainloop)
+    want = ops.conv2d_dw_plain(_t(x), _t(g)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("site", RAFT_DW_SITES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}x{s[3]}"
+                              for s in RAFT_DW_SITES])
+def test_dw_bf16_plan_fills_the_card_in_whole_waves(site):
+    """The bf16 form's grid: C / KC blocks a split, whole waves of the
+    card's resident slots, and every block gets rows at RAFT's sites: the
+    splits share the rows of every TW-column strip of every image."""
+    B, H, W, C = site
+    tiling = kernels.DW_BF16_TILING[C]
+    nsplit, blocks = dw_plan(C, H100_SMS, torch.bfloat16)
+    assert blocks == nsplit * (C // tiling["KC"])
+    assert blocks >= H100_SMS
+    assert blocks % (H100_SMS * tiling["MINB"]) == 0
+    assert B * -(-W // tiling["TW"]) * H >= nsplit
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    pytest.param((2, 19, 40, 64), torch.float32, id="f32-C64"),
+    pytest.param((1, 9, 33, 96), torch.float32, id="f32-C96"),
+    pytest.param((2, 19, 40, 64), torch.bfloat16, id="bf16-C64"),
+    pytest.param((1, 9, 33, 96), torch.bfloat16, id="bf16-C96")])
+def test_dw_scratch_is_what_the_grid_writes(shape, dtype, monkeypatch):
+    """The wrapper sizes the partials' scratch [nsplit, 9, C, Co] by the
+    form's plan and passes the kernel that nsplit, the grid's splits, each
+    of which writes one partial. The allocations are recorded and the
+    launch replaced, so no card is needed."""
+    B, H, W, C = shape
+    shapes, launched = [], []
+    new_empty = torch.Tensor.new_empty
+
+    def recording_new_empty(self, size, *args, **kwargs):
+        shapes.append((tuple(size), kwargs.get("dtype")))
+        return new_empty(self, size, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "new_empty", recording_new_empty)
+    monkeypatch.setattr(kernels, "launch", lambda *a: launched.append(a))
+    x = torch.zeros(shape, dtype=dtype)
+    name = "conv2d_dw_bf16" if dtype == torch.bfloat16 else "conv2d_dw"
+    dw_conv._launch(name, x, x, H100_SMS)
+    nsplit, _ = dw_plan(C, H100_SMS, dtype)
+    assert launched and launched[0][0] == name
+    assert launched[0][-6:] == (B, H, W, C, C, nsplit)
+    assert shapes[0] == ((nsplit, 9, C, C), torch.float32)
+    assert shapes[1] == ((3, 3, C, C), None)
 
 
 def _site_id(s):
