@@ -148,27 +148,29 @@ any failure exits nonzero and prints no result:
 17. bf16 serving, the JAX package's deployment dtype: the bf16 forms of
    corr_band and conv2d_fused against their plain bf16 versions (float32
    sums, one rounding; at most one bf16 ulp per output, or near 0 the
-   float32 sums' own error, 2^-20 of the largest output; the moments
-   within 1e-5 relative beyond what the outputs that round to the
-   neighbouring bf16 move them by), corr_band's at the eval, train and
-   D = 96 shapes and every conv2d_fused entry at RAFT's four eval sites
-   and at edge shapes (H and W off its tile, C = 72, Co 64 and 96 from
-   C 64, 72 or 96), each timed at the main path's shapes by graph replay
-   beside its bound (bytes at the HBM rate or operations at the bf16
+   float32 sums' own error, 2^-20 of the largest output; the moments within
+   1e-5 relative beyond what the outputs that round to the neighbouring
+   bf16 move them by), corr_band's at the eval, train and D = 96 shapes and
+   at edge shapes (W below D, ragged W, C = 72 and 8, D in spans: 1024,
+   256, 200; W one pixel past a 64- and a 128-pixel tile; its registers and
+   its plan beside its times) and every conv2d_fused entry at RAFT's four
+   eval sites and at edge shapes (H and W off its tile, C = 72, Co 64 and
+   96 from C 64, 72 or 96), each timed at the main path's shapes by graph
+   replay beside its bound (bytes at the HBM rate or operations at the bf16
    tensor-core rate), its plain version and the library (cuDNN's F.conv2d
-   with bias in bf16, and the kernel/cuDNN ratio; none for corr_band); every
-   registry name's eval at bench.py's protocol (576x960, B=8, RAFT at B=2
-   and B=8 on uniform 0..255 images, 12 iterations, seed-0 weights) in
+   with bias in bf16, and the kernel/cuDNN ratio; none for corr_band);
+   every registry name's eval at bench.py's protocol (576x960, B=8, RAFT at
+   B=2 and B=8 on uniform 0..255 images, 12 iterations, seed-0 weights) in
    bf16 and float32: ms/batch (float32 with TF32 on and off, from the
    earlier phases where they ran the name), pairs/s, peak memory, launch
    counts (corr_band's bf16 form once per LowCNN forward, its float32 form
-   never; conv2d_fused's bf16 form 14 times per RAFT forward),
-   finite float32 disparities, and the bf16-against-float32 mean abs
-   disparity beside bench.py's 0.25 px (a reading with random weights);
-   a profiler breakdown of one bf16 forward of LowCNN_gru and RAFT (B=2);
-   then the card's bf16 against the port's bf16 on the CPU, LowCNN_gru at
-   64x256 and RAFT at 64x128, TF32 off: the gap may be no larger than the
-   CPU port's own bf16-against-float32 gap on the same input;
+   never; conv2d_fused's bf16 form 14 times per RAFT forward), finite
+   float32 disparities, and the bf16-against-float32 mean abs disparity
+   beside bench.py's 0.25 px (a reading with random weights); a profiler
+   breakdown of one bf16 forward of LowCNN_gru and RAFT (B=2); then the
+   card's bf16 against the port's bf16 on the CPU, LowCNN_gru at 64x256 and
+   RAFT at 64x128, TF32 off: the gap may be no larger than the CPU port's
+   own bf16-against-float32 gap on the same input;
 18. bf16 training, the JAX package's training dtype: conv2d_dw_bf16 (the
    bf16 form of conv2d_dw) against the plain version on float64 copies of
    the same bf16 inputs, rounded once, and the bf16 backward's dx conv
@@ -2885,14 +2887,25 @@ EDGE_BF16_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 72, 64),
                    (2, 35, 70, 96, 64)]
 
 
+# corr_band_bf16's edge shapes ((B, H, W, C), D): W below D; ragged W at
+# D = 50; C = 72 and 8 (the last k16 step half zero-filled); D = 1024 and
+# 256 in spans of 128, D = 200 in two of 104; W one pixel past a tile of
+# 64 and of 128 pixels
+EDGE_BF16_CORR = [((1, 3, 10, 40), 24), ((1, 2, 97, 64), 50),
+                  ((2, 3, 57, 72), 24), ((1, 2, 33, 8), 40),
+                  ((1, 2, 70, 32), 1024),
+                  ((1, 2, 300, 16), 256), ((2, 2, 81, 16), 200),
+                  ((1, 2, 65, 256), 24), ((1, 2, 129, 256), 96)]
+
+
 def check_bf16_kernels(ops, rng) -> dict:
     """Phase 17: the bf16 forms against their plain bf16 versions."""
     print("bf16 kernels vs plain (TF32 off):", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     err = {"corr_band_bf16": 0.0, "conv2d_fused_bf16": 0.0}
-    for shape, d in (((B, H // 8, W // 8, 256), 24),
+    for shape, d in [((B, H // 8, W // 8, 256), 24),
                      ((4, TRAIN_H // 8, TRAIN_W // 8, 256), 24),
-                     ((B, H // 8, W // 8, 256), 96)):
+                     ((B, H // 8, W // 8, 256), 96)] + EDGE_BF16_CORR:
         left = randn(rng, *shape).bfloat16()
         right = randn(rng, *shape).bfloat16()
         err["corr_band_bf16"] = max(err["corr_band_bf16"], bf16_close(
@@ -3042,15 +3055,21 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
     import torch.nn.functional as F
 
     from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.cost_volume import corr_bf16_plan
     from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
     rows, times = [], {"corr_band_bf16": {}, "conv2d_fused_bf16": {}}
     C = 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = kernels.ptxas_usage("corr_band_bf16")
+    print(f"  corr_band_bf16 registers and spills (ptxas): "
+          f"{ {k: v for k, v in ptxas.items() if 'bf16' in k} }", flush=True)
     for shape, d in (((B, H // 8, W // 8, C), 24),
                      ((4, TRAIN_H // 8, TRAIN_W // 8, C), 24),
                      ((B, H // 8, W // 8, C), 96)):
         left = randn(rng, *shape).bfloat16()
         right = randn(rng, *shape).bfloat16()
+        plan = corr_bf16_plan(*shape, d, sms)
         npix = int(np.prod(shape[:3]))
         nbytes = (2 * npix * C + npix * d) * 2
         band = shape[0] * shape[1] * (d * shape[2] - d * (d - 1) // 2)
@@ -3063,13 +3082,17 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
                  lambda: ops.correlation_volume_plain(left, right, d), 5),
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "mb": nbytes / 1e6, "library_ms": None}
+             "mb": nbytes / 1e6, "library_ms": None,
+             "plan": {k: plan[k] for k in ("warps", "nt", "tasks", "per_sm",
+                                           "blocks")}}
         times["corr_band_bf16"][f"{list(shape)} D={d}"] = t
         print(f"  corr_band_bf16 {shape} D={d}: {t['ms'] * 1e3:.1f} us on the "
               f"device (bound {t['bound_ms'] * 1e3:.2f} us by "
               f"{t['bound_by']}, {t['mb']:.2f} MB, "
               f"{100 * t['bound_ms'] / t['ms']:.0f}% of it), plain "
-              f"{t['plain_ms'] * 1e3:.1f} us; no library call", flush=True)
+              f"{t['plain_ms'] * 1e3:.1f} us; no library call; "
+              f"{plan['blocks']} blocks of {plan['warps']} warps, "
+              f"{plan['tasks']} tasks", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     for where, (B_, H_, W_, C_) in RAFT_CONVS.items():
         x, w, b, s, t_, r = conv_inputs(rng, B_, H_, W_, C_, C_)
@@ -3356,7 +3379,7 @@ def bf16_train_phase(ops, record) -> dict:
             label = f"{name} {TRAIN_H}x{TRAIN_W} B={batch}"
             launches[f"bf16_{name}_train_b{batch}"] = bf16_train_case(
                 ops, record, label, build, batch, want,
-                ("corr_band_kernel", "local_soft_argmin")
+                ("corr_band_bf16_kernel", "local_soft_argmin")
                 if (name, batch) == ("LowCNN_gru", 4) else None)
 
     def build_raft(dtype):

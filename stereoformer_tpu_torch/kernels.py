@@ -62,7 +62,7 @@ KERNELS = {
     "corr_band": ("corr_band.cu", "corr_band_forward",
                   (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "corr_band_bf16": ("corr_band.cu", "corr_band_forward_bf16",
-                       (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                       (_P, _P, _P) + (_I,) * 8 + (_P,)),
     "local_soft_argmin": ("local_soft_argmin.cu", "local_soft_argmin_forward",
                           (_P, _P, _P, _I, _I, _I, _P)),
     "local_soft_argmin_bwd": ("local_soft_argmin_bwd.cu",
@@ -155,7 +155,7 @@ _MANGLED_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
     ``dw_kernel<96>``, ``conv3x3_s2_kernel<4,1>``,
-    ``corr_band_kernel<__nv_bfloat16>``, ``conv3x3_bf16_kernel<64>``,
+    ``corr_band_bf16_kernel<5>``, ``conv3x3_bf16_kernel<64>``,
     ``dw_bf16_kernel<96>``."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     name = mangled
@@ -179,8 +179,15 @@ def ptxas_usage(name: str) -> dict:
     log = build_log.get(KERNELS[name][0])
     if log is None and _library_path(name).with_suffix(".log").exists():
         log = _library_path(name).with_suffix(".log").read_text()
+    return parse_ptxas(log or "")
+
+
+def parse_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each entry function in nvcc's output
+    with ``-Xptxas -v``: entry -> {"registers", "spill_stores",
+    "spill_loads"}."""
     usage, entry = {}, None
-    for line in (log or "").splitlines():
+    for line in log.splitlines():
         if (m := re.search(r"Compiling entry function '(\w+)'", line)):
             entry = _entry_name(m.group(1))
             usage[entry] = {}

@@ -16,7 +16,9 @@ shifted products in plain torch ops (``correlation_volume_backward``).
 bf16 features give a bf16 volume, as ``correlation_volume_matmul`` gives
 it: the products summed in float32, divided by C and rounded once. CPU
 tensors take the plain version of that form; CUDA tensors launch the
-kernel's bf16 form (``corr_band_forward_bf16``), counted in
+kernel's bf16 form (``corr_band_forward_bf16``, on the bf16 tensor cores:
+persistent blocks of 16-pixel warps over tasks (b, h, tile, span) on the
+grid ``corr_bf16_plan`` picks), counted in
 ``correlation_volume.bf16_launches``. Its backward is the Pallas ``_bwd``'s
 in bf16: the shift form in float32 on the widened features and cotangent,
 dleft and dright each rounded once to bf16.
@@ -24,10 +26,106 @@ dleft and dright each rounded once to bf16.
 
 from __future__ import annotations
 
+import functools
+import types
+
 import torch
 
 from .. import kernels
 from .local_volume import D_MAX
+
+
+# csrc/corr_band.cu's bf16 geometry (namespace bfc): channels a stage, the
+# n8 tiles of a warp's templates, the widest span when D is split; and the
+# block widths (warps of 16 pixels) the plan takes
+BF16_KC = 64
+BF16_NT = (5, 8, 14, 18)
+BF16_MAX_SPAN = 128
+BF16_WARPS = (8, 4, 2, 1)
+# an H100 SM: shared memory, and what each resident block reserves of it;
+# registers hold 16 warps of the kernel (__launch_bounds__(256, 2): at most
+# 128 registers a thread)
+_SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
+_WARPS_PER_SM = 16
+
+
+def corr_bf16_span(D: int) -> tuple:
+    """(span, spans, nt) of the bf16 kernel for D disparities: one span of
+    D when a warp's largest template holds it (16 + D - 1 R columns in
+    8 * 18), else ceil(D / 128) spans of a multiple of 8; nt, the n8 tiles
+    of the smallest template that holds a span."""
+    if D <= 8 * BF16_NT[-1] - 15:
+        span, spans = D, 1
+    else:
+        spans = -(-D // BF16_MAX_SPAN)
+        span = (-(-D // spans) + 7) // 8 * 8
+    nt = next(n for n in BF16_NT if 8 * n - 15 >= span)
+    return span, spans, nt
+
+
+def corr_bf16_ring(nt: int) -> tuple:
+    """(channels a stage, stages) of the kernel's ring for a warp of nt n8
+    tiles (bfc::stages): 3 stages up to 8 tiles, 2 past them."""
+    return BF16_KC, 3 if nt <= 8 else 2
+
+
+def corr_bf16_smem(warps: int, nt: int, ring=None) -> int:
+    """Shared memory bytes of a block (csrc/corr_band.cu, bfc::smem_bytes):
+    the ring (``ring``, default ``corr_bf16_ring(nt)``) of L tiles and R
+    slabs; the warps' band tiles take the slot of a task's last stage."""
+    kc, stages = ring or corr_bf16_ring(nt)
+    slab = 16 * (warps - 1) + 8 * (nt + nt % 2)
+    return stages * (16 * warps + slab) * kc * 2
+
+
+@functools.lru_cache(maxsize=256)
+def corr_bf16_plan(B: int, H: int, W: int, C: int, D: int, sms: int,
+                   warps: int | None = None,
+                   ring=None) -> types.MappingProxyType:
+    """The bf16 kernel's grid for L, R [B, H, W, C] and D disparities on a
+    card with ``sms`` SMs. A task is (b, h, tile of 16 * warps pixels,
+    span); the blocks are persistent, block i taking tasks i, i + blocks,
+    ..., so SM s (blocks s, s + sms, ...) takes every sms-th task.
+    ``blocks`` is at most one wave of resident blocks (``per_sm`` by
+    shared memory, for the ring ``ring``, and registers) and at most the
+    tasks. The width (``warps``, unless given) is, of those that keep two
+    blocks on an SM (one's loads land while the other computes; any that
+    fits if none does), the one whose busiest SM moves the fewest bytes:
+    ceil(tasks / sms) tasks of the mean bytes a task moves (the L and R
+    rows inside the image, the outputs; ``cost``, in bf16 elements). ->
+    a read-only dict(warps, span, spans, nt, tiles, tasks, per_sm, blocks,
+    smem, cost)."""
+    span, spans, nt = corr_bf16_span(D)
+    best = None
+    for nw in (warps,) if warps else BF16_WARPS:
+        smem = corr_bf16_smem(nw, nt, ring)
+        per_sm = min(_SMEM_PER_SM // (smem + _SMEM_RESERVED),
+                     _WARPS_PER_SM // nw)
+        stage = smem // (ring or corr_bf16_ring(nt))[1]
+        if not per_sm or 32 * nw * ((-(-span // 8) * 8) | 8) > stage:
+            continue   # the block or its band tiles (in a stage) do not fit
+        tw = 16 * nw
+        tiles = -(-W // tw)
+        tasks = B * H * tiles * spans
+        moved = 0
+        for w0 in range(0, tiles * tw, tw):
+            lreal = min(tw, W - w0)
+            for dspan in range(0, spans * span, span):
+                rbase = w0 - dspan - (span - 1)
+                rreal = max(0, min(W, rbase + tw + span - 1) - max(0, rbase))
+                moved += (lreal + rreal) * C + lreal * min(span, D - dspan)
+        cost = -(-tasks // sms) * moved / (tiles * spans)
+        if best is None or (per_sm < 2, cost) < (best["per_sm"] < 2,
+                                                   best["cost"]):
+            best = {"cost": cost, "warps": nw, "span": span, "spans": spans,
+                    "nt": nt, "tiles": tiles, "tasks": tasks,
+                    "per_sm": per_sm, "blocks": min(tasks, sms * per_sm),
+                    "smem": smem}
+    if best is None:
+        raise ValueError(f"corr_band_bf16: {warps} warps a block do not fit "
+                         f"at D = {D}")
+    return types.MappingProxyType(best)   # cached: read-only
 
 
 def correlation_volume_plain(left: torch.Tensor, right: torch.Tensor,
@@ -80,11 +178,17 @@ class _CorrBand(torch.autograd.Function):
                 f"0 < max_disp <= {D_MAX}, got C={C}, max_disp={max_disp}")
         out = torch.empty((B, H, W, max_disp), dtype=left.dtype,
                           device=left.device)
-        kernels.launch(name, left.device, left.data_ptr(),
-                       right.data_ptr(), out.data_ptr(), B, H, W, C, max_disp)
+        args = (left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W,
+                C, max_disp)
         if bf16:
+            sms = torch.cuda.get_device_properties(
+                left.device).multi_processor_count
+            plan = corr_bf16_plan(B, H, W, C, max_disp, sms)
+            kernels.launch(name, left.device, *args, plan["warps"],
+                           plan["span"], plan["blocks"])
             correlation_volume.bf16_launches += 1
         else:
+            kernels.launch(name, left.device, *args)
             correlation_volume.launches += 1
         ctx.save_for_backward(left, right)
         return out

@@ -959,6 +959,81 @@ def test_corr_band_bf16_matches_plain(cuda_device, shape, D):
     _bf16_close(got, want)
 
 
+@pytest.mark.parametrize("shape,D", [((2, 3, 57, 72), 24),
+                                     ((1, 2, 33, 8), 40),
+                                     ((1, 2, 70, 32), 1024),
+                                     ((1, 2, 65, 256), 24),
+                                     ((1, 2, 129, 256), 96),
+                                     ((2, 2, 81, 16), 200)],
+                         ids=["C72-k16-tail", "C8-half-k16", "D1024",
+                              "W-past-64px-tile", "W-past-128px-tile-D96",
+                              "two-spans-D200"])
+def test_corr_band_bf16_edges_match_plain(cuda_device, shape, D):
+    """The tensor-core form's edges: a C whose last k16 step is half
+    zero-filled (C = 72, and C = 8, one half step), D split into spans of
+    128 (and of 104), W one pixel past a tile of 64 and of 128 pixels."""
+    rng = np.random.default_rng(25)
+    left = _randn(rng, shape, cuda_device).bfloat16()
+    right = _randn(rng, shape, cuda_device).bfloat16()
+    got = ops.correlation_volume(left, right, D)
+    torch.cuda.synchronize()
+    _bf16_close(got, ops.correlation_volume_plain(left, right, D))
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape,D", [((2, 3, 77, 72), 24),
+                                     ((1, 2, 50, 64), 96)],
+                         ids=["C72-D24", "D96"])
+def test_corr_band_bf16_every_block_width_matches_plain(cuda_device, shape, D,
+                                                        warps):
+    """Every width the plan may pick (1, 2, 4 or 8 warps of 16 pixels a
+    block), on a grid of fewer blocks than tasks, so that each block walks
+    several tasks through its ring."""
+    from stereoformer_tpu_torch import kernels
+    from stereoformer_tpu_torch.ops.cost_volume import corr_bf16_plan
+
+    rng = np.random.default_rng(26)
+    left = _randn(rng, shape, cuda_device).bfloat16()
+    right = _randn(rng, shape, cuda_device).bfloat16()
+    B, H, W, C = shape
+    plan = corr_bf16_plan(B, H, W, C, D, 132, warps)
+    got = torch.empty((B, H, W, D), dtype=torch.bfloat16, device=cuda_device)
+    kernels.launch("corr_band_bf16", cuda_device, left.data_ptr(),
+                   right.data_ptr(), got.data_ptr(), B, H, W, C, D,
+                   warps, plan["span"], max(1, plan["tasks"] // 3))
+    torch.cuda.synchronize()
+    _bf16_close(got, ops.correlation_volume_plain(left, right, D))
+
+
+def test_corr_band_bf16_entry_refuses_a_bad_plan(cuda_device):
+    """The C entry returns cudaErrorInvalidValue (1) for a plan it does not
+    take: 9 warps, a split D whose span is no multiple of 8 or over 128,
+    more blocks than tasks; the launch wrapper raises on it."""
+    from stereoformer_tpu_torch import kernels
+
+    feat = torch.zeros((1, 2, 40, 32), dtype=torch.bfloat16,
+                       device=cuda_device)
+    out = torch.empty((1, 2, 40, 300), dtype=torch.bfloat16,
+                      device=cuda_device)
+    ptrs = (feat.data_ptr(), feat.data_ptr(), out.data_ptr(), 1, 2, 40, 32)
+    for D, warps, span, blocks in ((24, 9, 24, 1), (300, 1, 100, 1),
+                                   (300, 1, 136, 1), (24, 4, 24, 3)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            kernels.launch("corr_band_bf16", cuda_device, *ptrs, D, warps,
+                           span, blocks)
+
+
+def test_corr_band_bf16_is_deterministic(cuda_device):
+    """No atomics, a fixed order of k steps: a second call gives the same
+    bits."""
+    rng = np.random.default_rng(27)
+    left = _randn(rng, (8, 72, 120, 256), cuda_device).bfloat16()
+    right = _randn(rng, (8, 72, 120, 256), cuda_device).bfloat16()
+    for D in (24, 96):
+        first = ops.correlation_volume(left, right, D)
+        assert torch.equal(first, ops.correlation_volume(left, right, D))
+
+
 @pytest.mark.parametrize("shape", [(4, 576, 960, 64, 64), (2, 288, 480, 96, 96),
                                    (1, 37, 53, 96, 96), (2, 19, 40, 64, 64),
                                    (1, 35, 70, 64, 64), (2, 19, 40, 72, 64),
