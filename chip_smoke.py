@@ -11,21 +11,21 @@ any failure exits nonzero and prints no result:
    and print each entry function's registers and spills as ptxas gives them;
 3. each kernel against its plain PyTorch version at the main paths' shapes
    and at edge inputs, with the tolerance stated: the two forward kernels,
-   local_soft_argmin's backward kernel (also at D in {50, 96, 256} with S in
-   {21, 33, 128}, past the old kernels' limits, with 1, 2 and 4 lanes a
-   pixel, and bit-equal to itself on a second call), corr_band (also at D in {50, 96, 256}, with W below D and W
-   that no 32-pixel tile divides), corr_band's backward (torch ops)
-   against autograd of its plain version, conv2d_fused in every variant,
-   conv2d_dw against float64 sums at RAFT's four training shapes (and
-   bit-equal to itself on a second call), the fused conv's backward
-   (conv2d_fused for dx, conv2d_dw for dw, torch ops for the rest) in all
-   six variants against autograd of its plain version,
+   local_soft_argmin's backward kernel (also at D in {50, 96, 256} with S
+   in {21, 33, 128}, past the old kernels' limits, with 1, 2 and 4 lanes a
+   pixel, and bit-equal to itself on a second call), corr_band (also at D
+   in {50, 96, 256}, with W below D and W that no 32-pixel tile divides),
+   corr_band's backward (torch ops) against autograd of its plain version,
+   conv2d_fused in every variant, conv2d_dw against float64 sums at RAFT's
+   four training shapes (and bit-equal to itself on a second call), the
+   fused conv's backward (conv2d_fused for dx, conv2d_dw for dw, torch ops
+   for the rest) in all six variants against autograd of its plain version,
    deform_sample (the fused kernel: x, offsets, mask and weight in) against
    the plain windowed form in float64 at the learned bounds' eval and train
-   shapes, an odd W, dilation 2, offsets beyond the window, integer offsets,
-   Co = 5, 6, 24, 32, C = 6, 40, 64, 128, windows 1, 3, 8 and 24 (the last
-   too wide for a halo in shared memory), tile edges and k = 5, and
-   bit-equal to itself on a second call,
+   shapes, an odd W, dilation 2, offsets beyond the window, integer
+   offsets, Co = 5, 6, 24, 32, 256, C = 6, 40, 64, 128, 256, windows 1, 3,
+   8 and 24 (the last too wide for a halo in shared memory), tile edges and
+   k = 5, and bit-equal to itself on a second call,
    conv2d_s2 with and without ReLU against the plain version in float64 at
    RAFT's six stride-2 sites and edge shapes, with its gradient, and
    row_gather bit-equal to its plain version at the probe's shape, an index
@@ -202,7 +202,39 @@ any failure exits nonzero and prints no result:
    would fail at two thirds of the leaves or more; cli.train
    --dtype bf16 on dummy data at 320x640, B=4: an epoch, --resume to a
    second, float32 parameters and moments in the checkpoints;
-19. one JSON line with each kernel's numbers; the last line says the run
+19. RAFT-Stereo's option sets: get_model("RAFT_Stereo", downsample=3,
+   n_gru_layers=2) (the upstream real-time model's two options the JAX
+   model has) at 576x960, B=2, 7 iterations, test_mode, in float32 and
+   bf16, each timed in turn with the default at the same iterations (14
+   conv2d_fused or conv2d_fused_bf16 launches a forward); its float32 train
+   step at 320x720, B=4, 12 iterations, AMSGrad 2e-4, beside the default's
+   (28 conv2d_fused and 14 conv2d_dw launches a step, a loss that falls
+   over 4 steps, finite gradients), and its bf16 step (28
+   conv2d_fused_bf16, 14 of them dx, and 14 conv2d_dw_bf16); downsample=1
+   eval at 576x960, B=2 (16 launches: its 64 -> 96 layer2 entry routed
+   too) and its float32 train step at B=1 (32 conv2d_fused and 16
+   conv2d_dw launches); both sets' eval and the downsample=3 train step on
+   the card against the CPU port at 64x128 with moderate weights, TF32 off
+   (phase 13's bounds); conv2d_fused, its dx and conv2d_dw at the sites the
+   sets move (1/2 and 1/4 at downsample=3, layer2 and its 64 -> 96 entry at
+   full resolution at downsample=1), each timed beside its bounds and
+   cuDNN;
+20. the library modules no model calls, at full width, each on the card
+   against the CPU port on the same inputs (TF32 off; the CPU on the first
+   samples where the module runs each sample alone) and timed:
+   ResSubmoduleAttention(scale=2, out_planes=64) without and with its
+   deformable bottleneck on 576x960 images, B=8, a 1/4 disparity and a
+   32-channel feature (one deform_sample launch a forward, at [8, 36, 60,
+   256] -> 256; the kernel there against the plain version in phase 3, its
+   tiling and its time beside its bound), Hourglass3D(32) train forward
+   and backward on [1, 32, 48, 144, 240] (each gradient within 3 times the
+   CPU float32's distance from the CPU's float64, and the statistics), the
+   cost-volume pyramid of 32-channel features at 1/4, 1/8 and 1/16 with
+   max_disp 192 in its three modes (3 corr_band launches in correlation),
+   the four deformable convs at [8, 128, 72, 120] -> 128 and one at stride
+   2, DeformRoIPoolingPack on [2, 256, 72, 120] with 128 RoIs, and
+   SepConvGRU(128) at 1/8, B=8;
+21. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -336,6 +368,9 @@ def train_launches(name: str) -> dict:
 # step (B=4, 320x640): (B, H, W, C, Co)
 DEFORM_SHAPES = {"eval": (B, H // 8, W // 8, 16, 16),
                  "train": (4, TRAIN_H // 8, TRAIN_W // 8, 16, 16)}
+# and ResSubmoduleAttention's deformable bottleneck (phase 20): 256 -> 256
+# channels at 1/16 of 576x960, B=8
+DEFORM_RES_SHAPE = (B, H // 16, W // 16, 256, 256)
 
 
 class SmokeFailure(RuntimeError):
@@ -608,6 +643,10 @@ def main() -> int:
         launches.update(entry_points_phase(ops, record, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # 19. RAFT-Stereo's option sets; 20. the library modules
+    launches.update(raft_options_phase(ops, rng, record))
+    launches.update(library_modules_phase(ops, rng, record))
+    add_option_site_times(rows, record)
     for path in launches:
         for row in rows:
             row["launches_by_path"].setdefault(path,
@@ -767,8 +806,9 @@ def conv_calls(ops, x, w, b, s, t, r) -> dict:
 
 def check_conv_kernel(ops, rng) -> float:
     """Phase 3, conv2d_fused: every variant against the plain version
-    (cuDNN with TF32 off) at RAFT's four shapes and at edge shapes; returns
-    the largest absolute error of y."""
+    (cuDNN with TF32 off) at RAFT's four shapes, its 64 -> 96 entry at
+    downsample=1 and edge shapes; returns the largest absolute error of
+    y."""
     torch.backends.cudnn.allow_tf32 = False
     # 3xTF32 products summed per 8-channel chunk on the tensor cores and
     # folded into float32 totals, in another order than cuDNN's (input
@@ -780,6 +820,8 @@ def check_conv_kernel(ops, rng) -> float:
     # and the variance S2/n - (S1/n)^2 the norm takes, relative to itself
     m_rtol, var_rtol = 1e-5, 1e-4
     shapes = [(B_, H_, W_, C_, C_) for B_, H_, W_, C_ in RAFT_CONVS.values()]
+    # and RAFT's 64 -> 96 layer2 entry at downsample=1 (the context net's)
+    shapes.append(RAFT_DS1_CONVS["cnet layer2 entry"])
     worst = 0.0
     print("conv2d_fused vs plain (TF32 off):", flush=True)
     for shape in shapes + EDGE_CONVS:
@@ -830,13 +872,15 @@ EDGE_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 64, 64), (1, 17, 45, 64, 64),
 
 def check_dw_kernel(ops, rng) -> float:
     """Phase 3, conv2d_dw: against float64 sums (the plain version on
-    float64 copies) at RAFT's four training shapes and at edge shapes, and
-    bit-equal to itself on a second call; returns the largest absolute
-    error."""
+    float64 copies) at RAFT's four training shapes, its 64 -> 96 entry at
+    downsample=1 and edge shapes, and bit-equal to itself on a second
+    call; returns the largest absolute error."""
     # 3xTF32 products summed in float32 over a block's pixels, the blocks'
     # partials added in float64: relative to the largest |dw|
     rtol = 2e-5
     shapes = [(*v, v[3]) for v in RAFT_TRAIN_CONVS.values()]
+    # and RAFT's 64 -> 96 layer2 entry at downsample=1 (the context net's)
+    shapes.append(RAFT_DS1_TRAIN_CONVS["cnet layer2 entry"])
     worst = 0.0
     print("conv2d_dw vs float64 sums:", flush=True)
     for shape in shapes + EDGE_CONVS:
@@ -998,6 +1042,8 @@ DEFORM_CASES = {
     "C 40, Co 24": ((2, 20, 50, 40, 24), 1, 1, 1.8, 2, 3),
     "C 6, Co 5": ((2, 13, 17, 6, 5), 1, 1, 1.8, 2, 3),
     "k 5, Co 32": ((1, 20, 40, 8, 32), 2, 1, 1.8, 2, 5),
+    # ResSubmoduleAttention's deformable bottleneck (phase 20)
+    "C 256, Co 256": (DEFORM_RES_SHAPE, 1, 1, 1.8, 2, 3),
 }
 
 
@@ -1368,13 +1414,14 @@ def raft_eval_phase(ops, rng, batch: int, record,
     return launches
 
 
-def raft_train_setup(dtype=None):
+def raft_train_setup(dtype=None, batch: int = RAFT_TRAIN_B, **options):
     """The RAFT train protocol on the card: RAFT_Stereo with random weights
     from the torch seed as it stands (computing in ``dtype``: float32, or
-    bf16), AMSGrad at RAFT_LR, the sequence loss over ITERS iterations and
-    one batch of RAFT_TRAIN_B pairs at RAFT_TRAIN_H x RAFT_TRAIN_W from seed
-    4. Returns (model, tx, state, step, data).
-    ``scripts/time_raft_step.py`` times the same protocol."""
+    bf16; with the model's ``options``), AMSGrad at RAFT_LR, the sequence
+    loss over ITERS iterations and one batch of ``batch`` pairs (the
+    protocol's RAFT_TRAIN_B) at RAFT_TRAIN_H x RAFT_TRAIN_W from seed 4.
+    Returns (model, tx, state, step, data). ``scripts/time_raft_step.py``
+    times the same protocol."""
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.train import (
         Amsgrad,
@@ -1382,11 +1429,11 @@ def raft_train_setup(dtype=None):
         make_train_step,
     )
 
-    model = get_model("RAFT_Stereo", device="cuda", dtype=dtype)
+    model = get_model("RAFT_Stereo", device="cuda", dtype=dtype, **options)
     tx = Amsgrad(RAFT_LR)
     state = TrainState.create(model, tx)
     step = make_train_step(tx, "sequence", iters=ITERS)
-    data = train_batch(4, RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W)
+    data = train_batch(4, batch, RAFT_TRAIN_H, RAFT_TRAIN_W)
     return model, tx, state, step, data
 
 
@@ -1634,44 +1681,10 @@ def conv_row(ops, rng, err, launches, record) -> dict:
     float32 product at the TF32 rate (the kernel's design,
     ``bound_tf32x3_ms``) and one TF32 product (``bound_tf32_ms``); the
     blocks of each site's grid."""
-    import torch.nn.functional as F
-
     from stereoformer_tpu_torch import kernels
-    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
-    torch.backends.cudnn.allow_tf32 = False
-    times = {}
-    for where, (B_, H_, W_, C) in RAFT_CONVS.items():
-        x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, C)
-        variant = "prologue+stats" if where.startswith("fnet") else "prologue"
-        kern, kw = conv_calls(ops, x, w, b, s, t, r)[variant]
-        xc = x.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        nbytes = (2 * B_ * H_ * W_ * C + 9 * C * C + C) * 4
-        nops = 2 * 9 * C * C * B_ * H_ * W_
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOPS_PER_S * 1e3
-        row = {"variant": variant, "shape": [B_, H_, W_, C, C],
-               "gflop": nops / 1e9, "mb": nbytes / 1e6,
-               "ms": graph_ms(kern, 10),
-               "call_ms": time_ms(kern, 10),
-               "plain_ms": graph_ms(
-                   lambda: ops.conv3x3_plain(x, w, b, **kw), 5),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
-               "bound_tf32_ms": max(t_bytes,
-                                    nops / TF32_FLOPS_PER_S * 1e3),
-               "blocks": fused_blocks(B_, H_, W_, C)}
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = tf32
-            key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = graph_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
-        torch.backends.cudnn.allow_tf32 = False
-        times[where] = row
-        print_conv_row(f"conv2d_fused {variant}", where, row, nops,
-                       "F.conv2d+bias")
-        del x, w, b, s, t, r, xc, wc
+    times = {where: fused_site(ops, rng, where, *shape)
+             for where, shape in RAFT_CONVS.items()}
     dx = dx_times(ops, rng)
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"]["conv2d_fused"] = times
@@ -1696,54 +1709,102 @@ def conv_row(ops, rng, err, launches, record) -> dict:
     }
 
 
+def fused_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
+               Co: int = None) -> dict:
+    """conv2d_fused at one site [B_, H_, W_, C] -> Co (C where not given),
+    TF32 off: the device time of the variant the encoder runs there (the
+    feature net's prologue+stats, the context net's prologue), its plain
+    version's, cuDNN's F.conv2d with bias (TF32 off and on), and the bounds
+    (``conv_row``)."""
+    import torch.nn.functional as F
+
+    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
+
+    Co = C if Co is None else Co
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, Co)
+    variant = "prologue+stats" if where.startswith("fnet") else "prologue"
+    kern, kw = conv_calls(ops, x, w, b, s, t, r)[variant]
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    nbytes = (B_ * H_ * W_ * (C + Co) + 9 * C * Co + Co) * 4
+    nops = 2 * 9 * C * Co * B_ * H_ * W_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS_PER_S * 1e3
+    row = {"variant": variant, "shape": [B_, H_, W_, C, Co],
+           "gflop": nops / 1e9, "mb": nbytes / 1e6,
+           "ms": graph_ms(kern, 10),
+           "call_ms": time_ms(kern, 10),
+           "plain_ms": graph_ms(
+               lambda: ops.conv3x3_plain(x, w, b, **kw), 5),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+           "bound_tf32_ms": max(t_bytes,
+                                nops / TF32_FLOPS_PER_S * 1e3),
+           "blocks": fused_blocks(B_, H_, W_, Co)}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        key = "library_tf32_ms" if tf32 else "library_ms"
+        row[key] = graph_ms(lambda: F.conv2d(xc, wc, b, padding=1), 10)
+    torch.backends.cudnn.allow_tf32 = False
+    print_conv_row(f"conv2d_fused {variant}", where, row, nops,
+                   "F.conv2d+bias")
+    return row
+
+
 def dx_times(ops, rng) -> dict:
     """Phase 12, conv2d_fused as the backward's dx conv at RAFT's four
-    training shapes (the cotangent with the flipped, io-transposed weights
-    and no bias): its device time, the plain version's, cuDNN's
-    conv2d_input for the same gradient (TF32 off and on), and the bounds
-    (float32, 3xTF32 and one TF32 pass, as in ``conv_row``)."""
+    training shapes (``dx_site``)."""
+    return {where: dx_site(ops, rng, where, *shape)
+            for where, shape in RAFT_TRAIN_CONVS.items()}
+
+
+def dx_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
+            Co: int = None) -> dict:
+    """conv2d_fused as the backward's dx conv of a C -> Co conv (Co = C
+    where not given) at [B_, H_, W_]: the cotangent [.., Co] with the
+    flipped, io-transposed weights and no bias, -> [.., C]. Its device
+    time, the plain version's, cuDNN's conv2d_input for the same gradient
+    (TF32 off and on), and the bounds (float32, 3xTF32 and one TF32 pass,
+    as in ``conv_row``)."""
     from torch.nn.grad import conv2d_input
 
     from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
-    times = {}
-    for where, (B_, H_, W_, C) in RAFT_TRAIN_CONVS.items():
-        g = randn(rng, B_, H_, W_, C)
-        w = randn(rng, 3, 3, C, C) / np.sqrt(9 * C)
-        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
-        zero = torch.zeros(C, device="cuda")
-        gc = g.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        nbytes = (2 * B_ * H_ * W_ * C + 9 * C * C) * 4
-        nops = 2 * 9 * C * C * B_ * H_ * W_
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOPS_PER_S * 1e3
+    Co = C if Co is None else Co
+    g = randn(rng, B_, H_, W_, Co)
+    w = randn(rng, 3, 3, C, Co) / np.sqrt(9 * C)
+    w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+    zero = torch.zeros(C, device="cuda")
+    gc = g.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    nbytes = (B_ * H_ * W_ * (C + Co) + 9 * C * Co) * 4
+    nops = 2 * 9 * C * Co * B_ * H_ * W_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS_PER_S * 1e3
 
-        def kern():
-            return ops.conv2d_fused(g, w_rot, zero, None, False)
+    def kern():
+        return ops.conv2d_fused(g, w_rot, zero, None, False)
 
-        row = {"shape": [B_, H_, W_, C, C], "gflop": nops / 1e9,
-               "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
-               "call_ms": time_ms(kern, 10),
-               "plain_ms": graph_ms(
-                   lambda: ops.conv3x3_plain(g, w_rot, zero), 5),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
-               "bound_tf32_ms": max(t_bytes,
-                                    nops / TF32_FLOPS_PER_S * 1e3),
-               "blocks": fused_blocks(B_, H_, W_, C)}
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = tf32
-            key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = graph_ms(
-                lambda: conv2d_input((B_, C, H_, W_), wc, gc, padding=1), 10)
-        torch.backends.cudnn.allow_tf32 = False
-        times[where] = row
-        print_conv_row("conv2d_fused as dx", where, row, nops,
-                       "conv2d_input")
-        del g, w, w_rot, gc, wc
-    return times
+    row = {"shape": [B_, H_, W_, C, Co], "gflop": nops / 1e9,
+           "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
+           "call_ms": time_ms(kern, 10),
+           "plain_ms": graph_ms(
+               lambda: ops.conv3x3_plain(g, w_rot, zero), 5),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+           "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3),
+           "blocks": fused_blocks(B_, H_, W_, C)}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        key = "library_tf32_ms" if tf32 else "library_ms"
+        row[key] = graph_ms(
+            lambda: conv2d_input((B_, C, H_, W_), wc, gc, padding=1), 10)
+    torch.backends.cudnn.allow_tf32 = False
+    print_conv_row("conv2d_fused as dx", where, row, nops, "conv2d_input")
+    return row
 
 
 def tf32x3_bound_ms(nbytes: float, nops: float) -> float:
@@ -1780,41 +1841,10 @@ def dw_row(ops, rng, err, launches, record) -> dict:
     (``bound_ms``), three TF32 products per float32 product at the TF32
     rate (the kernel's design, ``bound_tf32x3_ms``) and one TF32 product at
     that rate (``bound_tf32_ms``)."""
-    from torch.nn.grad import conv2d_weight
-
     from stereoformer_tpu_torch import kernels
 
-    torch.backends.cudnn.allow_tf32 = False
-    times = {}
-    for where, (B_, H_, W_, C) in RAFT_TRAIN_CONVS.items():
-        x, g = randn(rng, B_, H_, W_, C), randn(rng, B_, H_, W_, C)
-        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        nbytes = (2 * B_ * H_ * W_ * C + 9 * C * C) * 4
-        nops = 2 * 9 * C * C * B_ * H_ * W_
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOPS_PER_S * 1e3
-
-        def kern():
-            return ops.conv2d_dw(x, g)
-
-        row = {"shape": [B_, H_, W_, C, C], "gflop": nops / 1e9,
-               "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
-               "call_ms": time_ms(kern, 10),
-               "plain_ms": graph_ms(lambda: ops.conv2d_dw_plain(x, g), 3),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
-               "bound_tf32_ms": max(t_bytes,
-                                    nops / TF32_FLOPS_PER_S * 1e3)}
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = tf32
-            key = "library_tf32_ms" if tf32 else "library_ms"
-            row[key] = graph_ms(
-                lambda: conv2d_weight(xc, (C, C, 3, 3), gc, padding=1), 10)
-        torch.backends.cudnn.allow_tf32 = False
-        times[where] = row
-        print_conv_row("conv2d_dw", where, row, nops, "conv2d_weight")
-        del x, g, xc, gc
+    times = {where: dw_site(ops, rng, where, *shape)
+             for where, shape in RAFT_TRAIN_CONVS.items()}
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"]["conv2d_dw"] = times
     main = times["fnet layer1"]
@@ -1836,6 +1866,44 @@ def dw_row(ops, rng, err, launches, record) -> dict:
     }
 
 
+def dw_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
+            Co: int = None) -> dict:
+    """conv2d_dw at one site, x [B_, H_, W_, C] and g [.., Co] (Co = C where
+    not given), TF32 off: its device time, the plain version's, cuDNN's
+    conv2d_weight (TF32 off and on) and the bounds (``dw_row``)."""
+    from torch.nn.grad import conv2d_weight
+
+    Co = C if Co is None else Co
+    torch.backends.cudnn.allow_tf32 = False
+    x, g = randn(rng, B_, H_, W_, C), randn(rng, B_, H_, W_, Co)
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    nbytes = (B_ * H_ * W_ * (C + Co) + 9 * C * Co) * 4
+    nops = 2 * 9 * C * Co * B_ * H_ * W_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS_PER_S * 1e3
+
+    def kern():
+        return ops.conv2d_dw(x, g)
+
+    row = {"shape": [B_, H_, W_, C, Co], "gflop": nops / 1e9,
+           "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
+           "call_ms": time_ms(kern, 10),
+           "plain_ms": graph_ms(lambda: ops.conv2d_dw_plain(x, g), 3),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
+           "bound_tf32_ms": max(t_bytes,
+                                nops / TF32_FLOPS_PER_S * 1e3)}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        key = "library_tf32_ms" if tf32 else "library_ms"
+        row[key] = graph_ms(
+            lambda: conv2d_weight(xc, (Co, C, 3, 3), gc, padding=1), 10)
+    torch.backends.cudnn.allow_tf32 = False
+    print_conv_row("conv2d_dw", where, row, nops, "conv2d_weight")
+    return row
+
+
 def deform_row(ops, rng, err, launches, record) -> dict:
     """Phase 12, deform_sample at the learned bounds' eval and train shapes:
     the fused kernel's device time (one launch: x, offsets, mask and weight
@@ -1852,94 +1920,10 @@ def deform_row(ops, rng, err, launches, record) -> dict:
     profiler, and its time per call by CUDA events over back-to-back
     calls, host gaps included (the lowest and highest of five runs)."""
     from stereoformer_tpu_torch import kernels
-    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
 
-    try:
-        import torchvision.ops as tv_ops
-    except ImportError:
-        tv_ops = None
-    times = {}
-    for where, shape in DEFORM_SHAPES.items():
-        B_, H_, W_, C, Co = shape
-        x, off, mask, w = deform_inputs(rng, shape, 1.8)
-        plan = {}
-        deform_sample_launch(x, off, mask, w, plan=plan)
-        npix, K = B_ * H_ * W_, 9
-        nbytes = (npix * C + npix * 3 * K + K * C * Co + npix * Co) * 4
-        corner_ops, mma_ops = 2 * 4 * K * C * npix, 2 * K * C * Co * npix
-        nops = corner_ops + mma_ops
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOPS_PER_S * 1e3
-        t_design = (corner_ops / F32_FLOPS_PER_S
-                    + 3 * mma_ops / TF32_FLOPS_PER_S) * 1e3
-
-        def kern():
-            return ops.deform_conv_fused(x, off, mask, w)
-
-        row = {"shape": list(shape), "mb": nbytes / 1e6, "gflop": nops / 1e9,
-               "ms": graph_ms(kern, 50), "call_ms": time_ms(kern, 50),
-               "plain_ms": graph_ms(
-                   lambda: ops.modulated_deform_conv_windowed(x, off, mask,
-                                                              w), 5),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-               "bound_tf32x3_ms": max(t_bytes, t_design),
-               "library_ms": None, "plan": plan}
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        row["share_of_design_bound"] = row["bound_tf32x3_ms"] / row["ms"]
-        if tv_ops is not None:
-            xc = x.permute(0, 3, 1, 2)
-            offc = off.clamp(-2, 2).reshape(B_, H_, W_, 2 * K).permute(
-                0, 3, 1, 2).contiguous()
-            mc = mask.permute(0, 3, 1, 2).contiguous()
-            wc = w.reshape(3, 3, C, Co).permute(3, 2, 0, 1).contiguous()
-
-            def lib():
-                return tv_ops.deform_conv2d(xc, offc, wc, padding=(1, 1),
-                                            mask=mc)
-
-            row["library_ms"] = graph_ms(lib, 20)
-            row["library_max_abs_diff"] = (
-                lib().permute(0, 2, 3, 1) - kern()).abs().max().item()
-        bwd_text = ""
-        if where == "train":
-            leaves = [t.clone().requires_grad_(True) for t in (x, off, mask,
-                                                               w)]
-            y = ops.deform_conv_fused(*leaves)
-            g = randn(rng, *y.shape)
-
-            def bwd():
-                return torch.autograd.grad(y, leaves, g, retain_graph=True)
-
-            # the autograd graph of the plain form does not capture into a
-            # CUDA graph: its kernels' device time by the profiler, and
-            # CUDA events over back-to-back calls
-            row["backward_device_ms"] = profiler_ms(bwd, 5, "")
-            runs = [time_ms(bwd, 4) for _ in range(5)]
-            row["backward_ms"] = float(np.median(runs))
-            row["backward_ms_range"] = [min(runs), max(runs)]
-            bwd_text = (f"; backward (autograd of the plain form) "
-                        f"{row['backward_device_ms']:.3f} ms of device time "
-                        f"a call by the profiler, {min(runs):.3f} to "
-                        f"{max(runs):.3f} ms a call by events")
-            del leaves, y, g
-        times[where] = row
-        lib_text = ("torchvision not importable" if tv_ops is None else
-                    f"torchvision deform_conv2d {row['library_ms'] * 1e3:.1f}"
-                    f" us (max |diff| {row['library_max_abs_diff']:.2e})")
-        print(f"  deform_sample {where} {shape}: {row['ms'] * 1e3:.2f} us on "
-              f"the device ({plan['rows']}-row tiles, {16 * plan['mt']} "
-              f"pixels a warp, {plan['ts']} tap slices; bound "
-              f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}: "
-              f"{row['mb']:.2f} MB, {row['gflop']:.3f} GFLOP; "
-              f"{100 * row['share_of_bound']:.1f}%; 3xTF32 design bound "
-              f"{row['bound_tf32x3_ms'] * 1e3:.2f} us, "
-              f"{100 * row['share_of_design_bound']:.1f}%), "
-              f"{row['call_ms'] * 1e3:.1f} us per wrapper call; plain "
-              f"{row['plain_ms'] * 1e3:.1f} us; {lib_text}{bwd_text}",
-              flush=True)
-        del x, off, mask, w
+    times = {where: deform_site(ops, rng, where, shape,
+                                backward=where == "train")
+             for where, shape in DEFORM_SHAPES.items()}
     record["kernel_times"]["deform_sample"] = times
     main = times["eval"]
     route, source, replaces = KERNELS["deform_sample"]
@@ -1958,6 +1942,99 @@ def deform_row(ops, rng, err, launches, record) -> dict:
         "share_of_design_bound": main["share_of_design_bound"],
         "train": times["train"], "ptxas": kernels.ptxas_usage("deform_sample"),
     }
+
+
+def deform_site(ops, rng, where: str, shape: tuple,
+                backward: bool = False) -> dict:
+    """deform_sample at one shape (B, H, W, C, Co), window 2, k = 3: the
+    fused kernel's device time and tiling, the plain version's, torchvision's
+    where it imports, and the bounds (``deform_row``); with ``backward``,
+    also the backward's times."""
+    from stereoformer_tpu_torch.ops.deform import deform_sample_launch
+
+    try:
+        import torchvision.ops as tv_ops
+    except ImportError:
+        tv_ops = None
+    B_, H_, W_, C, Co = shape
+    x, off, mask, w = deform_inputs(rng, shape, 1.8)
+    plan = {}
+    deform_sample_launch(x, off, mask, w, plan=plan)
+    npix, K = B_ * H_ * W_, 9
+    nbytes = (npix * C + npix * 3 * K + K * C * Co + npix * Co) * 4
+    corner_ops, mma_ops = 2 * 4 * K * C * npix, 2 * K * C * Co * npix
+    nops = corner_ops + mma_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS_PER_S * 1e3
+    t_design = (corner_ops / F32_FLOPS_PER_S
+                + 3 * mma_ops / TF32_FLOPS_PER_S) * 1e3
+
+    def kern():
+        return ops.deform_conv_fused(x, off, mask, w)
+
+    row = {"shape": list(shape), "mb": nbytes / 1e6, "gflop": nops / 1e9,
+           "ms": graph_ms(kern, 50), "call_ms": time_ms(kern, 50),
+           "plain_ms": graph_ms(
+               lambda: ops.modulated_deform_conv_windowed(x, off, mask,
+                                                          w), 5),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+           "bound_tf32x3_ms": max(t_bytes, t_design),
+           "library_ms": None, "plan": plan}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_design_bound"] = row["bound_tf32x3_ms"] / row["ms"]
+    if tv_ops is not None:
+        xc = x.permute(0, 3, 1, 2)
+        offc = off.clamp(-2, 2).reshape(B_, H_, W_, 2 * K).permute(
+            0, 3, 1, 2).contiguous()
+        mc = mask.permute(0, 3, 1, 2).contiguous()
+        wc = w.reshape(3, 3, C, Co).permute(3, 2, 0, 1).contiguous()
+
+        def lib():
+            return tv_ops.deform_conv2d(xc, offc, wc, padding=(1, 1),
+                                        mask=mc)
+
+        row["library_ms"] = graph_ms(lib, 20)
+        row["library_max_abs_diff"] = (
+            lib().permute(0, 2, 3, 1) - kern()).abs().max().item()
+    bwd_text = ""
+    if backward:
+        leaves = [t.clone().requires_grad_(True) for t in (x, off, mask,
+                                                           w)]
+        y = ops.deform_conv_fused(*leaves)
+        g = randn(rng, *y.shape)
+
+        def bwd():
+            return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+        # the autograd graph of the plain form does not capture into a
+        # CUDA graph: its kernels' device time by the profiler, and
+        # CUDA events over back-to-back calls
+        row["backward_device_ms"] = profiler_ms(bwd, 5, "")
+        runs = [time_ms(bwd, 4) for _ in range(5)]
+        row["backward_ms"] = float(np.median(runs))
+        row["backward_ms_range"] = [min(runs), max(runs)]
+        bwd_text = (f"; backward (autograd of the plain form) "
+                    f"{row['backward_device_ms']:.3f} ms of device time "
+                    f"a call by the profiler, {min(runs):.3f} to "
+                    f"{max(runs):.3f} ms a call by events")
+        del leaves, y, g
+    lib_text = ("torchvision not importable" if tv_ops is None else
+                f"torchvision deform_conv2d {row['library_ms'] * 1e3:.1f}"
+                f" us (max |diff| {row['library_max_abs_diff']:.2e})")
+    print(f"  deform_sample {where} {shape}: {row['ms'] * 1e3:.2f} us on "
+          f"the device ({plan['rows']}-row tiles, {16 * plan['mt']} "
+          f"pixels a warp, {plan['ts']} tap slices; bound "
+          f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}: "
+          f"{row['mb']:.2f} MB, {row['gflop']:.3f} GFLOP; "
+          f"{100 * row['share_of_bound']:.1f}%; 3xTF32 design bound "
+          f"{row['bound_tf32x3_ms'] * 1e3:.2f} us, "
+          f"{100 * row['share_of_design_bound']:.1f}%), "
+          f"{row['call_ms'] * 1e3:.1f} us per wrapper call; plain "
+          f"{row['plain_ms'] * 1e3:.1f} us; {lib_text}{bwd_text}",
+          flush=True)
+    return row
 
 
 def s2_row(ops, rng, err, launches, record) -> dict:
@@ -2077,22 +2154,27 @@ def gather_row(ops, rng, err, launches, record) -> dict:
     }
 
 
-def moderate_weights(name: str, **kwargs) -> dict:
-    """Seeded weights (seed 1) with the conv weights scaled to
-    sqrt(1.25/fan): they keep the softmaxes neither flat nor one-hot;
-    he-normal weights make them nearly one-hot, and float32 rounding then
-    grows over the GRU steps. A deformable conv's offset conv, zero in the
-    seeded weights, is drawn at the same scale (offsets of about a px)."""
+def moderate_weights(model, seed: int = 1, **kwargs) -> dict:
+    """The smoke's moderate weights for ``model``, a registry name (built on
+    the CPU with ``kwargs``) or a module: seeded weights
+    (``weights.seeded_state_dict``, seed ``seed``) with every weight of two
+    or more axes scaled to sqrt(1.25/fan-in): they keep the softmaxes
+    neither flat nor one-hot; he-normal weights make them nearly one-hot,
+    and float32 rounding then grows over the GRU steps. An offset
+    predictor (``conv_offset_mask``, ``conv_offset``), zero in the seeded
+    weights, is drawn at the same scale (offsets of about a px)."""
     from stereoformer_tpu_torch.models import get_model
     from stereoformer_tpu_torch.weights import seeded_state_dict
 
-    sd = seeded_state_dict(get_model(name, device="cpu", **kwargs), seed=1)
-    sd = {k: v * np.sqrt(1.25 / 2.0) if v.dim() == 4 else v
+    if isinstance(model, str):
+        model = get_model(model, device="cpu", **kwargs)
+    sd = seeded_state_dict(model, seed=seed)
+    sd = {k: v * np.sqrt(1.25 / 2.0) if v.dim() >= 2 else v
           for k, v in sd.items()}
-    orng = np.random.default_rng(8)
+    orng = np.random.default_rng(seed + 7)
     for k, v in sd.items():
-        if k.endswith("conv_offset_mask.weight"):
-            fan_in = v.shape[1] * v.shape[2] * v.shape[3]
+        if k.endswith(("conv_offset_mask.weight", "conv_offset.weight")):
+            fan_in = int(np.prod(v.shape[1:]))
             sd[k] = torch.from_numpy((np.sqrt(1.25 / fan_in) * orng
                                       .standard_normal(v.shape))
                                      .astype(np.float32))
@@ -3736,6 +3818,488 @@ def bf16_cli_phase(ops, record) -> dict:
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 19: RAFT-Stereo's option sets. The upstream real-time model's two
+# options that the JAX model has (n_downsample 3, n_gru_layers 2; its
+# README's "Faster Implementation" runs 7 iterations), and features at 1/2
+RAFT_OPTION_SETS = {"ds3_gru2": {"downsample": 3, "n_gru_layers": 2},
+                    "ds1": {"downsample": 1}}
+RAFT_FAST_ITERS = 7
+# conv2d_fused's and conv2d_dw's sites at the option sets that move them:
+# at downsample=3 layer1 and layer2 run at 1/2 and 1/4 (eval B=2 at
+# 576x960, train B=4 at 320x720), at downsample=1 layer2 runs at full
+# resolution, its 64 -> 96 entry routed too (16 sites a forward). name ->
+# (B, H, W, C, Co), Co = C where left out
+RAFT_DS3_CONVS = {
+    "fnet layer1": (4, 288, 480, 64), "cnet layer1": (2, 288, 480, 64),
+    "fnet layer2": (4, 144, 240, 96), "cnet layer2": (2, 144, 240, 96)}
+RAFT_DS1_CONVS = {"fnet layer2 entry": (4, 576, 960, 64, 96),
+                  "cnet layer2 entry": (2, 576, 960, 64, 96),
+                  "fnet layer2": (4, 576, 960, 96),
+                  "cnet layer2": (2, 576, 960, 96)}
+RAFT_DS3_TRAIN_CONVS = {
+    "fnet layer1": (8, 160, 360, 64), "cnet layer1": (4, 160, 360, 64),
+    "fnet layer2": (8, 80, 180, 96), "cnet layer2": (4, 80, 180, 96)}
+# the 64 -> 96 entry in the train protocol (B=4 at 320x720): conv2d_dw's
+# and the dx conv's sites that no other set has
+RAFT_DS1_TRAIN_CONVS = {"fnet layer2 entry": (8, 320, 720, 64, 96),
+                        "cnet layer2 entry": (4, 320, 720, 64, 96)}
+# the downsample=1 train step's batch: its update block runs at 1/2
+# resolution, four times the default's pixels, so a smaller batch keeps it
+# within the card's memory; it checks the launches and is timed alone
+RAFT_DS1_TRAIN_B = 1
+
+
+def raft_options_phase(ops, rng, record) -> dict:
+    """Phase 19: RAFT_Stereo at the option sets, at full width; returns the
+    launch counts of each path."""
+    from stereoformer_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    opts = RAFT_OPTION_SETS["ds3_gru2"]
+    iters = RAFT_FAST_ITERS
+    left, right = randn(rng, 2, H, W, 3), randn(rng, 2, H, W, 3)
+    launches, rec = {}, {}
+    print(f"RAFT_Stereo option sets (phase 19), eval {H}x{W} B=2 "
+          f"iters={iters} test_mode, beside the default:", flush=True)
+
+    def eval_case(label, dtype, **options):
+        model = get_model("RAFT_Stereo", device="cuda", dtype=dtype,
+                          **options)
+
+        def forward():
+            with torch.inference_mode():
+                return model(left, right, iters=iters, test_mode=True)
+
+        f = 2 ** options.get("downsample", 2)
+        reset_counts(ops)
+        out = forward()
+        counts = read_counts(ops)
+        d, low = out["disparities"], out["disp_low"]
+        ok = (len(d) == 1 and d[0].shape == (2, H, W, 1)
+              and low.shape == (2, H // f, W // f, 1)
+              and d[0].dtype == torch.float32
+              and bool(torch.isfinite(d[0]).all())
+              and bool(torch.isfinite(low).all()))
+        if not ok:
+            raise SmokeFailure(f"RAFT {label}: outputs {len(d)} "
+                               f"{tuple(d[0].shape)} {d[0].dtype}, disp_low "
+                               f"{tuple(low.shape)}, or not finite")
+        del out, d, low
+        ms = time_ms(forward, reps=3, warmup=1)
+        return model, counts, ms
+
+    for dtype, key in ((torch.float32, "conv2d_fused"),
+                       (torch.bfloat16, "conv2d_fused_bf16")):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        row = {}
+        for label, options in (("ds3_gru2", opts), ("default", {})):
+            model, counts, ms = eval_case(f"{label} {name}", dtype,
+                                          **options)
+            check_launches(f"RAFT {label} {name} eval", counts, **{key: 14})
+            if label == "ds3_gru2":
+                launches[f"raft_ds3_gru2_{name}_eval"] = counts
+            row[label] = {"ms_per_batch": ms, "pairs_per_s": 2 / ms * 1e3}
+            del model
+        rec[f"eval_{name}"] = row
+        print(f"  {name} eval: downsample=3, n_gru_layers=2 "
+              f"{row['ds3_gru2']['ms_per_batch']:.2f} ms/batch, default "
+              f"{row['default']['ms_per_batch']:.2f} ms/batch (the same "
+              f"{iters} iterations, timed in turn; 14 {key} launches a "
+              f"forward each)", flush=True)
+    model, counts, ms = eval_case("ds1 f32", None, **RAFT_OPTION_SETS["ds1"])
+    check_launches("RAFT ds1 f32 eval", counts, conv2d_fused=16)
+    launches["raft_ds1_f32_eval"] = counts
+    rec["eval_f32"]["ds1"] = {"ms_per_batch": ms,
+                              "pairs_per_s": 2 / ms * 1e3}
+    print(f"  float32 eval, downsample=1: {ms:.2f} ms/batch (16 "
+          f"conv2d_fused launches a forward: layer2's 64 -> 96 entry in "
+          f"both encoders too)", flush=True)
+    del model, left, right
+
+    print(f"  train step {RAFT_TRAIN_H}x{RAFT_TRAIN_W} B={RAFT_TRAIN_B} "
+          f"iters={ITERS} sequence loss AMSGrad lr {RAFT_LR:g}, "
+          f"downsample=3, n_gru_layers=2 (float32 beside the default, and "
+          f"bf16):", flush=True)
+    steps = {}
+    for label, dtype, options, want, batch in (
+            ("ds3_gru2", None, opts, {"conv2d_fused": 28, "conv2d_dw": 14},
+             RAFT_TRAIN_B),
+            ("default", None, {}, {"conv2d_fused": 28, "conv2d_dw": 14},
+             RAFT_TRAIN_B),
+            ("ds3_gru2_bf16", torch.bfloat16, opts,
+             {"conv2d_fused_bf16": 28, "conv2d_fused_bf16_dx": 14,
+              "conv2d_dw_bf16": 14}, RAFT_TRAIN_B),
+            ("ds1", None, RAFT_OPTION_SETS["ds1"],
+             {"conv2d_fused": 32, "conv2d_dw": 16}, RAFT_DS1_TRAIN_B)):
+        model, tx, state, step, data = raft_train_setup(dtype, batch,
+                                                        **options)
+        reset_counts(ops)
+        state, m = step(state, data)
+        counts = read_counts(ops)
+        check_launches(f"RAFT {label} train step", counts, **want)
+        curve = [float(m["loss"])]
+        for _ in range(3):
+            state, m = step(state, data)
+            curve.append(float(m["loss"]))
+        grads_finite = all(bool(torch.isfinite(p.grad).all())
+                           for p in model.parameters())
+        if (not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]
+                or not grads_finite):
+            raise SmokeFailure(f"RAFT {label} train: loss {curve}, finite "
+                               f"gradients {grads_finite}")
+        ms = time_ms(lambda: step(state, data), reps=3, warmup=1)
+        steps[label] = {"ms_per_step": ms, "loss_curve": curve,
+                        "batch": batch, "pairs_per_s": batch / ms * 1e3}
+        if label != "default":
+            launches[f"raft_{label}_train_step"] = counts
+        print(f"    {label} (B={batch}): {ms:.2f} ms/step, loss over 4 steps "
+              f"{', '.join(f'{x:.4f}' for x in curve)}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        del model, tx, state, step, data
+    rec["train"] = steps
+
+    print("  card vs CPU port at 64x128, TF32 off, moderate weights:",
+          flush=True)
+    rec["parity_vs_cpu"] = {
+        label: raft_option_parity(label, options)
+        for label, options in RAFT_OPTION_SETS.items()}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(srng.standard_normal((2, 64, 128, 3),
+                                                      dtype=np.float32))
+             for k in ("img_left", "img_right")}
+    batch["gt_disp"] = torch.from_numpy(
+        (6 + 3 * srng.standard_normal((2, 64, 128, 1))).astype(np.float32))
+    rec["parity_vs_cpu"]["ds3_gru2_train"] = train_step_parity(
+        "RAFT_Stereo", moderate_weights("RAFT_Stereo", **opts), batch,
+        iters=2, param_tol=2e-6, min_share=0.85, model_kw=opts)
+
+    print("  the kernels at the option sets' sites (TF32 off):", flush=True)
+    times = record.setdefault("kernel_times", {})
+    times["conv2d_fused_ds3"] = {w: fused_site(ops, rng, w, *shape)
+                                 for w, shape in RAFT_DS3_CONVS.items()}
+    times["conv2d_fused_ds1"] = {w: fused_site(ops, rng, w, *shape)
+                                 for w, shape in RAFT_DS1_CONVS.items()}
+    times["conv2d_fused_dx_ds1"] = {
+        w: dx_site(ops, rng, w, *shape)
+        for w, shape in RAFT_DS1_TRAIN_CONVS.items()}
+    times["conv2d_dw_ds3"] = {w: dw_site(ops, rng, w, *shape)
+                              for w, shape in RAFT_DS3_TRAIN_CONVS.items()}
+    times["conv2d_dw_ds1"] = {w: dw_site(ops, rng, w, *shape)
+                              for w, shape in RAFT_DS1_TRAIN_CONVS.items()}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec["seconds"] = time.perf_counter() - t0
+    record["raft_options"] = rec
+    print(f"phase 19: {rec['seconds']:.1f} s", flush=True)
+    return launches
+
+
+def raft_option_parity(label: str, options: dict) -> dict:
+    """RAFT eval at ``options`` on the card against the port on the CPU at
+    64x128, 12 iterations, TF32 off, moderate weights (phase 13's
+    bounds)."""
+    from stereoformer_tpu_torch.models import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = moderate_weights("RAFT_Stereo", **options)
+    srng = np.random.default_rng(5)
+    li, ri = (torch.from_numpy(srng.standard_normal((2, 64, 128, 3),
+                                                    dtype=np.float32))
+              for _ in range(2))
+    outs = {}
+    for where in ("cpu", "cuda"):
+        m = get_model("RAFT_Stereo", device=where, **options)
+        m.load_state_dict(sd)
+        with torch.inference_mode():
+            o = m(li.to(where), ri.to(where), iters=ITERS)
+        outs[where] = (o["disp_low"].cpu(), o["disparities"][-1].cpu())
+    torch.backends.cudnn.allow_tf32 = True
+    return {"disp_low_px": compare(f"RAFT {label} eval disp_low",
+                                   outs["cuda"][0], outs["cpu"][0], 1e-3),
+            "last_disparity_px": compare(f"RAFT {label} eval last disparity",
+                                         outs["cuda"][1], outs["cpu"][1],
+                                         5e-3),
+            "disp_low_range_px": outs["cpu"][0].abs().max().item()}
+
+
+# phase 20: the library modules no model calls, at full width.
+# ResSubmoduleAttention refines a 1/4 disparity of 576x960 images (B=8)
+# with a 32-channel feature; its deformable bottleneck runs deform_sample
+# at DEFORM_RES_SHAPE, [8, 36, 60, 256] -> 256
+RES_ATTENTION = {"B": 8, "scale": 2, "feature": 32, "out_planes": 64}
+# the deformable convs' input, [B, C, H, W], and the RoI pooling's
+DEFORM_MODULE_SHAPE = (8, 128, H // 8, W // 8)
+ROI_SHAPE, N_ROIS = (2, 256, H // 8, W // 8), 128
+# card against the CPU port in phase 20: float32 on both, TF32 off, sums in
+# other orders through up to ten layers; relative to the largest output
+MODULE_RTOL = 1e-4
+# the hourglass's gradients through train-mode BatchNorm, sums over 3.3M
+# positions: float32 on the CPU is 3.2e-4 to 1.2e-3 from float64 norm-wise
+# under moderate_weights, and the card, TF32 off, up to 1.28 times that
+# (this phase on an H100 80GB HBM3 at 700 W); each gradient's distance from
+# float64 on the card is held to this many times the CPU float32's
+HOURGLASS_FLOOR_FACTOR = 3.0
+
+
+def seeded_module(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``module`` with ``moderate_weights(module, seed)`` loaded."""
+    module.load_state_dict(moderate_weights(module, seed))
+    return module
+
+
+def module_vs_cpu(label: str, module, inputs: list, batch_slice=None,
+                  rtol: float = MODULE_RTOL, reps: int = 5) -> dict:
+    """One forward of ``module`` on the card (inference, TF32 off), timed
+    by CUDA events over ``reps`` calls, and the same module on the CPU on
+    the same inputs (the first ``batch_slice`` samples of each where given:
+    the module runs each sample alone) -> its numbers."""
+    import copy
+
+    cpu = copy.deepcopy(module).cpu()
+    card = module.cuda()
+    args = [a.cuda() for a in inputs]
+
+    def forward():
+        with torch.inference_mode():
+            return card(*args)
+
+    got = forward()
+    ms = time_ms(forward, reps=reps, warmup=1)
+    sl = slice(None) if batch_slice is None else slice(0, batch_slice)
+    with torch.inference_mode():
+        want = cpu(*[a[sl] for a in inputs])
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    want = [want] if isinstance(want, torch.Tensor) else list(want)
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.isfinite(g).all():
+            raise SmokeFailure(f"{label}: output {i} not finite")
+        top = w.abs().max().item()
+        err = max(err, compare(
+            f"{label} output {i} {tuple(g.shape)} (CPU on "
+            f"{'all' if batch_slice is None else batch_slice} samples, "
+            f"largest |out| {top:.3g})", g[sl].cpu(), w, rtol * top))
+    print(f"    {label}: {ms:.3f} ms a forward on the card", flush=True)
+    return {"ms": ms, "max_abs_err": err}
+
+
+def library_modules_phase(ops, rng, record) -> dict:
+    """Phase 20: the modules of the deformable-conv and library slices on
+    the card at full width, each against the CPU port and timed; returns
+    the launch counts of each path."""
+    from stereoformer_tpu_torch import nn as pnn
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, rec = {}, {}
+    print("library modules on the card (phase 20), TF32 off, against the "
+          "CPU port:", flush=True)
+    ra = RES_ATTENTION
+    Bm, h4, w4 = ra["B"], H // 4, W // 4
+    srng = np.random.default_rng(11)
+    imgs = [torch.from_numpy(srng.uniform(0, 1, (Bm, H, W, 3)).astype(
+        np.float32)) for _ in range(2)]
+    disp = torch.from_numpy(srng.uniform(0, 48, (Bm, h4, w4, 1)).astype(
+        np.float32))
+    feat = torch.from_numpy(srng.standard_normal(
+        (Bm, h4, w4, ra["feature"])).astype(np.float32))
+    for deform in (False, True):
+        label = f"ResSubmoduleAttention(deform={deform})"
+        mod = seeded_module(pnn.ResSubmoduleAttention(
+            ra["scale"], ra["feature"], ra["out_planes"], deform), 12).eval()
+        reset_counts(ops)
+        with torch.inference_mode():
+            mod.cuda()(*(a.cuda() for a in (imgs[0], imgs[1], disp, feat)))
+        counts = read_counts(ops)
+        check_launches(f"{label} forward", counts,
+                       **({"deform_sample": 1} if deform else {}))
+        launches[f"res_attention_deform_{deform}"] = counts
+        rec[label] = module_vs_cpu(label, mod, [imgs[0], imgs[1], disp,
+                                                feat], batch_slice=2)
+        del mod
+    del imgs, disp, feat
+    rec["deform_sample_c256"] = deform_site(
+        ops, rng, "ResSubmoduleAttention bottleneck", DEFORM_RES_SHAPE)
+
+    # the 3-D hourglass, train mode: forward and one backward
+    f = 32
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1, f, 48, H // 4, W // 4)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        x.shape).astype(np.float32))
+    runs = {}
+    for where, dt in (("cpu64", torch.float64), ("cpu", torch.float32),
+                      ("cuda", torch.float32)):
+        dev = "cuda" if where == "cuda" else "cpu"
+        m = seeded_module(pnn.Hourglass3D(f), 15).train().to(dev, dt)
+        xi = x.clone().to(dev, dt).requires_grad_(True)
+        reset_counts(ops)
+        out = m(xi)
+        (out * g.to(dev, dt)).sum().backward()
+        counts = read_counts(ops)
+        runs[where] = (out.detach().cpu().double(),
+                       {"x": xi.grad.cpu().double(),
+                        **{k: p.grad.cpu().double()
+                           for k, p in m.named_parameters()}},
+                       {k: v.cpu().double()
+                        for k, v in m.state_dict().items()})
+    check_launches("Hourglass3D forward and backward", counts)
+    launches["hourglass3d"] = counts
+    gc_ = g.cuda()
+
+    def fwd_bwd():
+        (m(xi) * gc_).sum().backward()
+
+    ms = time_ms(fwd_bwd, reps=3, warmup=1)
+    (o64, g64, _), (oc, gcpu, sc), (og, gg, sg) = (
+        runs["cpu64"], runs["cpu"], runs["cuda"])
+    top = oc.abs().max().item()
+    hg_err = compare("Hourglass3D(32) train forward [1, 32, 48, 144, 240]",
+                     og, oc, MODULE_RTOL * top)
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    # each gradient held to the float32 floor: its distance from float64
+    # on the card no more than HOURGLASS_FLOOR_FACTOR times the CPU's
+    leaves = {k: (rel(gg[k], gcpu[k]), rel(gg[k], g64[k]), rel(gcpu[k],
+                                                               g64[k]))
+              for k in g64}
+    worst = max(v[0] for v in leaves.values())
+    ratio = max(v[1] / v[2] for v in leaves.values())
+    stats = max((sg[k] - sc[k]).abs().max().item() for k in sc
+                if k.endswith(("running_mean", "running_var")))
+    ok = ratio <= HOURGLASS_FLOOR_FACTOR and stats <= 1e-4
+    floor = [v[2] for v in leaves.values()]
+    print(f"  Hourglass3D backward, the input's and every parameter's "
+          f"gradient, norm-wise: card vs CPU float32 up to {worst:.2e}; "
+          f"from float64 the CPU's float32 {min(floor):.2e} to "
+          f"{max(floor):.2e}, the card's at most {ratio:.2f} times the "
+          f"CPU's (tolerance {HOURGLASS_FLOOR_FACTOR:g}); running "
+          f"statistics after the call within {stats:.2e} (1e-4) "
+          f"{'ok' if ok else 'FAIL'}; {ms:.2f} ms a forward and backward on "
+          f"the card", flush=True)
+    if not ok:
+        raise SmokeFailure("Hourglass3D: card and CPU disagree")
+    rec["Hourglass3D"] = {"ms_forward_backward": ms, "max_abs_err": hg_err,
+                          "grad_rel_err": worst, "grad_floor": floor,
+                          "grad_vs_floor": ratio, "stats_err": stats}
+    del x, g, gc_, runs, m, xi, out
+
+    # cost volume pyramid: 32-channel features at 1/4, 1/8 and 1/16
+    prng = np.random.default_rng(16)
+    lefts, rights = ([torch.from_numpy(prng.standard_normal(
+        (2, H // s, W // s, 32)).astype(np.float32)) for s in (4, 8, 16)]
+        for _ in range(2))
+    for mode in ("correlation", "concat", "difference"):
+        reset_counts(ops)
+        lc, rc = [a.cuda() for a in lefts], [a.cuda() for a in rights]
+        got = pnn.cost_volume_pyramid(lc, rc, 192, mode)
+        counts = read_counts(ops)
+        check_launches(f"cost_volume_pyramid {mode}", counts,
+                       **({"corr_band": 3} if mode == "correlation" else {}))
+        launches[f"cost_volume_pyramid_{mode}"] = counts
+        ms = time_ms(lambda: pnn.cost_volume_pyramid(lc, rc, 192, mode),
+                     reps=3, warmup=1)
+        want = pnn.cost_volume_pyramid(lefts, rights, 192, mode)
+        err = max(compare(f"cost_volume_pyramid {mode} level {i} "
+                          f"{tuple(w.shape)}", gv.cpu(), w,
+                          MODULE_RTOL * w.abs().max().item())
+                  for i, (gv, w) in enumerate(zip(got, want)))
+        print(f"    cost_volume_pyramid {mode}: {ms:.3f} ms on the card",
+              flush=True)
+        rec[f"cost_volume_pyramid_{mode}"] = {"ms": ms, "max_abs_err": err}
+        del got, want, lc, rc
+    del lefts, rights
+
+    # the deformable convs at [8, 128, 72, 120] -> 128
+    Bd, Cd, Hd, Wd = DEFORM_MODULE_SHAPE
+    drng = np.random.default_rng(17)
+
+    def rand(*shape):
+        return torch.from_numpy(drng.standard_normal(shape).astype(
+            np.float32))
+
+    x = rand(Bd, Cd, Hd, Wd)
+    off = 1.5 * rand(Bd, 18, Hd, Wd)
+    mask = torch.sigmoid(rand(Bd, 9, Hd, Wd))
+    normal = rand(Bd, 32, Hd, Wd)
+    cases = [
+        ("ModulatedDeformConv", pnn.ModulatedDeformConv(Cd, Cd),
+         [x, off, mask]),
+        ("ModulatedDeformNormal", pnn.ModulatedDeformNormal(
+            Cd, Cd, normal_channels=32), [x, normal]),
+        ("DeformConvV1", pnn.DeformConvV1(Cd, Cd), [x, off]),
+        ("DeformConvV1Pack", pnn.DeformConvV1Pack(Cd, Cd), [x]),
+        ("DeformConvV1Pack stride 2", pnn.DeformConvV1Pack(Cd, Cd,
+                                                           stride=2), [x])]
+    for i, (label, mod, inputs) in enumerate(cases):
+        reset_counts(ops)
+        rec[label] = module_vs_cpu(label, seeded_module(mod, 20 + i),
+                                   inputs, batch_slice=1, reps=3)
+        check_launches(label, read_counts(ops))
+        launches[label.replace(" ", "_")] = read_counts(ops)
+    del x, off, mask, normal, cases
+
+    # deformable PS-RoI pooling: 128 RoIs in 576x960 image coordinates
+    feats = rand(*ROI_SHAPE)
+    x1 = drng.uniform(-20, 0.8 * W, N_ROIS)
+    y1 = drng.uniform(-20, 0.8 * H, N_ROIS)
+    rois = torch.from_numpy(np.stack([
+        drng.integers(0, ROI_SHAPE[0], N_ROIS), x1, y1,
+        x1 + drng.uniform(16, W / 3, N_ROIS),
+        y1 + drng.uniform(16, H / 3, N_ROIS)], 1).astype(np.float32))
+    pack = seeded_module(pnn.DeformRoIPoolingPack(
+        ROI_SHAPE[1], pooled_size=7, spatial_scale=1 / 8, trans_std=0.1,
+        sample_per_part=4), 30)
+    reset_counts(ops)
+    rec["DeformRoIPoolingPack"] = module_vs_cpu(
+        "DeformRoIPoolingPack", pack, [feats, rois])
+    check_launches("DeformRoIPoolingPack", read_counts(ops))
+    launches["DeformRoIPoolingPack"] = read_counts(ops)
+
+    # SepConvGRU(128) at 1/8 of 576x960, B=8
+    gru = seeded_module(pnn.SepConvGRU(128, 192 + 128), 31)
+    hx = [torch.tanh(rand(8, 128, H // 8, W // 8)),
+          rand(8, 192 + 128, H // 8, W // 8)]
+    reset_counts(ops)
+    rec["SepConvGRU"] = module_vs_cpu("SepConvGRU(128)", gru, hx,
+                                      batch_slice=2)
+    check_launches("SepConvGRU", read_counts(ops))
+    launches["SepConvGRU"] = read_counts(ops)
+    torch.backends.cudnn.allow_tf32 = True
+    rec["seconds"] = time.perf_counter() - t0
+    record["library_modules"] = rec
+    print(f"phase 20: {rec['seconds']:.1f} s", flush=True)
+    return launches
+
+
+def add_option_site_times(rows: list, record) -> None:
+    """Rows 4, 6 and 7 (conv2d_fused, conv2d_dw, deform_sample) gain the
+    option sets' and the residual head's shapes, each site's time beside
+    its bounds."""
+    times = record["kernel_times"]
+    keep = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_tf32x3_ms", "library_ms", "plan")
+    new = {"conv2d_fused": {
+               "raft_downsample3": times["conv2d_fused_ds3"],
+               "raft_downsample1": times["conv2d_fused_ds1"],
+               "raft_downsample1_dx": times["conv2d_fused_dx_ds1"]},
+           "conv2d_dw": {"raft_downsample3_train": times["conv2d_dw_ds3"],
+                         "raft_downsample1_train": times["conv2d_dw_ds1"]},
+           "deform_sample": {"res_attention_c256": {
+               "bottleneck": record["library_modules"]["deform_sample_c256"]}}}
+    for row in rows:
+        for key, sites in new.get(row["name"], {}).items():
+            row[key] = {w: {k: v for k, v in site.items() if k in keep}
+                        for w, site in sites.items()}
 
 
 def device_busy(fn) -> dict:

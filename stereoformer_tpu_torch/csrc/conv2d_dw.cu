@@ -17,9 +17,10 @@
 //
 // Design: for each tap row di, dw[di] is the GEMM
 //     dW[(dj, c), co] = sum_pix Xcol[(dj, c), pix] * G[pix, co],
-// M = 3 x 32 rows for a chunk of 32 input channels, N = Co, K = pixels,
-// split over pixels. Block (di * C/32 + chunk, s) takes tap row di, the
-// chunk's 32 channels, all Co outputs and the s-th of nsplit equal runs of
+// M = 3 x 32 rows for a chunk of 32 input channels (zeros past C where C
+// is no multiple of 32), N = Co, K = pixels, split over pixels. Block
+// (di * ceil(C/32) + chunk, s) takes tap row di, the chunk's 32 channels,
+// all Co outputs and the s-th of nsplit equal runs of
 // 2 x 40 pixel tiles (the blocks of one run share their tiles in L2). Per
 // tile it stages, double-buffered with cp.async (tile k+1 loads while tile
 // k's MMAs run), the 2 x 42 x-halo of its 32 channels (rows h + di - 1,
@@ -47,7 +48,8 @@
 // must run near their rates, and together.
 // Design (namespace bfd). The Pallas kernel reads x and g once each and
 // applies all nine taps in VMEM; this form does the same from shared
-// memory. A block takes a slice of KC input channels and all Co outputs,
+// memory. A block takes a slice of KC input channels (the last slice
+// zero-filled past C by the maps) and all Co outputs,
 // all nine taps, and walks strips of TW columns down runs of rows (the
 // grid's splits share the rows of every strip of every image in equal
 // runs; ops/dw_conv.py::dw_plan fills the card in whole waves). A ring of
@@ -148,7 +150,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ x,
       if (p < TH * XW) {
         const int gy = y0 + di - 1 + p / XW;
         const int gx = x0 - 1 + p % XW;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W &&
+                        c0 + 4 * q4 < C;
         const float* src =
             ok ? x + (img + (long long)gy * W + gx) * C + c0 + 4 * q4 : x;
         tf32x3::cp_async16(xs + p * XS + 4 * q4, src, ok ? 16 : 0);
@@ -181,7 +184,7 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
   constexpr int STAGE = Shape<CO>::STAGE;
   extern __shared__ __align__(16) float smem[];   // 2 x [x tile, g tile]
 
-  const int nchunk = C / KC;
+  const int nchunk = (C + KC - 1) / KC;
   const int di = blockIdx.x / nchunk;
   const int c0 = (blockIdx.x % nchunk) * KC;
   const int split = blockIdx.y;
@@ -251,7 +254,8 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
     buf ^= 1;
   }
 
-  // the block's partial: part[split][di*3 + dj][c0 + row][co]
+  // the block's partial: part[split][di*3 + dj][c0 + row][co], rows
+  // below C
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int mt = wm * 3 + i;
@@ -262,10 +266,12 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
       float* dst = part +
                    (((long long)split * 9 + di * 3 + dj) * C + row) * CO +
                    n0 + 8 * j + 2 * tig;
-      *reinterpret_cast<float2*>(dst) =
-          make_float2(tot[i][j][0], tot[i][j][1]);
-      *reinterpret_cast<float2*>(dst + 8 * CO) =
-          make_float2(tot[i][j][2], tot[i][j][3]);
+      if (row < C)
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(tot[i][j][0], tot[i][j][1]);
+      if (row + 8 < C)
+        *reinterpret_cast<float2*>(dst + 8 * CO) =
+            make_float2(tot[i][j][2], tot[i][j][3]);
     }
   }
 }
@@ -291,7 +297,7 @@ int launch(const float* x, const float* g, float* part, float* dw, int B,
   const long long ntiles = (long long)B * tiles_h * tiles_w;
   if (ntiles > 0x7fffffffLL || nsplit > 65535)
     return (int)cudaErrorInvalidValue;
-  dw_kernel<CO><<<dim3(3 * (C / KC), nsplit), Shape<CO>::NT,
+  dw_kernel<CO><<<dim3(3 * ((C + KC - 1) / KC), nsplit), Shape<CO>::NT,
                   Shape<CO>::SMEM, stream>>>(x, g, part, H, W, C, tiles_h,
                                              tiles_w, (int)ntiles);
   cudaError_t err = cudaGetLastError();
@@ -778,24 +784,25 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 
   if constexpr (S::WG) wgmma_wait0();
-  // the block's partial, folded once more: part[split][tap][c][co]. Each
-  // acc[t][j] is an m16n8 C fragment (rows gid, gid + 8, columns 2 tig,
-  // 2 tig + 1) of n8 tile j and tap 3 di + dj: t = 3 di + dj (WG 0), di
-  // (WG 1)
+  // the block's partial, folded once more: part[split][tap][c][co], rows c
+  // below C. Each acc[t][j] is an m16n8 C fragment (rows gid, gid + 8,
+  // columns 2 tig, 2 tig + 1) of n8 tile j and tap 3 di + dj: t = 3 di + dj
+  // (WG 0), di (WG 1)
 #pragma unroll
   for (int t = 0; t < S::A1; ++t)
 #pragma unroll
     for (int j = 0; j < S::A2; ++j) {
       const float4 v = tot[(t * S::A2 + j) * S::NT];
       const int tp = S::WG ? 3 * t + dj : t;
-      float* dst = part +
-                   (((long long)split * 9 + tp) * C + c0 + 16 * wm + gid) *
-                       CO +
+      const int row = c0 + 16 * wm + gid;
+      float* dst = part + (((long long)split * 9 + tp) * C + row) * CO +
                    n0 + 8 * j + 2 * tig;
-      *reinterpret_cast<float2*>(dst) =
-          make_float2(v.x + acc[t][j][0], v.y + acc[t][j][1]);
-      *reinterpret_cast<float2*>(dst + 8 * CO) =
-          make_float2(v.z + acc[t][j][2], v.w + acc[t][j][3]);
+      if (row < C)
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(v.x + acc[t][j][0], v.y + acc[t][j][1]);
+      if (row + 8 < C)
+        *reinterpret_cast<float2*>(dst + 8 * CO) =
+            make_float2(v.z + acc[t][j][2], v.w + acc[t][j][3]);
     }
 }
 
@@ -858,13 +865,14 @@ int launch(const bf16* x, const bf16* g, float* part, bf16* dw, int B, int H,
   if (set) return set;
   const int nstrips = (W + S::TW - 1) / S::TW;
   const long long nitems = (long long)B * nstrips * H;
-  if (C % S::KC || nitems > 0x7fffffffLL || nsplit > 65535)
+  if (nitems > 0x7fffffffLL || nsplit > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap xmap, gmap;
   int err = nhwc_map(&xmap, x, B, H, W, C, S::XW, RS);
   if (!err) err = nhwc_map(&gmap, g, B, H, W, CO, S::TW, RS);
   if (err) return err;
-  dw_bf16_kernel<CO><<<dim3(C / S::KC, nsplit), S::NT, S::SMEM, stream>>>(
+  dw_bf16_kernel<CO><<<dim3((C + S::KC - 1) / S::KC, nsplit), S::NT, S::SMEM,
+                       stream>>>(
       xmap, gmap, part, H, C, nstrips, (int)nitems);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -879,14 +887,15 @@ int launch(const bf16* x, const bf16* g, float* part, bf16* dw, int B, int H,
 }  // namespace
 
 // x [B,H,W,C], g [B,H,W,Co], dw [3,3,C,Co]: float32, contiguous, 16-byte
-// aligned; part: scratch of nsplit * 9 * C * Co floats. C a multiple of 32,
-// Co 64 or 96 (RAFT's routed sites); nsplit >= 1 blocks share the pixels of
-// each (tap row, channel chunk).
+// aligned; part: scratch of nsplit * 9 * C * Co floats. C a multiple of 8
+// (the last 32-channel chunk zero-filled past C), Co 64 or 96 (the fused
+// conv's output widths); nsplit >= 1 blocks share the pixels of each (tap
+// row, channel chunk).
 // Returns cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int conv2d_dw(const float* x, const float* g, float* part,
                          float* dw, int B, int H, int W, int C, int Co,
                          int nsplit, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % KC || nsplit <= 0)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || nsplit <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (Co) {
@@ -902,7 +911,7 @@ extern "C" int conv2d_dw(const float* x, const float* g, float* part,
 extern "C" int conv2d_dw_bf16(const void* x, const void* g, float* part,
                               void* dw, int B, int H, int W, int C, int Co,
                               int nsplit, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % KC || nsplit <= 0)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || nsplit <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   using bfd::bf16;

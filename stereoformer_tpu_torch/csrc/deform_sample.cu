@@ -361,11 +361,50 @@ inline long long warps_per_sm(const Geom& g, int nco, int rows, int mt,
   return cdiv(blocks, sms) * rows * (2 / mt);
 }
 
+// the blocks of deform_fused_kernel<NT, HALO, MT> an SM holds at once with
+// `threads` threads and `smem` bytes of shared memory each, by its
+// registers, shared memory and threads as the card counts them; 0 where
+// the block cannot run
+template <int NT, bool HALO, int MT>
+int resident_blocks(int threads, int smem) {
+  const auto kernel = deform_fused_kernel<NT, HALO, MT>;
+  int n = 0;
+  if (threads > max_threads(NT, MT) || smem > SMEM_MAX ||
+      tf32x3::allow_smem((const void*)kernel, SMEM_MAX) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <bool HALO, int MT>
+int resident_nt(int nt, int threads, int smem) {
+  switch (nt) {
+    case 1: return resident_blocks<1, HALO, MT>(threads, smem);
+    case 2: return resident_blocks<2, HALO, MT>(threads, smem);
+    case 3: return resident_blocks<3, HALO, MT>(threads, smem);
+    case 4: return resident_blocks<4, HALO, MT>(threads, smem);
+  }
+  return 0;
+}
+
+// the blocks an SM holds at once for a tiling of one tap slice
+inline int resident(int nt, bool halo, int mt, int threads, int smem) {
+  if (mt == 2)
+    return halo ? resident_nt<true, 2>(nt, threads, smem)
+                : resident_nt<false, 2>(nt, threads, smem);
+  return halo ? resident_nt<true, 1>(nt, threads, smem)
+              : resident_nt<false, 1>(nt, threads, smem);
+}
+
 // The tiling of a call on a card with `sms` SMs: as many output channels a
 // block as CO_BLOCK allows, spread evenly; the weight of as many taps as
-// W_BUDGET holds; the rows a tile (1 to 8) that put the fewest warps on the
-// busiest SM (the more rows of those that tie), among those whose halo fits
-// in shared memory; 32 pixels a warp, or 16 where that leaves fewer than
+// W_BUDGET holds; the rows a tile (1 to 8), among those whose halo fits in
+// shared memory, that take the fewest waves on the busiest SM (its blocks
+// over the blocks it holds at once, by registers, shared memory and
+// threads: at C = 256 a block of one row takes 39.5 KB for one warp, and an
+// SM holds 5 warps of those), then the fewest warps on it, then the most
+// rows; 32 pixels a warp, or 16 where that leaves fewer than
 // MIN_WARPS_PER_SM warps on the busiest SM; the taps split over as many
 // warps (up to MAX_SLICES) as keep the busiest SM within SLICE_WARPS warps
 // and the block within max_threads; no halo where even one row's would not
@@ -383,12 +422,24 @@ Plan choose(const Geom& g, int sms, const int* force) {
     auto fits = [&](int rows) {
       return smem_bytes(g, p.nt, p.kg, rows, true, 2, 1) <= SMEM_MAX;
     };
+    const long long blocks_per_row =
+        cdiv(g.Wo, TW) * (long long)g.B * nco;   // blocks a tile row
     for (int mt = 2; mt >= 1; --mt) {
-      long long best = -1;
+      // the busiest SM's blocks over those it holds at once, as bps / held
+      long long best = -1, bps_best = 0, held_best = 1;
       for (int rows = 1; rows <= 8; ++rows) {
-        if (!fits(rows) && rows > 1) continue;
+        const bool halo = fits(rows);
+        if (!halo && rows > 1) continue;
+        const long long bps = cdiv(blocks_per_row * cdiv(g.Ho, rows), sms);
+        const int held = resident(
+            p.nt, halo, mt, rows * (2 / mt) * 32,
+            (int)smem_bytes(g, p.nt, p.kg, rows, halo, mt, 1));
+        if (held <= 0) continue;
+        const long long h = held < bps ? held : bps;
         const long long w = warps_per_sm(g, nco, rows, mt, sms);
-        if (best < 0 || w <= best) best = w, p.rows = rows;
+        if (best < 0 || bps * held_best < bps_best * h ||
+            (bps * held_best == bps_best * h && w <= best))
+          best = w, bps_best = bps, held_best = h, p.rows = rows;
       }
       p.mt = mt;
       if (best >= MIN_WARPS_PER_SM) break;

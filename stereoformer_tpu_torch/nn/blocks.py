@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deform import deform_conv_fused, modulated_deform_conv
-from ..ops.fused_conv import conv3x3_fused
+from ..ops.fused_conv import KERNEL_CO, conv3x3_fused
 from ..ops.resize import resize_bilinear
 from . import bf16
 from .conv import Conv, Conv2d, check_dtype
@@ -30,6 +30,17 @@ from .norm import BatchNorm2d
 # the TPU's routing ceiling: 3x3 sites with 64 <= C_in <= 96 take the
 # fused conv (JAX FusedConv.auto_max_c)
 FUSED_MAX_C = 96
+
+
+def kernel_routes(in_channels: int, out_channels: int) -> bool:
+    """Whether a ``FusedConv`` of these widths takes the fused conv: JAX's
+    rule, 64 <= C_in <= ``FUSED_MAX_C``, where the kernel has the widths:
+    C_in a multiple of 8 and an output width in ``KERNEL_CO`` (its weight
+    gradient ``conv2d_dw`` takes the same). A site in JAX's range whose
+    output width the kernel lacks (RAFT's layer3 entry 96 -> 128 at
+    ``downsample=0``) is a plain conv, cuDNN on the GPU."""
+    return (64 <= in_channels <= FUSED_MAX_C and in_channels % 8 == 0
+            and out_channels in KERNEL_CO)
 
 
 def prologue_fma(x, s, t):
@@ -44,8 +55,9 @@ def prologue_fma(x, s, t):
 class FusedConv(Conv2d):
     """A 3x3 stride-1 conv padded by 1, with bias, that routes to the fused
     conv (``ops/fused_conv.py``) where the JAX package routes to its Pallas
-    kernel: 64 <= C_in <= ``FUSED_MAX_C``. Other sites are a plain
-    ``F.conv2d`` (cuDNN on the GPU), as JAX leaves them to XLA.
+    kernel, 64 <= C_in <= ``FUSED_MAX_C``, and the kernels have its widths
+    (``kernel_routes``). Other sites are a plain ``F.conv2d`` (cuDNN on the
+    GPU), as JAX leaves them to XLA.
 
     ``forward(x, prologue=None, with_stats=False)``: x NCHW; at a routed
     site x must be ``channels_last`` (its NHWC view is what the kernel
@@ -65,7 +77,7 @@ class FusedConv(Conv2d):
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__(in_channels, out_channels, 3, padding=1,
                          dtype=dtype)
-        self.routed = 64 <= in_channels <= FUSED_MAX_C
+        self.routed = kernel_routes(in_channels, out_channels)
 
     def forward(self, x, prologue=None, with_stats=False):
         s, t = prologue or (None, None)
@@ -181,6 +193,12 @@ class DeformConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
+        # the JAX module's init: he-normal over the fan-in, zero bias, the
+        # offset conv zero (a plain conv modulated by 0.5)
+        nn.init.kaiming_normal_(self.weight, nonlinearity="relu")
+        for p in (self.bias, self.conv_offset_mask.weight,
+                  self.conv_offset_mask.bias):
+            nn.init.zeros_(p)
 
     def forward(self, x):
         K = self.kernel_size * self.kernel_size

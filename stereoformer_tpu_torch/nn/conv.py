@@ -1,4 +1,5 @@
-"""``Conv``: the JAX package's ``nn/conv.py::Conv`` forward as ``nn.Conv2d``.
+"""``Conv``: the JAX package's ``nn/conv.py::Conv`` forward as ``nn.Conv2d``;
+``ConvTransposeSame``: Flax's ``ConvTranspose(padding="SAME")``.
 
 The JAX modules of this slice pad every convolution symmetrically by
 (k - 1) // 2, which is what ``nn.Conv2d`` does with an integer padding.
@@ -120,3 +121,28 @@ class Linear(nn.Linear):
         if dt == torch.float32 and x.dtype == torch.float32:
             return super().forward(x)
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class ConvTransposeSame(nn.Module):
+    """Flax ``ConvTranspose(features, (3,) * dims, strides=2,
+    padding="SAME", use_bias=False)`` (its default
+    ``transpose_kernel=False``) over 2 or 3 spatial axes (NC...): each
+    spatial size n becomes 2n. Flax runs its kernel [3..., C_in, C_out] as
+    a plain conv over the input dilated by 2 and padded by (2, 1)
+    (``lax.conv_transpose``'s SAME padding), which is PyTorch's transposed
+    conv with the kernel flipped along each spatial axis, no padding, and
+    the first 2n outputs of its 2n + 1 kept. ``weight`` is PyTorch's
+    [C_in, C_out, 3...] (the flipped Flax kernel)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dims: int = 2):
+        super().__init__()
+        self.dims = dims
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels,
+                                               *(3,) * dims))
+        # he-normal over Flax's fan-in, C_in 3^d (torch's "fan_out" here)
+        nn.init.kaiming_normal_(self.weight, mode="fan_out")
+
+    def forward(self, x):
+        conv = F.conv_transpose3d if self.dims == 3 else F.conv_transpose2d
+        y = conv(x, self.weight, stride=2)
+        return y[(..., *(slice(0, 2 * n) for n in x.shape[2:]))]

@@ -14,7 +14,8 @@ normalisation ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` is computed
 in float32 against the float32 statistics, whatever x's dtype, and only the
 result is cast (``flax.linen.normalization._normalize``); torch's own bf16
 batch norm would compute in bf16. With ``dtype=None`` the output is float32
-for a float32 x, as before.
+for a float32 x, as before; a float64 x (a float64 reference, with the
+module's parameters in float64) is normalised in float64.
 
 ``frozen_statistics(model)`` keeps the running statistics of every such
 norm in ``model`` as they are while it is active: the recompute of a
@@ -34,7 +35,8 @@ from .conv import check_dtype
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """eps 1e-5 and momentum 0.1 (Flax's 0.9), over N, H and W."""
+    """eps 1e-5 and momentum 0.1 (Flax's 0.9), over every axis but the
+    channels' (N, H and W; N, D, H and W for a 3-D volume)."""
 
     def __init__(self, num_features: int, dtype=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -42,9 +44,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.out_dtype = check_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.out_dtype is not None or x.dtype != torch.float32:
+        if self.out_dtype is not None or x.dtype not in (torch.float32,
+                                                          torch.float64):
+            # a channels_last x gives a channels_last output, as the routed
+            # convs that read it need, also where N = 1 leaves its layout
+            # ambiguous (the card's train-mode batch norm then casts to
+            # NCHW)
+            fmt = (torch.channels_last if x.dim() == 4 and
+                   x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.preserve_format)
             return self._forward(x.float()).to(
-                self.out_dtype or torch.promote_types(x.dtype, torch.float32))
+                self.out_dtype or torch.promote_types(x.dtype, torch.float32),
+                memory_format=fmt)
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -52,8 +63,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             # Flax's order of operations, so that the one rounding to the
             # output dtype sees the same float32 value
             s = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return ((x - self.running_mean[:, None, None]) * s[:, None, None]
-                    + self.bias[:, None, None])
+            c = (-1,) + (1,) * (x.dim() - 2)
+            return ((x - self.running_mean.view(c)) * s.view(c)
+                    + self.bias.view(c))
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -64,7 +76,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.update_statistics:
             return out
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())),
+                                       correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)

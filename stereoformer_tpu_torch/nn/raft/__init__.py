@@ -2,15 +2,12 @@
 
 from .encoders import (
     BasicEncoder,
+    BottleneckBlock,
     GroupNorm,
     MultiBasicEncoder,
     RaftResidualBlock,
 )
 from .update import (
-    CORR_LEVELS,
-    CORR_RADIUS,
-    FACTOR,
-    HIDDEN,
     BasicMotionEncoder,
     ContextConvGRU,
     FlowHead,
@@ -20,12 +17,9 @@ from .update import (
 )
 
 __all__ = [
-    "CORR_LEVELS",
-    "CORR_RADIUS",
-    "FACTOR",
-    "HIDDEN",
     "BasicEncoder",
     "BasicMotionEncoder",
+    "BottleneckBlock",
     "ContextConvGRU",
     "FlowHead",
     "GroupNorm",

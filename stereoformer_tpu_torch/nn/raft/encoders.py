@@ -2,8 +2,11 @@
 
 Counterparts of ``stereoformer_tpu/nn/raft/encoders.py``: ``GroupNorm``
 (``GroupNormNHWC``), the eval forms of ``_BNStats`` and ``_Norm``,
-``RaftResidualBlock``, ``BasicEncoder`` (the feature net, instance norm) and
-``MultiBasicEncoder`` (the context net, batch norm). Submodule names follow
+``RaftResidualBlock``, ``BottleneckBlock``, ``BasicEncoder`` (the feature
+net, instance norm) and ``MultiBasicEncoder`` (the context net, batch
+norm), with the JAX encoders' ``downsample`` (the stem, layer2 and layer3
+each halve the resolution or not, 1/2^d in all) and the context net's
+number of levels and head widths. Submodule names follow
 the reference ``state_dict`` keys (``extractor.py``), which
 ``stereoformer_tpu/train/torch_import.py::convert_raft_state_dict`` reads.
 
@@ -99,9 +102,12 @@ class GroupNorm(nn.Module):
 
 def make_norm(kind: str, channels: int, dtype=None) -> nn.Module:
     """The reference's norm of ``kind``: "batch" (Flax's BatchNorm, eps
-    1e-5) or "instance" (no parameters)."""
+    1e-5), "group" (``channels // 8`` groups, with scale and shift) or
+    "instance" (no parameters)."""
     if kind == "batch":
         return BatchNorm2d(channels, dtype=dtype)
+    if kind == "group":
+        return GroupNorm(channels // 8, channels, dtype=dtype)
     if kind == "instance":
         return GroupNorm(channels, channels, affine=False, dtype=dtype)
     raise ValueError(f"unknown norm {kind!r}")
@@ -230,11 +236,54 @@ class RaftResidualBlock(nn.Module):
         return torch.relu(x + y)
 
 
-def _layers(norm: str, dtype) -> list:
-    """layer1-3, shared by both encoders: full resolution, then 1/2 and
-    1/4."""
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (at ``stride``) -> 1x1 bottleneck of ``planes // 4``
+    inner channels, each conv followed by its norm and ReLU, plus a 1x1
+    conv-norm shortcut when the stride is not 1, then ReLU of the sum (JAX
+    ``BottleneckBlock``, the reference's ``extractor.py``). Keys
+    ``conv1``-``conv3``, ``norm1``-``norm3``, and ``downsample.0`` with
+    ``norm4``. No model calls it. Its convs are plain ones, as the JAX
+    block's are: none of them routes to the fused conv."""
+
+    def __init__(self, in_planes: int, planes: int, norm: str = "group",
+                 stride: int = 1, dtype=None):
+        super().__init__()
+        q = planes // 4
+        self.conv1 = Conv2d(in_planes, q, 1, dtype=dtype)
+        self.conv2 = Conv2d(q, q, 3, stride=stride, padding=1, dtype=dtype)
+        self.conv3 = Conv2d(q, planes, 1, dtype=dtype)
+        self.norm1 = make_norm(norm, q, dtype)
+        self.norm2 = make_norm(norm, q, dtype)
+        self.norm3 = make_norm(norm, planes, dtype)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(
+                Conv2d(in_planes, planes, 1, stride=stride, dtype=dtype))
+            self.norm4 = make_norm(norm, planes, dtype)
+
+    def forward(self, x):
+        dt = self.conv1.compute_dtype
+        pairs = ((self.conv1, self.norm1), (self.conv2, self.norm2),
+                 (self.conv3, self.norm3))
+        y = x
+        for conv, norm in pairs:
+            # in bf16 compute each norm reads its conv's + bias in float32
+            y = torch.relu(apply_norm(norm, conv(y)) if dt is None
+                           else norm_f32(norm, _conv_f32(conv, y), dt))
+        if self.downsample is not None:
+            conv = self.downsample[0]
+            x = (apply_norm(self.norm4, conv(x)) if dt is None
+                 else norm_f32(self.norm4, _conv_f32(conv, x), dt))
+        return torch.relu(x + y)
+
+
+def _layers(norm: str, downsample: int, dtype) -> list:
+    """layer1-3, shared by both encoders: 64, 96 and 128 channels, layer2
+    at stride 2 when ``downsample`` > 1 and layer3 when it is > 0 (the stem
+    takes the third halving, at ``downsample`` > 2)."""
     mods, cin = [], 64
-    for dim, stride in ((64, 1), (96, 2), (128, 2)):
+    d = downsample
+    for dim, stride in ((64, 1), (96, 1 + (d > 1)), (128, 1 + (d > 0))):
         mods.append(nn.Sequential(
             RaftResidualBlock(cin, dim, norm, stride, dtype),
             RaftResidualBlock(dim, dim, norm, 1, dtype)))
@@ -242,15 +291,23 @@ def _layers(norm: str, dtype) -> list:
     return mods
 
 
-class BasicEncoder(nn.Module):
-    """Feature net, instance norm: [B, 3, H, W] -> [B, 256, H/4, W/4]."""
+def _stem(downsample: int, dtype) -> Conv2d:
+    return Conv2d(3, 64, 7, stride=1 + (downsample > 2), padding=3,
+                  dtype=dtype)
 
-    def __init__(self, dtype=None):
+
+class BasicEncoder(nn.Module):
+    """Feature net, instance norm: [B, 3, H, W] -> [B, ``output_dim``,
+    H/2^d, W/2^d], d = ``downsample``."""
+
+    def __init__(self, output_dim: int = 256, downsample: int = 2,
+                 dtype=None):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, padding=3, dtype=dtype)
+        self.conv1 = _stem(downsample, dtype)
         self.norm1 = make_norm("instance", 64, dtype)
-        self.layer1, self.layer2, self.layer3 = _layers("instance", dtype)
-        self.conv2 = Conv2d(128, 256, 1, dtype=dtype)
+        self.layer1, self.layer2, self.layer3 = _layers("instance",
+                                                        downsample, dtype)
+        self.conv2 = Conv2d(128, output_dim, 1, dtype=dtype)
 
     def forward(self, x):
         """-> the features, or in bf16 compute the float32 ``+ bias`` of
@@ -265,29 +322,41 @@ class BasicEncoder(nn.Module):
         return _conv_f32(self.conv2, x)
 
 
-class MultiBasicEncoder(nn.Module):
-    """Context net, batch norm: two 128-channel heads (hidden state and
-    context) at 1/4, 1/8 and 1/16, finest first. Keys ``layer4``/``layer5``
-    (the coarser levels), ``outputs08``/``outputs16`` (a residual block and
-    a conv per head) and ``outputs32`` (a conv per head)."""
+# the context net's levels, finest first: the reference's key of each
+# level's heads
+_HEADS = ("outputs08", "outputs16", "outputs32")
 
-    def __init__(self, dtype=None):
+
+class MultiBasicEncoder(nn.Module):
+    """Context net, batch norm: ``num_layers`` levels (1/2^d, then each
+    halved again by ``layer4``, ``layer5``), each with two heads (hidden
+    state and context) of ``output_dims[head][level]`` channels, finest
+    first. Keys ``layer4``/``layer5`` (the coarser levels),
+    ``outputs08``/``outputs16`` (a residual block and a conv per head: the
+    two finest levels) and ``outputs32`` (a conv per head)."""
+
+    def __init__(self, output_dims=((128,) * 3, (128,) * 3),
+                 downsample: int = 2, num_layers: int = 3, dtype=None):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, padding=3, dtype=dtype)
+        if num_layers not in (1, 2, 3):
+            raise ValueError(f"num_layers must be 1, 2 or 3, got "
+                             f"{num_layers}")
+        self.num_layers = num_layers
+        self.conv1 = _stem(downsample, dtype)
         self.norm1 = make_norm("batch", 64, dtype)
-        self.layer1, self.layer2, self.layer3 = _layers("batch", dtype)
-        self.layer4, self.layer5 = (
-            nn.Sequential(RaftResidualBlock(128, 128, "batch", 2, dtype),
-                          RaftResidualBlock(128, 128, "batch", 1, dtype))
-            for _ in range(2))
-        self.outputs08, self.outputs16 = (
-            nn.ModuleList(nn.Sequential(
-                RaftResidualBlock(128, 128, "batch", 1, dtype),
-                FusedConv(128, 128, dtype))
-                for _ in range(2))
-            for _ in range(2))
-        self.outputs32 = nn.ModuleList(FusedConv(128, 128, dtype)
-                                       for _ in range(2))
+        self.layer1, self.layer2, self.layer3 = _layers("batch", downsample,
+                                                        dtype)
+        for lvl in range(1, num_layers):
+            setattr(self, f"layer{3 + lvl}", nn.Sequential(
+                RaftResidualBlock(128, 128, "batch", 2, dtype),
+                RaftResidualBlock(128, 128, "batch", 1, dtype)))
+        for lvl in range(num_layers):
+            heads = []
+            for dims in output_dims:
+                conv = FusedConv(128, dims[lvl], dtype)
+                heads.append(conv if lvl >= 2 else nn.Sequential(
+                    RaftResidualBlock(128, 128, "batch", 1, dtype), conv))
+            setattr(self, _HEADS[lvl], nn.ModuleList(heads))
 
     def forward(self, x):
         dt = self.conv1.compute_dtype
@@ -295,9 +364,8 @@ class MultiBasicEncoder(nn.Module):
             x = torch.relu(apply_norm(self.norm1, self.conv1(x)))
         else:
             x = torch.relu(norm_f32(self.norm1, _conv_f32(self.conv1, x), dt))
-        x = self.layer3(self.layer2(self.layer1(x)))
-        feats = [x, self.layer4(x)]
-        feats.append(self.layer5(feats[-1]))
-        heads = (self.outputs08, self.outputs16, self.outputs32)
-        return [tuple(head(f) for head in level)
-                for f, level in zip(feats, heads)]
+        feats = [self.layer3(self.layer2(self.layer1(x)))]
+        for lvl in range(1, self.num_layers):
+            feats.append(getattr(self, f"layer{3 + lvl}")(feats[-1]))
+        return [tuple(head(f) for head in getattr(self, _HEADS[lvl]))
+                for lvl, f in enumerate(feats)]

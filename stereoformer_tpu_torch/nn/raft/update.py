@@ -2,9 +2,13 @@
 
 Counterparts of ``stereoformer_tpu/nn/raft/update.py`` (``pool2x``,
 ``interp_to``, ``FlowHead``, ``ContextConvGRU``, ``BasicMotionEncoder``,
-``MultiUpdateBlock``). Submodule names follow the reference ``state_dict``
-keys: the JAX package fuses each GRU's z and r gate convs into ``convzr``;
-here they are the reference's ``convz`` and ``convr``.
+``MultiUpdateBlock``), with the JAX modules' options: the hidden width, the
+correlation pyramid's levels and radius, 1, 2 or 3 GRU levels and the
+downsample exponent that sets the mask head's width. Submodule names follow
+the reference ``state_dict`` keys: the JAX package fuses each GRU's z and r
+gate convs into ``convzr``; here they are the reference's ``convz`` and
+``convr``. Only the GRUs the JAX block builds exist: ``gru32`` at 3
+levels, ``gru16`` at 2 or 3, ``gru08`` always.
 
 ``dtype=torch.bfloat16``, as the JAX block: the GRUs (their hidden states,
 gates and context biases) and the motion encoder compute in bf16, the flow
@@ -22,14 +26,6 @@ from torch import nn
 from ...ops.resize import resize_bilinear
 from .. import bf16
 from ..conv import Conv2d
-
-# RAFT-Stereo's widths: a 128-channel hidden state at each of the 3 GRU
-# levels, a correlation pyramid of 4 levels read at radius 4, and features
-# at 1/4 of the input, upsampled 4x
-HIDDEN = 128
-CORR_LEVELS = 4
-CORR_RADIUS = 4
-FACTOR = 4
 
 
 def pool2x(x):
@@ -59,11 +55,12 @@ def _conv3(cin, cout, dtype=None):
 
 
 class FlowHead(nn.Module):
-    """conv-ReLU-conv -> the 2-channel flow update (the last conv float32)."""
+    """conv-ReLU-conv of a ``hidden``-channel state -> the 2-channel flow
+    update (the last conv float32)."""
 
-    def __init__(self, dtype=None):
+    def __init__(self, hidden: int = 128, dtype=None):
         super().__init__()
-        self.conv1 = _conv3(HIDDEN, 256, dtype)
+        self.conv1 = _conv3(hidden, 256, dtype)
         self.conv2 = _conv3(256, 2, torch.float32)
 
     def forward(self, x):
@@ -93,12 +90,14 @@ class ContextConvGRU(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    """corr [B, L(2r+1), H, W] and flow [B, 2, H, W] -> 128 channels, the
-    last two of them the flow itself."""
+    """corr [B, L(2r+1), H, W] (L ``corr_levels``, r ``corr_radius``) and
+    flow [B, 2, H, W] -> 128 channels, the last two of them the flow
+    itself."""
 
-    def __init__(self, dtype=None):
+    def __init__(self, corr_levels: int = 4, corr_radius: int = 4,
+                 dtype=None):
         super().__init__()
-        self.convc1 = Conv2d(CORR_LEVELS * (2 * CORR_RADIUS + 1), 64, 1,
+        self.convc1 = Conv2d(corr_levels * (2 * corr_radius + 1), 64, 1,
                              dtype=dtype)
         self.convc2 = _conv3(64, 64, dtype)
         self.convf1 = Conv2d(2, 64, 7, padding=3, dtype=dtype)
@@ -113,31 +112,55 @@ class BasicMotionEncoder(nn.Module):
 
 
 class MultiUpdateBlock(nn.Module):
-    """The 3-level GRU cascade, coarsest first: gru32 (1/16), gru16, then
-    gru08 (1/4) with the motion features; the flow head and the 0.25-scaled
-    convex-upsample mask head read the finest level. ``net`` and ``inp``
-    are finest-first lists of ``HIDDEN``-channel maps."""
+    """The GRU cascade of ``n_gru_layers`` levels, coarsest first: gru32
+    (three levels) reads the pooled gru16 state; gru16 (two or three
+    levels) the pooled gru08 state and, at three levels, the resized gru32
+    state; gru08 (at 1/2^``n_downsample``) the motion features and, above
+    one level, the resized gru16 state. The flow head and the 0.25-scaled
+    convex-upsample mask head (9 (2^``n_downsample``)^2 channels) read the
+    finest level. ``net`` and ``inp`` are finest-first lists of
+    ``hidden_dims``-channel maps; the widths are equal (``RAFTStereo``
+    refuses others)."""
 
-    def __init__(self, dtype=None):
+    def __init__(self, hidden_dims=(128, 128, 128), corr_levels: int = 4,
+                 corr_radius: int = 4, n_gru_layers: int = 3,
+                 n_downsample: int = 2, dtype=None):
         super().__init__()
-        hd = HIDDEN
-        self.encoder = BasicMotionEncoder(dtype)
-        self.gru08 = ContextConvGRU(hd, 128 + hd, dtype)
-        self.gru16 = ContextConvGRU(hd, 2 * hd, dtype)
-        self.gru32 = ContextConvGRU(hd, hd, dtype)
-        self.flow_head = FlowHead(dtype)
+        if n_gru_layers not in (1, 2, 3):
+            raise ValueError(f"n_gru_layers must be 1, 2 or 3, got "
+                             f"{n_gru_layers}")
+        self.n_gru_layers = n_gru_layers
+        hd = hidden_dims
+        self.encoder = BasicMotionEncoder(corr_levels, corr_radius, dtype)
+        self.gru08 = ContextConvGRU(
+            hd[2], 128 + hd[1] * (n_gru_layers > 1), dtype)
+        if n_gru_layers > 1:
+            self.gru16 = ContextConvGRU(
+                hd[1], hd[0] * (n_gru_layers == 3) + hd[2], dtype)
+        if n_gru_layers == 3:
+            self.gru32 = ContextConvGRU(hd[0], hd[1], dtype)
+        self.flow_head = FlowHead(hd[2], dtype)
+        factor = 2 ** n_downsample
         self.mask = nn.Sequential(
-            _conv3(hd, 256, dtype), nn.ReLU(),
-            Conv2d(256, FACTOR * FACTOR * 9, 1, dtype=torch.float32))
+            _conv3(hd[2], 256, dtype), nn.ReLU(),
+            Conv2d(256, factor * factor * 9, 1, dtype=torch.float32))
 
     def forward(self, net, inp, corr, flow, need_mask: bool = True):
         """-> (net, mask [B, 9 f^2, H, W] or None, delta_flow [B, 2, H, W])."""
         net = list(net)
-        net[2] = self.gru32(net[2], inp[2], pool2x(net[1]))
-        net[1] = self.gru16(net[1], inp[1], pool2x(net[0]),
-                            interp_to(net[2], net[1]))
+        n = self.n_gru_layers
+        if n == 3:
+            net[2] = self.gru32(net[2], inp[2], pool2x(net[1]))
+            net[1] = self.gru16(net[1], inp[1], pool2x(net[0]),
+                                interp_to(net[2], net[1]))
+        elif n == 2:
+            net[1] = self.gru16(net[1], inp[1], pool2x(net[0]))
         motion = self.encoder(flow, corr)
-        net[0] = self.gru08(net[0], inp[0], motion, interp_to(net[1], net[0]))
+        if n > 1:
+            net[0] = self.gru08(net[0], inp[0], motion,
+                                interp_to(net[1], net[0]))
+        else:
+            net[0] = self.gru08(net[0], inp[0], motion)
         delta = self.flow_head(net[0])
         if not need_mask:
             return net, None, delta

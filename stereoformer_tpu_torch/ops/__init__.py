@@ -7,6 +7,7 @@ from .cost_volume import (
     correlation_volume,
     correlation_volume_backward,
     correlation_volume_plain,
+    difference_volume,
     gwc_volume,
 )
 from .deform import (
@@ -16,6 +17,7 @@ from .deform import (
     modulated_deform_conv,
     modulated_deform_conv_windowed,
 )
+from .deform_roi import deform_psroi_pool
 from .dw_conv import conv2d_dw, conv2d_dw_plain
 from .fused_conv import (
     conv2d_fused,
@@ -37,11 +39,21 @@ from .local_volume import (
     resample_volume_hat,
     variance_local_cost_volume,
 )
-from .pad import InputPadder
+from .pad import InputPadder, forward_interpolate, gauss_blur
 from .resize import resize_bilinear, scale_disp
-from .softargmin import disparity_variance, soft_argmin, uncertainty_volume
-from .upsample import upsample_convex, upsample_convex8, upsample_simple8
-from .warp import disp_warp
+from .softargmin import (
+    disparity_variance,
+    soft_argmin,
+    soft_argmin_with_prob,
+    uncertainty_volume,
+)
+from .upsample import (
+    neighborhood9,
+    upsample_convex,
+    upsample_convex8,
+    upsample_simple8,
+)
+from .warp import disp_warp, lr_warp_error
 
 __all__ = [
     "InputPadder",
@@ -66,21 +78,28 @@ __all__ = [
     "correlation_volume_plain",
     "deform_columns",
     "deform_conv_fused",
+    "deform_psroi_pool",
+    "difference_volume",
     "disp_warp",
     "disparity_variance",
     "fixed_local_cost_volume",
+    "forward_interpolate",
     "fused_conv_backward",
+    "gauss_blur",
     "gwc_volume",
     "local_soft_argmin",
     "local_soft_argmin_backward_plain",
     "local_soft_argmin_plain",
+    "lr_warp_error",
     "make_candidates",
     "modulated_deform_conv",
     "modulated_deform_conv_windowed",
+    "neighborhood9",
     "resample_volume_hat",
     "resize_bilinear",
     "scale_disp",
     "soft_argmin",
+    "soft_argmin_with_prob",
     "take_rows",
     "take_rows_plain",
     "uncertainty_volume",

@@ -1,8 +1,9 @@
-"""Cost volumes (NHWC features, D after W): correlation, concat and
-group-wise correlation.
+"""Cost volumes (NHWC features, D after W): correlation, concat, difference
+and group-wise correlation.
 
-Counterpart of ``stereoformer_tpu/ops/cost_volume.py`` (``correlation_volume``,
-``concat_volume`` and ``gwc_volume``) and of the correlation's Pallas kernel
+Counterpart of ``stereoformer_tpu/ops/cost_volume.py``
+(``correlation_volume``, ``concat_volume``, ``difference_volume`` and
+``gwc_volume``) and of the correlation's Pallas kernel
 ``ops/pallas/corr_band.py::corr_band``:
 
     out[b,h,w,d] = mean_c left[b,h,w,c] * right[b,h,w-d,c],   0 where w < d.
@@ -227,6 +228,17 @@ def concat_volume(left: torch.Tensor, right: torch.Tensor,
     for d in range(min(max_disp, W)):
         out[:, :, d:, d, :C] = left[:, :, d:]
         out[:, :, d:, d, C:] = right[:, :, :W - d]
+    return out
+
+
+def difference_volume(left: torch.Tensor, right: torch.Tensor,
+                      max_disp: int) -> torch.Tensor:
+    """out[b, h, w, d] = left[b, h, w] - right[b, h, w - d], zero where
+    w < d: [B, H, W, C] -> [B, H, W, D, C]."""
+    B, H, W, C = left.shape
+    out = left.new_zeros((B, H, W, max_disp, C))
+    for d in range(min(max_disp, W)):
+        out[:, :, d:, d] = left[:, :, d:] - right[:, :, :W - d]
     return out
 
 

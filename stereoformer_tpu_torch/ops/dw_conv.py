@@ -11,8 +11,10 @@ x [B, H, W, C] (the conv's input), g [B, H, W, Co] (its output's cotangent),
 xp the zero-padded x; dw [3, 3, C, Co], all float32. CPU tensors take the
 plain version (``conv2d_dw_plain``); CUDA tensors launch the kernel
 ``csrc/conv2d_dw.cu`` or raise, counting launches in ``conv2d_dw.launches``.
-The kernel takes C = Co = 64 or 96, the widths of the sites RAFT routes to
-the fused conv.
+The kernel takes Co = 64 or 96, the fused conv's output widths, and C a
+multiple of 8 (in 32-channel chunks, the last zero-filled past C): every
+site ``nn/blocks.py::kernel_routes`` sends to the fused conv, RAFT's
+64 -> 96 entry at ``downsample=1`` among them.
 
 bf16 x and g give a bf16 dw, as the fused conv's bf16 backward takes it
 (the Pallas kernel's float32 sums cast to the bf16 weight by ``_dw``): the
@@ -33,8 +35,8 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-# the widths the kernel has templates for (csrc/conv2d_dw.cu)
-_KERNEL_C = (64, 96)
+# the output widths the kernel has templates for (csrc/conv2d_dw.cu)
+KERNEL_CO = (64, 96)
 # input channels per block (csrc/conv2d_dw.cu: KC)
 _CHUNK = 32
 # blocks of each template resident on one SM (csrc/conv2d_dw.cu: MINB)
@@ -48,18 +50,20 @@ def whole_waves(slots: int, per_split: int) -> tuple:
     return nsplit, nsplit * per_split
 
 
-def dw_plan(C: int, sms: int, dtype=torch.float32) -> tuple:
-    """(nsplit, blocks) of the kernel's grid for C = Co on a card with
-    ``sms`` SMs, nsplit the fewest splits of the pixels whose blocks fill
-    the card's resident slots in whole waves. The float32 form has 3 * C/32
-    blocks a split (tap row, channel chunk), the bf16 form C / KC (a slice
-    of KC input channels, all nine taps, by ``kernels.DW_BF16_TILING``);
-    each block writes one partial of dw, so the scratch holds
-    nsplit * 9 * C * Co floats."""
+def dw_plan(C: int, sms: int, dtype=torch.float32, Co: int = None) -> tuple:
+    """(nsplit, blocks) of the kernel's grid for C input and Co output
+    channels (Co = C where not given) on a card with ``sms`` SMs, nsplit
+    the fewest splits of the pixels whose blocks fill the card's resident
+    slots in whole waves. The float32 form has 3 * ceil(C/32) blocks a
+    split (tap row, channel chunk), the bf16 form ceil(C / KC) (a slice of
+    KC input channels, all nine taps, KC by Co in
+    ``kernels.DW_BF16_TILING``); each block writes one partial of dw, so
+    the scratch holds nsplit * 9 * C * Co floats."""
+    Co = C if Co is None else Co
     if dtype == torch.bfloat16:
-        tiling = kernels.DW_BF16_TILING[C]
-        return whole_waves(sms * tiling["MINB"], C // tiling["KC"])
-    return whole_waves(sms * _BLOCKS_PER_SM[C], 3 * (C // _CHUNK))
+        tiling = kernels.DW_BF16_TILING[Co]
+        return whole_waves(sms * tiling["MINB"], -(-C // tiling["KC"]))
+    return whole_waves(sms * _BLOCKS_PER_SM[Co], 3 * -(-C // _CHUNK))
 
 
 def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -92,10 +96,10 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             f"got {tuple(x.shape)} and {tuple(g.shape)}")
     B, H, W, C = x.shape
     Co = g.shape[3]
-    if C != Co or C not in _KERNEL_C:
+    if C % 8 or Co not in KERNEL_CO:
         raise ValueError(
-            f"{name}: the kernel takes C = Co in {_KERNEL_C}, got C={C}, "
-            f"Co={Co}")
+            f"{name}: the kernel takes C a multiple of 8 and Co in "
+            f"{KERNEL_CO}, got C={C}, Co={Co}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     dw = _launch(name, x, g, sms)
     if bf16:
@@ -111,7 +115,7 @@ def _launch(name: str, x: torch.Tensor, g: torch.Tensor,
     ``sms`` SMs, and launch kernel ``name``."""
     B, H, W, C = x.shape
     Co = g.shape[3]
-    nsplit, _ = dw_plan(C, sms, x.dtype)
+    nsplit, _ = dw_plan(C, sms, x.dtype, Co)
     part = x.new_empty((nsplit, 9, C, Co), dtype=torch.float32)
     dw = x.new_empty((3, 3, C, Co))
     kernels.launch(name, x.device, x.data_ptr(), g.data_ptr(),

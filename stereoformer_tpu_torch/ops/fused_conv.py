@@ -71,8 +71,8 @@ from .dw_conv import conv2d_dw
 # written by the tile's channel blocks
 _TILE = {torch.float32: (4, 32), torch.bfloat16: (8, 32)}
 _CB = {torch.float32: {64: 32, 96: 32}, torch.bfloat16: {64: 64, 96: 48}}
-# the output widths RAFT routes to the kernel
-_KERNEL_CO = (64, 96)
+# the output widths the kernel has templates for
+KERNEL_CO = (64, 96)
 
 
 def fused_tiles(H: int, W: int, dtype: torch.dtype = torch.float32) -> int:
@@ -150,10 +150,10 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
             f"[3, 3, C, Co], got {tuple(x.shape)} and {tuple(w.shape)}")
     B, H, W, C = x.shape
     Co = w.shape[3]
-    if w.shape[2] != C or C % 8 or Co not in _KERNEL_CO:
+    if w.shape[2] != C or C % 8 or Co not in KERNEL_CO:
         raise ValueError(
             f"conv2d_fused: the kernel takes C a multiple of 8 and Co in "
-            f"{_KERNEL_CO}, got w {tuple(w.shape)} for C={C}")
+            f"{KERNEL_CO}, got w {tuple(w.shape)} for C={C}")
     if b.shape != (Co,):
         raise ValueError(f"conv2d_fused: b must be [{Co}]")
     if residual is not None and residual.shape != (B, H, W, Co):

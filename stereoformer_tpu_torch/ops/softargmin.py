@@ -10,12 +10,24 @@ from __future__ import annotations
 import torch
 
 
-def soft_argmin(cost_volume: torch.Tensor) -> torch.Tensor:
-    """Disparity expectation under softmax over D: [B, H, W, D] -> [B, H, W]."""
+def soft_argmin(cost_volume: torch.Tensor,
+                match_similarity: bool = True) -> torch.Tensor:
+    """Disparity expectation under softmax over D: [B, H, W, D] -> [B, H, W].
+    With ``match_similarity=False`` the volume holds matching costs and is
+    negated first."""
+    return soft_argmin_with_prob(cost_volume, match_similarity)[0]
+
+
+def soft_argmin_with_prob(cost_volume: torch.Tensor,
+                          match_similarity: bool = True):
+    """``soft_argmin`` and the probability volume it takes the expectation
+    under: -> (disp [B, H, W], prob [B, H, W, D])."""
+    if not match_similarity:
+        cost_volume = -cost_volume
     prob = torch.softmax(cost_volume, dim=-1)
     d = torch.arange(cost_volume.shape[-1], dtype=prob.dtype,
                      device=prob.device)
-    return (prob * d).sum(-1)
+    return (prob * d).sum(-1), prob
 
 
 def disparity_variance(prob_volume: torch.Tensor,

@@ -1,9 +1,10 @@
 """Disparity warping (NHWC).
 
-Counterpart of ``stereoformer_tpu/ops/warp.py``: the right image is sampled
-at exactly x - disp along W, with the border clamp of the JAX package's
-gather sampler. ``F.grid_sample`` is not used: with the reference's
-coordinate normalisation it samples half a pixel off (README deviation #2).
+Counterpart of ``stereoformer_tpu/ops/warp.py`` (``disp_warp``,
+``lr_warp_error``): the right image is sampled at exactly x - disp along
+W, with the border clamp of the JAX package's gather sampler.
+``F.grid_sample`` is not used: with the reference's coordinate
+normalisation it samples half a pixel off (README deviation #2).
 """
 
 from __future__ import annotations
@@ -37,3 +38,18 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
     warped = _sample_x_border(img, sx)
     valid = ((sx >= 0) & (sx <= W - 1)).to(img.dtype)[..., None]
     return warped, valid
+
+
+def lr_warp_error(img_left: torch.Tensor, disp: torch.Tensor,
+                  img_right: torch.Tensor) -> torch.Tensor:
+    """img_right - warp(img_left, disp) at the disparity's resolution: an
+    image wider than ``disp`` [B, H, W, 1] is first resized to it
+    (bilinear, align_corners=False)."""
+    from .resize import resize_bilinear
+
+    H, W = disp.shape[1:3]
+    if img_left.shape[2] > W:
+        img_left = resize_bilinear(img_left, (H, W))
+    if img_right.shape[2] > W:
+        img_right = resize_bilinear(img_right, (H, W))
+    return img_right - disp_warp(img_left, disp)[0]

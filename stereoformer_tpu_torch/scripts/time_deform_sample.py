@@ -8,13 +8,16 @@ file), in a process of its own that imports that checkout's port:
 ``ops.deform_conv_fused`` (whatever that checkout launches for it: the
 fused kernel, or a matmul and a sampling kernel) at the shapes of
 ``LowCNN_dynamic`` (eval, B=8 at 576x960, and train, B=4 at 320x640: x
-[B, H/8, W/8, 16] -> 16 channels, 3x3 taps, window 2), with the inputs of
+[B, H/8, W/8, 16] -> 16 channels, 3x3 taps, window 2) and of
+``ResSubmoduleAttention(deform=True)``'s bottleneck (B=8, x [8, 36, 60,
+256] -> 256 channels at 1/16 of 576x960), with the inputs of
 the ``chip_smoke.py`` beside this file (``deform_inputs``, seed 0) and its
 timing (``graph_ms``, CUDA-graph replay); where the checkout has the
 fused kernel (``deform_sample_launch``), also the tiling its C entry picks
 and the kernel under every tile height (1 to 8 rows) and both warp widths
 (32 and 16 pixels, ``mt`` 2 and 1) with the taps in one slice, and under
-the picked tile with the taps in 2 and 3 slices; the same call on offsets
+the picked tile with the taps in 2 and 3 slices (null where the C entry
+refuses the tiling); the same call on offsets
 that vary smoothly over the image; and the backward at the train shape
 (autograd of the plain windowed form): its kernels' device time a call by
 the profiler, and its time a call by CUDA events over back-to-back calls,
@@ -35,7 +38,8 @@ import sys
 from pathlib import Path
 
 SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
-SHAPES = {"eval": (8, 72, 120, 16, 16), "train": (4, 40, 80, 16, 16)}
+SHAPES = {"eval": (8, 72, 120, 16, 16), "train": (4, 40, 80, 16, 16),
+          "res_attention": (8, 36, 60, 256, 256)}
 
 
 def time_root(root: str) -> dict:
@@ -64,9 +68,14 @@ def time_root(root: str) -> dict:
             tilings += [(plan["mt"], plan["rows"], ts) for ts in (2, 3)]
             for mt, rows, ts in tilings:
                 forced = dict(rows=rows, mt=mt, ts=ts, halo=plan["halo"])
-                out[f"{where} mt={mt} rows={rows} ts={ts}"] = smoke.graph_ms(
-                    lambda forced=forced: deform.deform_sample_launch(
-                        x, off, mask, w, plan=forced), 50)
+                try:
+                    ms = smoke.graph_ms(
+                        lambda forced=forced: deform.deform_sample_launch(
+                            x, off, mask, w, plan=forced), 50)
+                except RuntimeError:   # a tiling the C entry refuses
+                    torch.cuda.synchronize()
+                    ms = None
+                out[f"{where} mt={mt} rows={rows} ts={ts}"] = ms
         # offsets that vary smoothly over the image, as a trained offset
         # conv gives them, in the same +-1.8 px: neighbouring pixels sample
         # neighbouring corners

@@ -17,7 +17,6 @@ import re
 import numpy as np
 import torch
 
-from .nn.blocks import DeformConv
 from .train.optim import AmsgradState
 
 # the backbone's ResBlocks in the order the JAX models create them; Flax
@@ -35,7 +34,11 @@ def _tensor(x) -> torch.Tensor:
 
 
 def _conv(sd, key, node, bias=True):
-    sd[key + ".weight"] = _tensor(np.transpose(node["kernel"], (3, 2, 0, 1)))
+    """A Flax conv of any rank: kernel [k..., C_in, C_out] -> [C_out, C_in,
+    k...]."""
+    k = np.asarray(node["kernel"])
+    n = k.ndim - 2
+    sd[key + ".weight"] = _tensor(np.transpose(k, (n + 1, n, *range(n))))
     if bias:
         sd[key + ".bias"] = _tensor(node["bias"])
 
@@ -131,8 +134,7 @@ def lowcnn_state_dict_from_jax(variables) -> dict:
                   _at(s, f"agg{i}"))
     for name in ("concat_proj1", "concat_proj2"):
         if name in p:
-            sd[name + ".weight"] = _tensor(np.transpose(p[name]["kernel"]))
-            sd[name + ".bias"] = _tensor(p[name]["bias"])
+            _dense(sd, name, p[name])
 
     if "gru_update" in p:
         _gru_head(sd, p["gru_update"], _at(s, "gru_update"))
@@ -203,12 +205,8 @@ def _gru_head(sd, g, gs):
         _conv(sd, key, g["feature_encode"], bias=False)
         _bn(sd, key + "_bn", g["feature_encode_bn"],
             _at(gs, "feature_encode_bn"))
-    zb = g["ConvGRU_0"]["conv_zb"]
-    hidden = np.shape(zb["bias"])[0] // 2
-    for part, cut in (("conv_z", slice(0, hidden)), ("conv_b", slice(hidden, None))):
-        _conv(sd, f"local_cost_volume.gru.{part}",
-              {"kernel": np.asarray(zb["kernel"])[..., cut],
-               "bias": np.asarray(zb["bias"])[cut]})
+    gru = "local_cost_volume.gru."
+    _split_zr(sd, gru + "conv_z", gru + "conv_b", g["ConvGRU_0"]["conv_zb"])
     _conv(sd, "local_cost_volume.gru.conv_g", g["ConvGRU_0"]["conv_g"])
     _conv(sd, "local_cost_volume.offset.conv1", g["OffsetHead_0"]["Conv_0"])
     _conv(sd, "local_cost_volume.offset.conv2", g["OffsetHead_0"]["Conv_1"])
@@ -217,14 +215,22 @@ def _gru_head(sd, g, gs):
 
 
 def _deform_conv(sd, key, node):
-    """DeformConv: ``offset_mask`` -> ``conv_offset_mask``; the weight
-    [K*C, Co], tap-major (ky, kx, cin), -> [Co, C, k, k]."""
+    """DeformConv: ``offset_mask`` -> ``conv_offset_mask``, and its weight
+    and bias."""
     _conv(sd, key + ".conv_offset_mask", node["offset_mask"])
-    k, _, C, _ = np.shape(node["offset_mask"]["kernel"])
+    _deform_weight(sd, key + ".", node,
+                   np.shape(node["offset_mask"]["kernel"])[0])
+
+
+def _deform_weight(sd, key, node, k):
+    """A deformable conv's weight [K*C, Co], tap-major (ky, kx, cin), ->
+    [Co, C, k, k], and its bias where it has one."""
     w = np.asarray(node["weight"])
-    sd[key + ".weight"] = _tensor(
+    C = w.shape[0] // (k * k)
+    sd[key + "weight"] = _tensor(
         np.transpose(w.reshape(k, k, C, w.shape[1]), (3, 2, 0, 1)))
-    sd[key + ".bias"] = _tensor(node["bias"])
+    if "bias" in node:
+        sd[key + "bias"] = _tensor(node["bias"])
 
 
 def _smallunet(sd, key, p, s):
@@ -256,11 +262,15 @@ def _raft_block(sd, key, params, stats, shortcut: bool, bn: bool):
 
 def raft_state_dict_from_jax(variables) -> dict:
     """The JAX ``RAFTStereo`` variables ``{"params", "batch_stats"}`` (numpy
-    leaves) -> the port's ``state_dict``. Without ``"batch_stats"``, the
-    parameters' entries only.
+    leaves) of any option set -> the port's ``state_dict``. Without
+    ``"batch_stats"``, the parameters' entries only.
 
     Kernels map HWIO -> OIHW; each GRU's fused gate conv ``convzr`` splits
-    into ``convz`` (first half of its outputs) and ``convr``."""
+    into ``convz`` (first half of its outputs) and ``convr``. What the
+    option set builds is read from the tree: the context net's
+    ``down{lvl}`` stages (``layer{3 + lvl}``) and output heads, the GRUs
+    and the ``context_zqr`` convs of 1-3 levels; the mask head's width
+    comes with its kernel."""
     p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
     fnet = p["fnet"]
@@ -268,46 +278,170 @@ def raft_state_dict_from_jax(variables) -> dict:
     for n in (1, 2, 3):
         for i, half in enumerate("ab"):
             _raft_block(sd, f"fnet.layer{n}.{i}", fnet[f"layer{n}{half}"],
-                        None, shortcut=n > 1 and i == 0, bn=False)
+                        None, "downsample" in fnet[f"layer{n}{half}"],
+                        bn=False)
     _conv(sd, "fnet.conv2", fnet["Conv_1"])
 
     cnet, cs = p["cnet"], _at(s, "cnet")
     _conv(sd, "cnet.conv1", cnet["Conv_0"])
     _bn(sd, "cnet.norm1", cnet["_Norm_0"]["BatchNorm_0"],
         _at(cs, "_Norm_0", "BatchNorm_0"))
-    for n, ours in ((1, "layer1"), (2, "layer2"), (3, "layer3"),
-                    (4, "down1"), (5, "down2")):
+    stages = [(1, "layer1"), (2, "layer2"), (3, "layer3")]
+    levels = 1 + sum(f"down{lvl}a" in cnet for lvl in (1, 2))
+    stages += [(3 + lvl, f"down{lvl}") for lvl in range(1, levels)]
+    for n, ours in stages:
         for i, half in enumerate("ab"):
-            _raft_block(sd, f"cnet.layer{n}.{i}", cnet[f"{ours}{half}"],
-                        _at(cs, f"{ours}{half}"), shortcut=n > 1 and i == 0,
+            node = cnet[f"{ours}{half}"]
+            _raft_block(sd, f"cnet.layer{n}.{i}", node,
+                        _at(cs, f"{ours}{half}"), "downsample" in node,
                         bn=True)
-    for scale, lvl in (("08", 0), ("16", 1)):
+    for lvl, scale in zip(range(levels), ("08", "16", "32")):
         for h in range(2):
+            conv = cnet[f"out{lvl}_{h}_conv"]
+            if lvl == 2:
+                _conv(sd, f"cnet.outputs32.{h}", conv)
+                continue
             _raft_block(sd, f"cnet.outputs{scale}.{h}.0",
                         cnet[f"out{lvl}_{h}_res"],
                         _at(cs, f"out{lvl}_{h}_res"), shortcut=False, bn=True)
-            _conv(sd, f"cnet.outputs{scale}.{h}.1", cnet[f"out{lvl}_{h}_conv"])
-    for h in range(2):
-        _conv(sd, f"cnet.outputs32.{h}", cnet[f"out2_{h}_conv"])
+            _conv(sd, f"cnet.outputs{scale}.{h}.1", conv)
 
     ub = p["update_block"]
     for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
         _conv(sd, f"update_block.encoder.{name}", ub["encoder"][f"Conv_{i}"])
-    for g in ("gru08", "gru16", "gru32"):
-        zr = ub[g]["convzr"]
-        hidden = np.shape(zr["bias"])[0] // 2
-        for part, cut in (("convz", slice(0, hidden)),
-                          ("convr", slice(hidden, None))):
-            _conv(sd, f"update_block.{g}.{part}",
-                  {"kernel": np.asarray(zr["kernel"])[..., cut],
-                   "bias": np.asarray(zr["bias"])[cut]})
-        _conv(sd, f"update_block.{g}.convq", ub[g]["convq"])
+    for g in ("gru08", "gru16", "gru32")[:levels]:
+        key = f"update_block.{g}."
+        _split_zr(sd, key + "convz", key + "convr", ub[g]["convzr"])
+        _conv(sd, key + "convq", ub[g]["convq"])
     _conv(sd, "update_block.flow_head.conv1", ub["flow_head"]["Conv_0"])
     _conv(sd, "update_block.flow_head.conv2", ub["flow_head"]["Conv_1"])
     _conv(sd, "update_block.mask.0", ub["mask_conv1"])
     _conv(sd, "update_block.mask.2", ub["mask_conv2"])
-    for i in range(3):
+    for i in range(levels):
         _conv(sd, f"context_zqr_convs.{i}", p[f"context_zqr{i}"])
+    return sd
+
+
+def _raft_norm(sd, key, node, stats):
+    """A JAX ``_Norm``: its batch norm (``BatchNorm_0``) or group norm
+    (``GroupNorm_0``, scale and shift); an instance norm has nothing."""
+    if "BatchNorm_0" in node:
+        _bn(sd, key, node["BatchNorm_0"], _at(stats, "BatchNorm_0"))
+    elif "GroupNorm_0" in node:
+        sd[key + ".weight"] = _tensor(node["GroupNorm_0"]["scale"])
+        sd[key + ".bias"] = _tensor(node["GroupNorm_0"]["bias"])
+
+
+def _sub(variables, name) -> dict:
+    """The variables of submodule ``name``."""
+    out = {"params": variables["params"][name]}
+    stats = variables.get("batch_stats")
+    if stats and name in stats:
+        out["batch_stats"] = stats[name]
+    return out
+
+
+def _conv_transpose(sd, key, node):
+    """Flax's ``ConvTranspose`` kernel [k..., C_in, C_out] (a plain conv of
+    the dilated input) -> ``nn.conv.ConvTransposeSame``'s [C_in, C_out,
+    k...], flipped along each spatial axis."""
+    k = np.asarray(node["kernel"])
+    n = k.ndim - 2
+    k = np.flip(k, tuple(range(n)))
+    sd[key + ".weight"] = _tensor(np.transpose(k, (n, n + 1, *range(n))))
+
+
+def _dense(sd, key, node):
+    sd[key + ".weight"] = _tensor(np.transpose(node["kernel"]))
+    sd[key + ".bias"] = _tensor(node["bias"])
+
+
+def _split_zr(sd, z, r, node):
+    """A fused z/r gate conv -> its z (first half of the outputs) and r
+    convs."""
+    hidden = np.shape(node["bias"])[0] // 2
+    for key, cut in ((z, slice(0, hidden)), (r, slice(hidden, None))):
+        _conv(sd, key, {"kernel": np.asarray(node["kernel"])[..., cut],
+                        "bias": np.asarray(node["bias"])[cut]})
+
+
+def module_state_dict_from_jax(module: torch.nn.Module, variables) -> dict:
+    """The Flax variables ``{"params", "batch_stats"}`` (numpy leaves) of
+    the JAX counterpart of ``module`` -> ``module``'s ``state_dict``, for
+    the modules no registry model holds: ``nn.deform``'s six,
+    ``SepConvGRU``, ``ConvBn3D``, ``Hourglass3D``, ``SAModule``,
+    ``ResSubmoduleAttention`` and RAFT's ``BottleneckBlock`` (``Conv_0``-
+    ``Conv_2`` to ``conv1``-``conv3``, ``_Norm_0``-``_Norm_3`` to
+    ``norm1``-``norm4``, ``downsample`` to ``downsample.0``)."""
+    from .nn import aggregation, deform, gru, residual
+    from .nn.raft import BottleneckBlock
+
+    p, s = variables["params"], variables.get("batch_stats")
+    sd: dict = {}
+    if isinstance(module, deform.DeformRoIPooling):
+        if isinstance(module, deform.DeformRoIPoolingPack):
+            for key, name in (("0", "Dense_0"), ("2", "Dense_1"),
+                              ("4", "offset_mask_fc")):
+                _dense(sd, "offset_mask_fc." + key, p[name])
+    elif isinstance(module, deform.ModulatedDeformConv):
+        k = module.kernel_size
+        _deform_weight(sd, "", p["deform"] if "deform" in p else p, k)
+        for ours, theirs in (("conv_offset_mask", "offset_mask"),
+                             ("conv_offset", "conv_offset")):
+            if theirs in p:
+                _conv(sd, ours, p[theirs])
+    elif isinstance(module, gru.SepConvGRU):
+        for d in "12":
+            _split_zr(sd, "convz" + d, "convr" + d, p["convzr" + d])
+            _conv(sd, "convq" + d, p["convq" + d])
+    elif isinstance(module, aggregation.ConvBn3D):
+        _conv(sd, "conv", p["Conv_0"], bias=False)
+        _bn(sd, "bn", p["BatchNorm_0"], _at(s, "BatchNorm_0"))
+    elif isinstance(module, aggregation.Hourglass3D):
+        for i in range(4):
+            sd.update({f"conv{i + 1}.{k}": v for k, v in
+                       module_state_dict_from_jax(
+                           module.conv1, _sub(variables, f"ConvBn3D_{i}")
+                       ).items()})
+        for i, key in enumerate(("conv5", "conv6")):
+            _conv_transpose(sd, key + ".0", p[f"ConvTranspose_{i}"])
+            _bn(sd, key + ".1", p[f"BatchNorm_{i}"],
+                _at(s, f"BatchNorm_{i}"))
+    elif isinstance(module, residual.SAModule):
+        for i in range(3):
+            _conv(sd, f"conv{i + 1}", p[f"Conv_{i}"], bias=False)
+        for i in range(2):
+            _bn(sd, f"bn{i + 1}", p[f"BatchNorm_{i}"],
+                _at(s, f"BatchNorm_{i}"))
+    elif isinstance(module, residual.ResSubmoduleAttention):
+        sd.update({"attention." + k: v for k, v in module_state_dict_from_jax(
+            module.attention, _sub(variables, "SAModule_0")).items()})
+        # Flax numbers the plain convs in call order: conv1-3, conv4 unless
+        # it is deformable, then the skips and the output conv
+        convs = ["conv1.0", "conv2.0", "conv3.0"]
+        if module.deform:
+            _deform_conv(sd, "conv4.0", p["DeformConv_0"])
+        else:
+            convs.append("conv4.0")
+        convs += ["redir2", "redir1", "res"]
+        for i, key in enumerate(convs):
+            _conv(sd, key, p[f"Conv_{i}"], bias=False)
+        for i in range(6):
+            _bn(sd, f"conv{i + 1}.1", p[f"BatchNorm_{i}"],
+                _at(s, f"BatchNorm_{i}"))
+        for i, key in enumerate(("conv5.0", "conv6.0")):
+            _conv_transpose(sd, key, p[f"ConvTranspose_{i}"])
+    elif isinstance(module, BottleneckBlock):
+        for i in range(3):
+            _conv(sd, f"conv{i + 1}", p[f"Conv_{i}"])
+        if "downsample" in p:
+            _conv(sd, "downsample.0", p["downsample"])
+        for i in range(4):
+            _raft_norm(sd, f"norm{i + 1}", p.get(f"_Norm_{i}", {}),
+                       (s or {}).get(f"_Norm_{i}"))
+    else:
+        raise TypeError(f"no JAX counterpart known for "
+                        f"{type(module).__name__}")
     return sd
 
 
@@ -371,14 +505,15 @@ def load_state_dict_file(path: str) -> dict:
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0,
                       fan: str = "fan_in") -> dict:
     """Random weights for ``model`` from numpy, made from ``seed``: each
-    conv weight (a ``DeformConv``'s too) and linear weight plain normal,
-    he-scaled over its ``fan`` ("fan_in", as LowCNN's init, or "fan_out",
-    as RAFT's), biases zero, BatchNorm the identity (scale 1, shift 0,
-    mean 0, variance 1), a ``DeformConv``'s ``conv_offset_mask`` zero (so
-    it starts as a plain conv modulated by 0.5). It is the registry's
-    init, and the tests' and ``chip_smoke.py``'s, whose values depend on
-    it; the trainer starts from ``init_state_dict``, the JAX models'
-    distributions."""
+    weight of two or more axes (a conv's of any rank, a deformable conv's,
+    a linear layer's) plain normal, he-scaled over its ``fan`` ("fan_in",
+    as LowCNN's init, or "fan_out", as RAFT's: axis 1 or 0 of the weight
+    times its window), biases zero, BatchNorm the identity (scale 1, shift
+    0, mean 0, variance 1), an offset predictor (``conv_offset_mask``,
+    ``conv_offset``) zero (so a ``DeformConv`` starts as a plain conv
+    modulated by 0.5). It is the registry's init, and the tests' and
+    ``chip_smoke.py``'s, whose values depend on it; the trainer starts
+    from ``init_state_dict``, the JAX models' distributions."""
     rng = np.random.default_rng(seed)
 
     def weight(name, shape, fans):
@@ -449,20 +584,15 @@ def _orthogonal(rng, shape) -> np.ndarray:
 
 def _random_state_dict(model: torch.nn.Module, weight) -> dict:
     """The ``state_dict`` of ``model`` with ``weight(name, shape, fans)``
-    for each conv and linear weight, in module order; see
+    for each weight of two or more axes, in module order; see
     ``seeded_state_dict`` for the rest."""
     sd = {}
     for name, m in model.named_modules():
         key = name + "." if name else ""
-        if name.endswith("conv_offset_mask"):
+        own = dict(m.named_parameters(recurse=False))
+        if name.endswith(("conv_offset_mask", "conv_offset")):
             sd[key + "weight"] = torch.zeros(m.weight.shape)
             sd[key + "bias"] = torch.zeros(m.out_channels)
-        elif isinstance(m, (torch.nn.Conv2d, DeformConv, torch.nn.Linear)):
-            shape = tuple(m.weight.shape)
-            fans = {"fan_in": shape[1], "fan_out": shape[0]}
-            sd[key + "weight"] = _tensor(weight(name, shape, fans))
-            if m.bias is not None:
-                sd[key + "bias"] = torch.zeros(m.bias.shape)
         elif isinstance(m, torch.nn.BatchNorm2d):
             n = m.num_features
             sd[key + "weight"] = torch.ones(n)
@@ -470,4 +600,10 @@ def _random_state_dict(model: torch.nn.Module, weight) -> dict:
             sd[key + "running_mean"] = torch.zeros(n)
             sd[key + "running_var"] = torch.ones(n)
             sd[key + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        elif "weight" in own and own["weight"].dim() >= 2:
+            shape = tuple(own["weight"].shape)
+            fans = {"fan_in": shape[1], "fan_out": shape[0]}
+            sd[key + "weight"] = _tensor(weight(name, shape, fans))
+            if own.get("bias") is not None:
+                sd[key + "bias"] = torch.zeros(own["bias"].shape)
     return sd

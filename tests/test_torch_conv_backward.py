@@ -42,8 +42,9 @@ GRAD_ATOL = 5e-6
 # dw over B H W = 456 products per element, float32 in other orders
 DW_RTOL = 1e-5
 
-SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96)]
-SHAPE_IDS = ["C64-H-tail", "C96-odd-W"]
+# the third: RAFT's 64 -> 96 layer2 entry at downsample 1 and 0 (C != Co)
+SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96), (1, 11, 21, 64, 96)]
+SHAPE_IDS = ["C64-H-tail", "C96-odd-W", "C64-Co96"]
 # variant -> (residual, prologue, moments, relu)
 VARIANTS = {
     "bare": (False, False, False, False),

@@ -420,8 +420,10 @@ def test_conv2d_fused_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="s and t"):
         ops.conv2d_fused_prologue(x, w, b, s[:, :32].contiguous(),
                                   t[:, :32].contiguous())
-    with pytest.raises(ValueError, match="C = Co"):
+    with pytest.raises(ValueError, match="Co in"):
         ops.conv2d_dw(x, r[..., :32].contiguous())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.conv2d_dw(x[..., :60].contiguous(), r)
     with pytest.raises(ValueError, match="contiguous"):
         ops.conv2d_dw(x.transpose(1, 2), r.transpose(1, 2))
 
@@ -432,11 +434,18 @@ def test_conv2d_fused_rejects_what_the_kernel_does_not_take(cuda_device):
 DW_RTOL = 1e-5
 
 
+# C other than Co: RAFT's 64 -> 96 layer2 entry at downsample=1 (the
+# context net's, B=4 at 320x720), its reverse, and C no multiple of the
+# 32-channel chunk (the last chunk zero-filled)
 @pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
                                    (2, 19, 40, 64, 64), (1, 9, 33, 96, 96),
-                                   (4, 160, 360, 96, 96)],
+                                   (4, 160, 360, 96, 96),
+                                   (4, 320, 720, 64, 96), (1, 37, 53, 96, 64),
+                                   (2, 19, 40, 72, 64), (1, 9, 33, 88, 96)],
                          ids=["main-width", "edge-C96", "H-tail-C64",
-                              "tails-C96", "raft-cnet-layer2"])
+                              "tails-C96", "raft-cnet-layer2",
+                              "raft-ds1-cnet-layer2-entry", "C96-Co64",
+                              "C72-Co64", "C88-Co96"])
 def test_conv2d_dw_matches_plain(cuda_device, shape):
     B, H, W, C, Co = shape
     rng = np.random.default_rng(9)
@@ -480,8 +489,9 @@ _BWD_VARIANTS = {"bare": (False, False, False, False),
                  "prologue-stats": (False, True, True, False)}
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 19, 53, 96, 96)],
-                         ids=["main-width", "tails-C96"])
+@pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 19, 53, 96, 96),
+                                   (1, 19, 53, 64, 96)],
+                         ids=["main-width", "tails-C96", "C64-Co96"])
 @pytest.mark.parametrize("variant", list(_BWD_VARIANTS))
 def test_conv2d_fused_backward_matches_plain_autograd(cuda_device, shape,
                                                       variant):
@@ -1105,7 +1115,7 @@ def test_bf16_forms_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="conv2d_dw_bf16"):
         ops.conv2d_dw(x.bfloat16(), g)
     with pytest.raises(ValueError, match="conv2d_dw_bf16"):
-        ops.conv2d_dw(x[..., :32].contiguous().bfloat16(), g.bfloat16())
+        ops.conv2d_dw(x[..., :60].contiguous().bfloat16(), g.bfloat16())
     # the bf16 backward's dx conv takes the kernel's widths: at a site with
     # C = 32 it would have 32 outputs, and raises naming the kernel
     x32 = x[..., :32].contiguous().bfloat16()
@@ -1178,6 +1188,68 @@ def test_conv2d_dw_bf16_matches_plain(cuda_device, shape):
     assert got.dtype == torch.bfloat16 and got.shape == (3, 3, C, C)
     _bf16_close(got, ops.conv2d_dw_plain(x.double(), g.double()), DW_RTOL)
     assert torch.equal(ops.conv2d_dw(x, g), got)
+
+
+# the bf16 dw at C other than Co: RAFT's 64 -> 96 layer2 entry at
+# downsample=1 (the context net's, B=4 at 320x720), its reverse (C = 96 in
+# the 64-channel slices of Co = 64, the second half zero-filled), C no
+# multiple of a slice, and C = 32 under one
+BF16_DW_C_CO = [(4, 320, 720, 64, 96), (1, 37, 53, 96, 64),
+                (2, 19, 40, 72, 64), (1, 9, 33, 88, 96), (2, 3, 5, 32, 64)]
+
+
+@pytest.mark.parametrize("shape", BF16_DW_C_CO,
+                         ids=["raft-ds1-cnet-layer2-entry", "C96-Co64",
+                              "C72-Co64", "C88-Co96", "C32-Co64"])
+def test_conv2d_dw_bf16_takes_c_other_than_co(cuda_device, shape):
+    """The bf16 dw where C differs from Co: within one bf16 ulp of the
+    float64 sum (test_conv2d_dw_bf16_matches_plain's bound), one bf16
+    launch, the same bits on a second call."""
+    rng = np.random.default_rng(29)
+    B, H, W, C, Co = shape
+    x = _randn(rng, (B, H, W, C), cuda_device).bfloat16()
+    g = _randn(rng, (B, H, W, Co), cuda_device).bfloat16()
+    n16 = ops.conv2d_dw.bf16_launches
+    got = ops.conv2d_dw(x, g)
+    torch.cuda.synchronize()
+    assert ops.conv2d_dw.bf16_launches == n16 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 3, C, Co)
+    _bf16_close(got, ops.conv2d_dw_plain(x.double(), g.double()), DW_RTOL)
+    assert torch.equal(ops.conv2d_dw(x, g), got)
+
+
+def test_raft_downsample1_runs_the_kernels_at_its_16_sites(cuda_device):
+    """RAFT_Stereo(downsample=1) routes layer2's 64 -> 96 entry too: 16
+    fused-conv launches an eval forward, and a train step's 32 (16 of them
+    dx) and 16 dw launches, in float32 and in bf16."""
+    from stereoformer_tpu_torch import train
+    from stereoformer_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(30)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = get_model("RAFT_Stereo", device=cuda_device, dtype=dtype,
+                          downsample=1)
+        bf = dtype == torch.bfloat16
+        fused = (ops.conv2d_fused, "bf16_launches" if bf else "launches")
+        dw = (ops.conv2d_dw, "bf16_launches" if bf else "launches")
+        left = _randn(rng, (1, 32, 64, 3), cuda_device)
+        right = _randn(rng, (1, 32, 64, 3), cuda_device)
+        n = getattr(*fused)
+        with torch.inference_mode():
+            out = model(left, right, iters=2)
+        torch.cuda.synchronize()
+        assert getattr(*fused) - n == 16
+        assert torch.isfinite(out["disparities"][-1]).all()
+        tx = train.Amsgrad(1e-3)
+        state = train.TrainState.create(model, tx)
+        batch = {"img_left": left, "img_right": right,
+                 "gt_disp": 4 + _randn(rng, (1, 32, 64, 1), cuda_device)}
+        n = getattr(*fused), getattr(*dw)
+        state, m = train.make_train_step(tx, "sequence", iters=2)(state,
+                                                                  batch)
+        torch.cuda.synchronize()
+        assert (getattr(*fused) - n[0], getattr(*dw) - n[1]) == (32, 16)
+        assert np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)

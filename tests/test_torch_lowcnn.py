@@ -235,7 +235,16 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.cli.gen_filelist",
             "stereoformer_tpu_torch.models.cross_attention",
             "stereoformer_tpu_torch.ops.attention",
-            "stereoformer_tpu_torch.ops.cost_volume"):
+            "stereoformer_tpu_torch.ops.cost_volume",
+            "stereoformer_tpu_torch.ops.deform_roi",
+            "stereoformer_tpu_torch.ops.pad",
+            "stereoformer_tpu_torch.ops.softargmin",
+            "stereoformer_tpu_torch.ops.warp",
+            "stereoformer_tpu_torch.nn.aggregation",
+            "stereoformer_tpu_torch.nn.conv",
+            "stereoformer_tpu_torch.nn.deform",
+            "stereoformer_tpu_torch.nn.gru",
+            "stereoformer_tpu_torch.nn.residual"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left

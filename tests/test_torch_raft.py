@@ -273,11 +273,12 @@ def test_reference_checkpoint_file_loads(tmp_path, raft):
 
 def test_registry_defaults():
     """ImageNet-normalised inputs, and the shared contract's max_disp and
-    loop are dropped; the reference's widths are fixed; random weights
+    loop are dropped; the options are the JAX model's (an option it lacks
+    raises; ``test_torch_raft_options.py`` runs them); random weights
     repeat; eval mode; train mode supervises every iteration."""
     model = get_model("RAFT_Stereo", device="cpu", max_disp=192, loop="scan")
     with pytest.raises(TypeError):
-        get_model("RAFT_Stereo", device="cpu", downsample=3)
+        get_model("RAFT_Stereo", device="cpu", slow_fast_gru=True)
     assert model.input_norm == "imagenet" and not model.training
     again = get_model("RAFT_Stereo", device="cpu").state_dict()
     for k, v in model.state_dict().items():

@@ -209,6 +209,21 @@ def test_dw_plan_fills_the_card_in_whole_waves(site):
     assert blocks % slots == 0
 
 
+@pytest.mark.parametrize("C,Co", [(64, 96), (96, 64), (72, 64), (88, 96)])
+def test_dw_plan_takes_c_other_than_co(C, Co):
+    """Where C differs from Co (RAFT's 64 -> 96 layer2 entry, and C no
+    multiple of a chunk): the template is Co's, a split's blocks cover C in
+    whole chunks (the last zero-filled), and the grid fills the card in
+    whole waves, in both forms."""
+    nsplit, blocks = dw_plan(C, H100_SMS, Co=Co)
+    assert blocks == nsplit * 3 * -(-C // 32)
+    assert blocks % (H100_SMS * {64: 3, 96: 2}[Co]) == 0
+    tiling = kernels.DW_BF16_TILING[Co]
+    nsplit, blocks = dw_plan(C, H100_SMS, torch.bfloat16, Co)
+    assert blocks == nsplit * -(-C // tiling["KC"])
+    assert blocks % (H100_SMS * tiling["MINB"]) == 0
+
+
 def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     csrc, build = tmp_path / "csrc", tmp_path / "build"
     csrc.mkdir()
