@@ -234,7 +234,24 @@ any failure exits nonzero and prints no result:
    the four deformable convs at [8, 128, 72, 120] -> 128 and one at stride
    2, DeformRoIPoolingPack on [2, 256, 72, 120] with 128 RoIs, and
    SepConvGRU(128) at 1/8, B=8;
-21. one JSON line with each kernel's numbers; the last line says the run
+21. data parallelism and sharded state: two data-parallel ranks on cuda:0
+   under gloo (the card host has one card; NCCL refuses two ranks on one
+   device) run the LowCNN_gru train step at 320x640, global B=4, 2 rows a
+   rank, 12 iterations, float32, cuDNN deterministic and TF32 off, for 3
+   steps, against one process on the whole batch (a group of one, the same
+   BatchNorm arithmetic): step 1's loss, EPE, gradient norm, updated
+   parameters and running statistics to tests/test_torch_train.py's
+   float32 tolerances (the gradient norm to phase 13's), the later steps'
+   losses to tests/test_torch_trainer.py's, and each rank's launches
+   (corr_band 1, local_soft_argmin 12, its backward 12 a step); the
+   RAFT_Stereo train step at 320x720, B=4, under FSDP at world size 1
+   (NCCL) against the unsharded step in the same group for 2 steps (28
+   conv2d_fused and 14 conv2d_dw launches a step, step 1 held as above,
+   the moments after 2 steps compared); cli.train --fsdp for 2 steps on dummy data under a one-rank
+   launcher's environment, its checkpoint restored in this process. Each
+   variant's ms/step and the state bytes a rank holds (two ranks on one
+   card, or one rank, make no scaling figure);
+22. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -516,10 +533,16 @@ def check_launches(label: str, got: dict, **want) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
+    # phase 21's data-parallel ranks: this script, started by itself
+    parser.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-out", help=argparse.SUPPRESS)
     opt = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if opt.dp_rank is not None:
+        return dp_worker(opt.dp_rank, opt.dp_port, opt.dp_out)
     # cuBLAS picks its workspace once per process: set it up for phase 14's
     # deterministic runs before any CUDA work
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -646,6 +669,8 @@ def main() -> int:
     # 19. RAFT-Stereo's option sets; 20. the library modules
     launches.update(raft_options_phase(ops, rng, record))
     launches.update(library_modules_phase(ops, rng, record))
+    # 21. data parallelism and sharded state
+    launches.update(parallel_phase(ops, record))
     add_option_site_times(rows, record)
     for path in launches:
         for row in rows:
@@ -4362,6 +4387,387 @@ def profile(fn, label: str, kernels=()) -> dict:
             flush=True)
         out["kernels_ms"] = mine
     return out
+
+
+# phase 21: data parallelism and sharded state. The card host has one card:
+# the two data-parallel ranks share cuda:0 under gloo (NCCL refuses two
+# ranks on one device; gloo takes all_reduce and broadcast of CUDA tensors,
+# all that the data-parallel step uses), and FSDP runs at world size 1 under
+# NCCL (gloo has no all-gather or reduce-scatter of CUDA tensors; two-rank
+# FSDP is held against the unsharded step on the CPU,
+# tests/test_torch_parallel.py). Two ranks on one card make no scaling
+# figure.
+DP_STEPS, FSDP_STEPS, DP_BATCH_SEED = 3, 2, 5
+# tests/test_torch_train.py's float32 tolerances of one step: loss and EPE
+# 1e-5 relative; the updated parameters within 2 lr everywhere (AMSGrad
+# moves each by ~lr whatever |g|, so a gradient whose sign is float32 noise
+# moves it either way) and within 1e-6 where the sign is settled (|g| above
+# 1e-5 and above twice the two sides' difference), at least 98% of them;
+# the running statistics 1e-5 relative and absolute. The gradient norm
+# phase 13's 1e-3: it is dominated by the backbone's leaves, whose ReLU
+# inputs within float32 rounding of 0 pass or block the gradient
+# differently (5.9e-4 on an H100 80GB HBM3 at 700 W, past the 3e-4 of
+# the CPU tests at 64x256). Later steps inherit the first step's noise,
+# which AMSGrad amplifies: their losses and EPE to
+# tests/test_torch_trainer.py's 2e-3.
+STEP1_RTOL = {"loss": 1e-5, "epe": 1e-5, "grad_norm": 1e-3}
+SETTLED_TOL, SETTLED_SHARE, STATS_TOL, LOSS_RTOL = 1e-6, 0.98, 1e-5, 2e-3
+# RAFT's settled parameters as phase 13 holds RAFT's card step against the
+# CPU's (its gradients are smaller: fewer pass 1e-5)
+RAFT_SETTLED_TOL, RAFT_SETTLED_SHARE = 2e-6, 0.85
+
+
+def _strict_float32(strict: bool = True):
+    """cuDNN deterministic, no TF32: both sides of a comparison. With
+    ``strict=False`` the settings the other phases time under: cuDNN's own
+    algorithms, TF32 convs."""
+    torch.backends.cudnn.deterministic = strict
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = not strict
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_steps(ops, name: str, lr: float, batch: dict, steps: int, mesh,
+               fsdp: bool = False) -> dict:
+    """``steps`` train steps ("sequence", ITERS iterations, AMSGrad at
+    ``lr``) of registry model ``name`` (seed-0 weights) on ``batch``, the
+    global batch (this rank's rows of it on ``mesh``), sharded with
+    ``fsdp``, under ``_strict_float32``: each step's metrics, launch
+    counts and ms, the state after the first step and the moments after
+    the last on the host (whole tensors); then three more steps under the
+    other phases' settings, the mean ms of the last two."""
+    from stereoformer_tpu_torch import parallel
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.parallel.fsdp import full_tensor, local_tensor
+    from stereoformer_tpu_torch.train import Amsgrad, TrainState, make_train_step
+
+    model = get_model(name, device="cuda")
+    tx = Amsgrad(lr)
+    state = TrainState.create(model, tx)
+    if fsdp:
+        state, _ = parallel.shard_state_fsdp(state, mesh)
+    step = make_train_step(tx, "sequence", iters=ITERS, mesh=mesh)
+    data = parallel.shard_batch(batch, mesh)
+    out = {"metrics": [], "launches": [], "ms": []}
+    for i in range(steps):
+        reset_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(read_counts(ops))
+        if i == 0:
+            # the state after the first step, whole, on the host
+            out["model"] = {k: full_tensor(v.detach()).cpu()
+                            for k, v in model.state_dict().items()}
+            out["grads"] = {k: full_tensor(p.grad).cpu()
+                            for k, p in model.named_parameters()}
+    out["moments"] = {(m, k): full_tensor(v).cpu()
+                      for m in ("mu", "nu", "nu_max")
+                      for k, v in getattr(state.opt_state, m).items()}
+    _strict_float32(False)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, data)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _strict_float32()
+    out["default_ms"] = float(np.mean(ms[1:]))
+    out["state_bytes"] = sum(
+        local_tensor(t).numel() * t.element_size()
+        for t in [*model.parameters(), *state.opt_state.mu.values(),
+                  *state.opt_state.nu.values(),
+                  *state.opt_state.nu_max.values()])
+    return out
+
+
+def dp_worker(rank: int, port: int, out_dir: str) -> int:
+    """One of phase 21's two data-parallel ranks on cuda:0 (gloo): the
+    LowCNN_gru step on its rows; rank 0 writes the state too."""
+    from stereoformer_tpu_torch import ops, parallel
+
+    _strict_float32()
+    parallel.initialize_multihost(f"localhost:{port}", 2, rank,
+                                  device="cuda:0", backend="gloo")
+    mesh = parallel.make_mesh(devices=["cuda:0", "cuda:0"])
+    out = _run_steps(ops, "LowCNN_gru", LR,
+                     train_batch(DP_BATCH_SEED, 4, TRAIN_H, TRAIN_W),
+                     DP_STEPS, mesh)
+    if rank:
+        for k in ("model", "grads", "moments"):
+            del out[k]
+    torch.save(out, os.path.join(out_dir, f"dp_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _held(label: str, got: list, want: list) -> dict:
+    """Each step's metrics of ``got`` against ``want``: step 1 to
+    STEP1_RTOL, every loss and EPE to LOSS_RTOL."""
+    worst, bad = {}, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "epe", "grad_norm"):
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            tol = STEP1_RTOL[k] if i == 0 else (
+                LOSS_RTOL if k != "grad_norm" else None)
+            worst[f"step{i + 1}_{k}_rel"] = rel
+            if tol is not None and not rel <= tol:
+                bad.append(f"step {i + 1} {k}: {g[k]} against {w[k]}, "
+                           f"relative {rel:.2e} > {tol:g}")
+    print(f"  {label} against its reference, relative: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    if bad:
+        raise SmokeFailure(f"{label}: " + "; ".join(bad))
+    return worst
+
+
+def _first_step_held(label: str, got: dict, want: dict, lr: float,
+                     before: dict, settled_tol: float = SETTLED_TOL,
+                     min_share: float = SETTLED_SHARE) -> dict:
+    """``got``'s state after its first step against ``want``'s from the
+    same ``before``: the parameters to 2 lr and, where the gradient's sign
+    is settled, to ``settled_tol`` (``min_share`` of them at least); the
+    running statistics to STATS_TOL."""
+    worst_all = worst_settled = worst_stats = 0.0
+    n_settled = n_total = 0
+    for k, w in want["model"].items():
+        g = got["model"][k]
+        if not w.is_floating_point():
+            continue
+        if k not in want["grads"]:
+            err = float(((g - w).abs() / (STATS_TOL + STATS_TOL * w.abs()))
+                        .max())
+            worst_stats = max(worst_stats, err)
+            continue
+        diff = (g - w).abs()
+        gw, gg = want["grads"][k], got["grads"][k]
+        settled = (gw.abs() > 1e-5) & (gw.abs() > 2 * (gg - gw).abs())
+        worst_all = max(worst_all, float(diff.max()))
+        if settled.any():
+            worst_settled = max(worst_settled, float(diff[settled].max()))
+            if torch.equal(w[settled], before[k][settled]):
+                raise SmokeFailure(f"{label}: {k} did not move")
+        n_settled += int(settled.sum())
+        n_total += settled.numel()
+    share = n_settled / n_total
+    bit_equal = sum(torch.equal(got["model"][k], v)
+                    for k, v in want["model"].items())
+    ok = (worst_all <= 2 * lr + 1e-6 and worst_settled <= settled_tol
+          and share >= min_share and worst_stats <= 1.0)
+    print(f"  {label}, step 1: parameters within {worst_all:.2e} (<= 2 lr), "
+          f"{worst_settled:.2e} where the gradient's sign is settled (<= "
+          f"{settled_tol:g}, {100 * share:.2f}% of them, at least "
+          f"{100 * min_share:g}%); running statistics at "
+          f"{worst_stats:.2f} of {STATS_TOL:g} relative + absolute; "
+          f"{bit_equal} of {len(want['model'])} tensors bit-equal "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{label}: the state after step 1 disagrees")
+    return {"param_max_diff": worst_all,
+            "param_settled_max_diff": worst_settled,
+            "param_settled_share": share, "stats_of_tol": worst_stats,
+            "bit_equal": bit_equal}
+
+
+def parallel_phase(ops, record) -> dict:
+    """Phase 21: the data-parallel LowCNN_gru step in two ranks on the card
+    against one process, the FSDP RAFT step against the unsharded one, and
+    cli.train --fsdp under a one-rank launcher environment; returns the
+    launch counts of a data-parallel rank's step and of an FSDP step."""
+    from stereoformer_tpu_torch import parallel
+    from stereoformer_tpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    _strict_float32()
+    out, launches = {}, {}
+    record["parallel"] = out
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        # a. two ranks on cuda:0 (gloo) against one process on the whole
+        # batch, as a group of one: the same BatchNorm arithmetic (Flax's
+        # E[x^2] - E[x]^2; without a group the port takes the two-pass
+        # variance, tests/test_torch_parallel.py)
+        print(f"data parallel: LowCNN_gru train step {TRAIN_H}x{TRAIN_W} "
+              f"global B=4, two ranks of 2 rows on cuda:0 (gloo), "
+              f"{DP_STEPS} steps, float32, cuDNN deterministic, TF32 off:",
+              flush=True)
+        batch = train_batch(DP_BATCH_SEED, 4, TRAIN_H, TRAIN_W)
+        parallel.initialize_multihost(f"localhost:{_free_port()}", 1, 0,
+                                      device="cuda:0", backend="gloo")
+        try:
+            one = _run_steps(ops, "LowCNN_gru", LR, batch, DP_STEPS,
+                             parallel.make_mesh(devices=["cuda:0"]))
+        finally:
+            torch.distributed.destroy_process_group()
+        port = _free_port()
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+                for r in (0, 1)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             "--dp-port", str(port), "--dp-out", work],
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(codes):
+            for r in (0, 1):
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    print(f"  rank {r} exited {codes[r]}:\n"
+                          + f.read()[-3000:], flush=True)
+            raise SmokeFailure(f"a data-parallel rank failed: {codes}")
+        ranks = [torch.load(os.path.join(work, f"dp_rank{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+        for r, got in enumerate(ranks):
+            for i, c in enumerate(got["launches"]):
+                check_launches(f"data-parallel rank {r} step {i + 1}", c,
+                               corr_band=1, local_soft_argmin=ITERS,
+                               local_soft_argmin_bwd=ITERS)
+            out[f"rank{r}"] = _held(f"rank {r}", got["metrics"],
+                                    one["metrics"])
+        for i, (a, b) in enumerate(zip(ranks[0]["metrics"],
+                                       one["metrics"])):
+            print(f"  step {i + 1}: loss {a['loss']:.6f} (one process "
+                  f"{b['loss']:.6f}), grad_norm {a['grad_norm']:.4f} "
+                  f"({b['grad_norm']:.4f})", flush=True)
+        before = get_model("LowCNN_gru", device="cpu").state_dict()
+        out["state"] = _first_step_held("data-parallel rank 0", ranks[0],
+                                        one, LR, before)
+        launches["dp_train_step_per_rank"] = ranks[0]["launches"][0]
+        ms = {"one_process": float(np.mean(one["ms"][1:])),
+              **{f"rank{r}": float(np.mean(g["ms"][1:]))
+                 for r, g in enumerate(ranks)}}
+        default_ms = {"one_process": one["default_ms"],
+                      **{f"rank{r}": g["default_ms"]
+                         for r, g in enumerate(ranks)}}
+        out["ms_per_step"], out["default_ms_per_step"] = ms, default_ms
+        print(f"  launches a step on each rank: "
+              f"{launches['dp_train_step_per_rank']}; ms/step, cuDNN "
+              f"deterministic and TF32 off (steps 2-{DP_STEPS}) / cuDNN's "
+              f"own and TF32 convs (2 steps): one process "
+              f"{ms['one_process']:.1f} / {default_ms['one_process']:.1f}, "
+              f"rank 0 {ms['rank0']:.1f} / {default_ms['rank0']:.1f}, rank 1 "
+              f"{ms['rank1']:.1f} / {default_ms['rank1']:.1f} (two ranks "
+              f"sharing one card under gloo: no scaling figure)", flush=True)
+
+        # b. FSDP at world size 1 (NCCL) against the unsharded step in the
+        # same group
+        print(f"FSDP: RAFT_Stereo train step {RAFT_TRAIN_H}x{RAFT_TRAIN_W} "
+              f"B={RAFT_TRAIN_B}, world size 1 (NCCL), {FSDP_STEPS} steps, "
+              f"AMSGrad {RAFT_LR:g}, TF32 off:", flush=True)
+        batch = train_batch(4, RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W)
+        parallel.initialize_multihost(f"localhost:{_free_port()}", 1, 0,
+                                      device="cuda:0")
+        try:
+            mesh = parallel.make_mesh()
+            runs = {kind: _run_steps(ops, "RAFT_Stereo", RAFT_LR, batch,
+                                     FSDP_STEPS, mesh, fsdp=kind == "fsdp")
+                    for kind in ("unsharded", "fsdp")}
+        finally:
+            torch.distributed.destroy_process_group()
+        for i, c in enumerate(runs["fsdp"]["launches"]):
+            check_launches(f"FSDP RAFT step {i + 1}", c, conv2d_fused=28,
+                           conv2d_dw=14)
+        launches["fsdp_raft_train_step"] = runs["fsdp"]["launches"][0]
+        out["fsdp"] = _held("FSDP RAFT", runs["fsdp"]["metrics"],
+                            runs["unsharded"]["metrics"])
+        before = get_model("RAFT_Stereo", device="cpu").state_dict()
+        out["fsdp_state"] = _first_step_held(
+            "FSDP RAFT", runs["fsdp"], runs["unsharded"], RAFT_LR, before,
+            RAFT_SETTLED_TOL, RAFT_SETTLED_SHARE)
+        moments_equal = sum(torch.equal(runs["fsdp"]["moments"][k], v)
+                            for k, v in runs["unsharded"]["moments"].items())
+        n_moments = len(runs["unsharded"]["moments"])
+        out["fsdp_moments_bit_equal"] = [moments_equal, n_moments]
+        for kind, r in runs.items():
+            out[f"{kind}_ms_per_step"] = r["ms"][-1]
+            out[f"{kind}_default_ms_per_step"] = r["default_ms"]
+            out[f"{kind}_state_bytes"] = r["state_bytes"]
+        print(f"  launches a step: {launches['fsdp_raft_train_step']}; "
+              f"AMSGrad moments bit-equal after {FSDP_STEPS} steps: "
+              f"{moments_equal} of {n_moments}; ms/step, cuDNN "
+              f"deterministic and TF32 off (step {FSDP_STEPS}) / cuDNN's own "
+              f"and TF32 convs (2 steps): unsharded "
+              f"{out['unsharded_ms_per_step']:.1f} / "
+              f"{out['unsharded_default_ms_per_step']:.1f}, FSDP "
+              f"{out['fsdp_ms_per_step']:.1f} / "
+              f"{out['fsdp_default_ms_per_step']:.1f}; state bytes on the rank "
+              f"(parameters and moments): {out['fsdp_state_bytes']} "
+              f"(unsharded {out['unsharded_state_bytes']}; world size 1 "
+              f"holds it all: no scaling figure)", flush=True)
+
+        # c. cli.train --fsdp under a one-rank launcher's environment
+        print(f"cli.train --fsdp LowCNN_gru dummy:8 {TRAIN_H}x{TRAIN_W} B=4 "
+              f"under WORLD_SIZE=1 (2 steps and a validation):", flush=True)
+        cli_out = os.path.join(work, "cli")
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "stereoformer_tpu_torch.cli.train",
+             "--net", "LowCNN_gru", "--dataset", "dummy:8", "--batch_size",
+             "4", "--test_batch", "4", "--epochs", "1", "--crop_h",
+             str(TRAIN_H), "--crop_w", str(TRAIN_W), "--workers", "4",
+             "--fsdp", "--outf", cli_out, "--save_logdir",
+             os.path.join(work, "logs")],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=300)
+        out["cli_s"] = time.perf_counter() - t0
+        print("\n".join(f"    | {line}" for line in
+                        res.stdout.splitlines()[-8:]), flush=True)
+        if res.returncode:
+            print(res.stderr[-3000:], flush=True)
+            raise SmokeFailure(f"cli.train --fsdp exited {res.returncode}")
+        if "DeviceMesh" not in res.stdout:
+            raise SmokeFailure("cli.train --fsdp ran without a mesh")
+        from stereoformer_tpu_torch.train import (
+            Amsgrad,
+            TrainState,
+            latest_checkpoint,
+            restore_checkpoint,
+        )
+
+        path = latest_checkpoint(cli_out, "LowCNN_gru")
+        state = restore_checkpoint(path, TrainState.create(
+            get_model("LowCNN_gru", device="cuda"), Amsgrad(LR)))
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in state.model.state_dict().values()
+                     if v.is_floating_point())
+        if state.step != 2 or state.opt_state.count != 2 or not finite:
+            raise SmokeFailure(f"cli.train --fsdp checkpoint {path}: step "
+                               f"{state.step}, count "
+                               f"{state.opt_state.count}, finite {finite}")
+        print(f"  {os.path.basename(path)} restored in this process (no "
+              f"group): step 2, count 2, finite; {out['cli_s']:.1f} s",
+              flush=True)
+        del state
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"parallel phase: {out['seconds']:.1f} s", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -10,8 +10,22 @@ the loss-schedule file (or ``--epochs``), a validation and a checkpoint
 ``{net}_{round}_{epoch}_{EPE:.3f}`` after every epoch, ``model_best`` for
 the best EPE, ``--resume`` from the latest complete checkpoint in
 ``--outf``. ``--dataset dummy`` (or ``dummy:N``) trains on synthetic pairs.
-Runs on the GPU unless ``--device cpu`` is given; ``--devices`` picks one
-card by index (or ``all``, the first: training runs on one device).
+Runs on the GPU unless ``--device cpu`` is given.
+
+Data parallel, one process (rank) a device, as the JAX CLI's mesh over its
+devices: under a launcher (``torchrun --nproc_per_node N -m
+stereoformer_tpu_torch.cli.train ...``, which sets ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) each rank
+takes ``cuda:LOCAL_RANK`` (NCCL; with ``--device cpu`` the CPU, gloo).
+Without one, ``--devices 0,1`` starts one process per listed card (spawned
+here, on a free local port) and ``--devices all`` one per visible card; a
+single card, or ``--no_mesh``, trains in this process with no group, as
+the JAX CLI does without a mesh. ``--fsdp`` shards the parameters and the
+AMSGrad state over the ranks (ZeRO-style, ``parallel.fsdp``); with no
+group it is ignored, as in JAX. ``--batch_size`` and ``--test_batch`` are
+global and must divide by the ranks. Rank 0 logs, writes TensorBoard
+scalars and saves the checkpoints, which hold whole tensors and load in
+one process.
 
 ``--dtype bf16`` (or ``bfloat16``) trains in bf16 as the JAX CLI does: the
 net computes in bf16, and the parameters, the AMSGrad state and the
@@ -19,11 +33,10 @@ checkpoints stay float32, so ``--resume`` continues a bf16 run. ``--dtype``
 is free text, as the JAX CLI's is; a value other than f32, float32, bf16
 or bfloat16 raises, naming it.
 
-Not ported yet, and raising: ``--fsdp`` and ``--gru_loop scan``. Accepted
-and ignored: ``--use_deform`` (as in the JAX CLI),
-``--no_mesh`` (there is one device) and ``--scan_unroll`` (a knob of the
-scanned loop). ``--profile_dir`` writes a ``torch.profiler`` trace of the
-first epoch.
+Not ported, and raising: ``--gru_loop scan``. Accepted and ignored:
+``--use_deform`` (as in the JAX CLI) and ``--scan_unroll`` (a knob of the
+scanned loop; set under ``--gru_loop unroll`` it warns, as in JAX).
+``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
 """
 
 from __future__ import annotations
@@ -31,9 +44,13 @@ from __future__ import annotations
 import argparse
 import datetime
 import faulthandler
+import logging
 import os
 import random
 import signal
+import socket
+import sys
+import warnings
 
 import numpy as np
 
@@ -45,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="loss-schedule JSON (config/loss_config_disp.json)")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--devices", type=str, default="all",
-                   help="'all' (the first card) or one card's index")
+                   help="'all' (every card) or a comma list of card "
+                        "indices; two or more train data parallel, one "
+                        "process a card")
     p.add_argument("--dataset", type=str, default="SceneFlow")
     p.add_argument("--trainlist", type=str, default="")
     p.add_argument("--vallist", type=str, default="")
@@ -80,13 +99,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the forward in the backward "
                         "(torch.utils.checkpoint): less memory, same values")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet: raises")
+                   help="shard parameters and optimizer state over the "
+                        "data-parallel ranks (ignored with one)")
     p.add_argument("--dtype", type=str, default=None,
                    help="compute dtype: f32 (the default) or bf16 "
                         "(parameters and optimizer state stay float32)")
     p.add_argument("--color_aug", action="store_true")
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted and ignored: the port trains on one device")
+                   help="train in this process on one device, with no "
+                        "process group")
     p.add_argument("--epochs", type=int, default=None,
                    help="override epochs per round")
     p.add_argument("--resume", action="store_true",
@@ -112,23 +133,60 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device(opt) -> str:
-    """--device, with --devices' index for a CUDA device."""
-    if opt.device != "cuda" or opt.devices in ("all", ""):
-        return opt.device
-    if not opt.devices.isdigit():
-        raise ValueError(f"--devices {opt.devices!r}: 'all' or one index; "
-                         f"the port trains on one device")
-    return f"cuda:{opt.devices}"
+def _devices(opt) -> list:
+    """The devices --devices names: CUDA cards by index (``all``: every
+    visible card), or, with ``--device cpu``, that many CPU ranks."""
+    import torch
+
+    if opt.devices in ("all", ""):
+        if opt.device != "cuda":
+            return [opt.device]
+        return [f"cuda:{i}" for i in range(max(torch.cuda.device_count(),
+                                               1))]
+    idx = opt.devices.split(",")
+    if not all(i.strip().isdigit() for i in idx):
+        raise ValueError(f"--devices {opt.devices!r}: 'all' or a comma list "
+                         f"of indices")
+    if opt.device != "cuda":
+        return [opt.device] * len(idx)
+    return [f"cuda:{int(i)}" for i in idx]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, argv: list, devices: list, port: int) -> None:
+    """One rank of a --devices run: the launcher's environment, then
+    main."""
+    dev = devices[rank]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(len(devices)), RANK=str(rank),
+                      LOCAL_RANK=dev.partition(":")[2] or "0")
+    main(argv)
+
+
+def _spawn(argv, devices: list) -> None:
+    """One process per device, started with ``spawn``; raises if a rank
+    fails."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_spawned_rank,
+                       args=(list(sys.argv[1:] if argv is None else argv),
+                             devices, _free_port()),
+                       nprocs=len(devices), start_method="spawn")
 
 
 def main(argv=None):
-    """Train as the JAX CLI does; returns the trainer."""
+    """Train as the JAX CLI does; returns the trainer (None where it
+    started a process per device)."""
     opt = build_parser().parse_args(argv)
-    if opt.fsdp:
-        raise NotImplementedError(
-            "--fsdp is not ported yet (sharded state comes with data "
-            "parallelism in a later slice)")
+    if opt.scan_unroll != 1 and opt.gru_loop == "unroll":
+        warnings.warn(
+            "--scan_unroll only applies with --gru_loop scan; the fully "
+            "unrolled loop ignores it.", stacklevel=1)
     if opt.gru_loop != "unroll":
         raise NotImplementedError(
             "--gru_loop scan is not ported: it is the JAX package's compile "
@@ -136,6 +194,7 @@ def main(argv=None):
     import torch
 
     from ..device import resolve_device
+    from ..parallel import initialize_multihost, make_mesh
     from ..train import (
         DisparityTrainer,
         finalize_checkpoints,
@@ -149,13 +208,31 @@ def main(argv=None):
     if opt.dtype not in DTYPE_NAMES:
         raise ValueError(f"--dtype {opt.dtype!r}: one of "
                          f"{[k for k in DTYPE_NAMES if k]}")
-    device = resolve_device(_device(opt))   # raises before any file is made
+    launched = "WORLD_SIZE" in os.environ and not opt.no_mesh
+    if launched:
+        device = resolve_device(
+            f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            if opt.device == "cuda" else opt.device)
+    else:
+        devices = _devices(opt)
+        if len(devices) > 1 and not opt.no_mesh:
+            resolve_device(devices[0])      # raises before any process starts
+            return _spawn(argv, devices)
+        device = resolve_device(devices[0])  # raises before any file is made
+    mesh = None
+    if launched:
+        initialize_multihost(device=device)
+        mesh = make_mesh()
+    main_rank = mesh is None or mesh.get_rank() == 0
     # live diagnosis: `kill -USR1 <pid>` dumps every thread's stack to
     # stderr without stopping training
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     os.makedirs(opt.outf, exist_ok=True)
     os.makedirs(opt.save_logdir, exist_ok=True)
-    logger = get_logger(os.path.join(opt.outf, "train.log"))
+    logger = get_logger(os.path.join(opt.outf, "train.log")
+                        if main_rank else None)
+    if not main_rank:
+        logger.setLevel(logging.WARNING)
 
     random.seed(opt.manualSeed)
     np.random.seed(opt.manualSeed)
@@ -178,7 +255,7 @@ def main(argv=None):
             meta = checkpoint_meta(latest)
             opt.startRound = meta.get("round", opt.startRound)
             opt.startEpoch = meta.get("epoch", opt.startEpoch) + 1
-    logger.info("device: %s", device)
+    logger.info("device: %s, mesh: %s", device, mesh)
 
     trainer = DisparityTrainer(
         lr=opt.lr,
@@ -199,13 +276,16 @@ def main(argv=None):
         crop_size=(opt.crop_h, opt.crop_w),
         num_workers=opt.workers,
         seed=opt.manualSeed,
+        mesh=mesh,
         remat=opt.remat,
+        fsdp=opt.fsdp and mesh is not None,
         color_aug=opt.color_aug,
         dtype=opt.dtype,
         scale_size=(opt.scale_h, opt.scale_w),
         filenames_dir=opt.filenames_dir,
         freeze_bn=opt.freeze_bn,
         remat_update=opt.remat_update,
+        scan_unroll=opt.scan_unroll,
         data_cache=opt.data_cache,
         device=device,
     )
@@ -213,9 +293,10 @@ def main(argv=None):
 
     writer = None
     try:
-        from torch.utils.tensorboard import SummaryWriter
+        if main_rank:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(opt.save_logdir)
+            writer = SummaryWriter(opt.save_logdir)
     except ImportError:
         logger.info("tensorboard unavailable; scalar logging to stdout only")
 
@@ -254,6 +335,8 @@ def main(argv=None):
     finalize_checkpoints()
     if writer is not None:
         writer.close()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

@@ -62,7 +62,14 @@ class DataLoader:
     threads (none: in the consumer), at most ``prefetch`` + 1 batches of
     samples in flight. ``transform_with_rng(sample, rng)`` runs on each
     sample with its own generator. ``pin_memory`` collates into
-    page-locked torch tensors (only where CUDA is present)."""
+    page-locked torch tensors (only where CUDA is present).
+
+    ``shard=(rank, n)``: each batch is this data-parallel rank's rows of
+    the global batch of ``batch_size`` (rows ``rank * batch_size / n`` on),
+    each decoded and augmented as in one process, the shuffle the same on
+    every rank. A short last batch (``drop_last=False``) is padded to
+    ``batch_size`` first with samples of zeros, so every rank gets its rows
+    (``parallel.pad_batch_to``'s padding)."""
 
     def __init__(
         self,
@@ -75,6 +82,7 @@ class DataLoader:
         prefetch: int = 2,
         transform_with_rng=None,
         pin_memory: bool = False,
+        shard: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -87,6 +95,10 @@ class DataLoader:
         self.prefetch = prefetch
         self.transform_with_rng = transform_with_rng
         self.pin_memory = pin_memory
+        self.shard = shard
+        if batch_size % shard[1]:
+            raise ValueError(f"a batch of {batch_size} does not divide by "
+                             f"{shard[1]} ranks")
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -105,16 +117,32 @@ class DataLoader:
         return idx
 
     def _load_one(self, index: int) -> dict:
+        if index < 0:
+            # a padding row: zeros shaped as sample -index - 1
+            sample = self._load_one(-index - 1)
+            return {k: (np.zeros_like(v) if isinstance(v, np.ndarray) else v)
+                    for k, v in sample.items()}
         sample = self.dataset[int(index)]
         if self.transform_with_rng is not None:
             rng = np.random.default_rng((self.seed, self.epoch, int(index)))
             sample = self.transform_with_rng(sample, rng)
         return sample
 
+    def _rows(self, batch: np.ndarray) -> list:
+        """This rank's rows of a global batch, a padding row as -(i + 1)
+        for a sample i of the batch."""
+        rank, n = self.shard
+        rows = list(batch) + [-int(batch[0]) - 1] * (self.batch_size
+                                                     - len(batch))
+        per = self.batch_size // n
+        return rows[rank * per:(rank + 1) * per]
+
     def __iter__(self) -> Iterator[dict]:
         order = self._index_order()
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.shard[1] > 1:
+            batches = [self._rows(b) for b in batches]
         if self.num_workers <= 0:
             for b in batches:
                 yield _collate([self._load_one(i) for i in b],

@@ -21,6 +21,17 @@ module's parameters in float64) is normalised in float64.
 norm in ``model`` as they are while it is active: the recompute of a
 checkpointed forward (``remat``) runs each norm in train mode a second time,
 and the statistics must move once per step, as under ``jax.checkpoint``.
+
+``synced_statistics(model, group)`` makes the train-mode statistics global
+over a data-parallel process group, as they are in JAX under ``jit`` with
+the batch sharded over a mesh (the batch-axis mean is then over the global
+batch): each norm all-reduces its per-channel count, sum and sum of
+squares, the gradient flowing back through the all-reduce, normalises
+with Flax's biased variance in its own form, ``E[x²] − E[x]²`` clipped at
+0 (``flax.linen.normalization._compute_stats``, ``use_fast_variance``),
+and moves the running statistics by those global moments.
+``torch.nn.SyncBatchNorm`` would do the same on the card only: it refuses
+CPU tensors. Without a group the path above runs as it did.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import all_reduce_sum
 from .conv import check_dtype
 
 
@@ -41,6 +53,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def __init__(self, num_features: int, dtype=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.update_statistics = True
+        # the data-parallel group whose global batch the statistics are
+        # taken over (synced_statistics); None: this process's batch
+        self.group = None
         self.out_dtype = check_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +84,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._forward_global(x)
         # training=True with no running buffers: batch statistics, with
         # their gradient; the buffers are moved below, outside autograd
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
@@ -78,10 +95,32 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())),
                                        correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._move_statistics(mean, var)
         return out
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the group's global batch (synced_statistics)."""
+        C = x.shape[1]
+        dims = (0, *range(2, x.dim()))
+        count = x.new_full((1,), x.numel() // C)
+        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                         count]), self.group)
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        c = (1, C) + (1,) * (x.dim() - 2)
+        out = ((x - mean.view(c)) * (torch.rsqrt(var + self.eps)
+                                     * self.weight).view(c)
+               + self.bias.view(c))
+        if self.update_statistics:
+            with torch.no_grad():
+                self._move_statistics(mean, var)
+        return out
+
+    def _move_statistics(self, mean: torch.Tensor, var: torch.Tensor):
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 @contextlib.contextmanager
@@ -97,3 +136,18 @@ def frozen_statistics(model: nn.Module):
     finally:
         for m in norms:
             m.update_statistics = True
+
+
+@contextlib.contextmanager
+def synced_statistics(model: nn.Module, group):
+    """Train-mode ``BatchNorm2d`` layers of ``model`` take their statistics
+    over ``group``'s global batch while this is active (every rank must run
+    the same norms in the same order); ``group=None`` changes nothing."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None

@@ -12,6 +12,13 @@ is written under a temporary name and renamed into place, so a file under
 a checkpoint's name is always complete. Saves are synchronous: the state
 is updated in place by the next step, so it is copied before the next
 step in any case.
+
+Sharded state (``parallel.shard_state_fsdp``): every rank calls the save,
+which gathers each tensor whole (a collective), and rank 0 alone writes,
+so a file holds full tensors and loads in one process. A restore reads the
+full tensors on every rank and keeps each rank's shard, so a one-process
+checkpoint resumes into sharded state and the reverse. Under a
+data-parallel group that is not sharded, rank 0 alone writes as well.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.distributed import process_index
+from ..parallel.fsdp import full_tensor, load_full
 from .optim import AmsgradState
 from .state import TrainState
 
@@ -38,22 +47,25 @@ def _atomic_save(obj, path: str) -> None:
 
 
 def _cpu(tensors: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in tensors.items()}
+    return {k: full_tensor(v.detach()).cpu() for k, v in tensors.items()}
 
 
 def write_checkpoint(path: str, state: TrainState, meta: dict) -> None:
     """Write ``state`` to ``path`` in the layout every reader here takes:
     ``model`` (the state_dict), ``opt_state`` (``count``, ``mu``, ``nu``,
     ``nu_max``), ``step`` and ``meta``; under a temporary name, renamed
-    into place."""
+    into place. Under a process group every rank calls it and rank 0
+    writes."""
     opt = state.opt_state
-    _atomic_save({
+    ck = {
         "model": _cpu(state.model.state_dict()),
         "opt_state": {"count": int(opt.count), "mu": _cpu(opt.mu),
                       "nu": _cpu(opt.nu), "nu_max": _cpu(opt.nu_max)},
         "step": int(state.step),
         "meta": meta,
-    }, path)
+    }
+    if process_index() == 0:
+        _atomic_save(ck, path)
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, net_name: str,
@@ -67,7 +79,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, net_name: str,
     write_checkpoint(path, state, {
         "round": round_idx, "epoch": epoch, "arch": net_name,
         "best_EPE": val_epe, "step": int(state.step)})
-    if is_best:
+    if is_best and process_index() == 0:
         best = os.path.join(ckpt_dir, "model_best")
         tmp = os.path.join(ckpt_dir, f".model_best{_TMP}{os.getpid()}")
         shutil.copyfile(path, tmp)
@@ -83,6 +95,13 @@ def finalize_checkpoints() -> None:
 
 def _load(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _load_into(targets: dict, tensors: dict) -> None:
+    """Each whole tensor of ``tensors`` into its target, in place (this
+    rank's shard of a sharded one)."""
+    for k, t in targets.items():
+        load_full(t, tensors[k].to(t.device, t.dtype))
 
 
 def _check_matches(path: str, what: str, got: dict, want: dict) -> None:
@@ -108,10 +127,12 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     _check_matches(path, "model", ck["model"], target.model.state_dict())
     for m in ("mu", "nu", "nu_max"):
         _check_matches(path, m, opt[m], params)
-    target.model.load_state_dict(ck["model"])
+    _load_into(target.model.state_dict(), ck["model"])
 
     def moments(m):
-        return {k: opt[m][k].to(p.device) for k, p in params.items()}
+        out = {k: torch.zeros_like(p) for k, p in params.items()}
+        _load_into(out, opt[m])
+        return out
 
     target.opt_state = AmsgradState(count=int(opt["count"]), mu=moments("mu"),
                                     nu=moments("nu"),
@@ -131,7 +152,7 @@ def restore_params(path: str, target: TrainState) -> TrainState:
     ck = _load(path)
     sd = ck["model"] if "model" in ck else load_state_dict_file(path)
     _check_matches(path, "model", sd, target.model.state_dict())
-    target.model.load_state_dict(sd)
+    _load_into(target.model.state_dict(), sd)
     target.step = int(ck.get("step", target.step))
     return target
 

@@ -12,6 +12,10 @@ parameter, with the step count n after the increment:
 The learning rate comes from the schedule at the count before the
 increment. ``torch.optim.Adam(amsgrad=True)`` takes the maximum before bias
 correction, so its trajectory differs from this one.
+
+Under FSDP (``parallel.shard_state_fsdp``) the parameters, their gradients
+and the moments are ``DTensor``s of one sharding: the update runs on each
+rank's shards, elementwise as above.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from ..parallel.fsdp import local_tensor
 
 
 @dataclass
@@ -50,6 +56,8 @@ class Amsgrad:
         self.trainable = trainable
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AmsgradState:
+        """Zero moments, each of its parameter's shape, device and
+        sharding."""
         def zeros():
             return {k: torch.zeros_like(p) for k, p in params.items()}
 
@@ -68,12 +76,14 @@ class Amsgrad:
         for k, p in params.items():
             if self.trainable is not None and not self.trainable(k):
                 continue
-            g = grads[k]
-            mu = state.mu[k].mul_(b1).add_(g, alpha=1 - b1)
-            nu = state.nu[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-            nu_max = torch.maximum(state.nu_max[k], nu / c2,
-                                   out=state.nu_max[k])
-            p.add_((mu / c1) / (nu_max.sqrt() + self.eps), alpha=-lr)
+            g = local_tensor(grads[k])
+            mu = local_tensor(state.mu[k]).mul_(b1).add_(g, alpha=1 - b1)
+            nu = local_tensor(state.nu[k]).mul_(b2).addcmul_(g, g,
+                                                             value=1 - b2)
+            nu_max = local_tensor(state.nu_max[k])
+            torch.maximum(nu_max, nu / c2, out=nu_max)
+            local_tensor(p).add_((mu / c1) / (nu_max.sqrt() + self.eps),
+                                 alpha=-lr)
         state.count = n
 
 

@@ -1,4 +1,5 @@
-"""DisparityTrainer: the training loop of the port, on one device.
+"""DisparityTrainer: the training loop of the port, on one device or data
+parallel over a process group.
 
 Counterpart of ``stereoformer_tpu/train/trainer.py::DisparityTrainer``:
 ``DisparityTrainer(lr, dataset, trainlist, vallist, datapath, batch_size,
@@ -18,8 +19,20 @@ the parameters, the AMSGrad moments, the BatchNorm statistics and the
 checkpoints stay float32. ``None``, ``"f32"`` or ``"float32"`` train in
 float32; any other value raises ``ValueError``, naming it.
 
-Not ported: the device mesh and FSDP (``mesh``, ``fsdp``) and the scanned
-GRU loop (``gru_loop="scan"``); each raises ``NotImplementedError``.
+``mesh`` (``parallel.make_mesh``: one rank a device, ``device`` this
+rank's) trains data parallel, as the JAX trainer does on a mesh: each rank
+loads its rows of every global batch (the same shuffle on every rank), the
+step makes the BatchNorm statistics, the losses and the gradients the
+global batch's (``train/steps.py``), and ``validate`` takes its EPE over
+the global batch. ``batch_size`` and ``test_batch`` must divide by the
+ranks. ``fsdp=True`` also shards the parameters and the AMSGrad moments
+over the mesh (``parallel.shard_state_fsdp``). Every rank runs the same
+calls; rank 0 alone logs, writes TensorBoard scalars and saves
+checkpoints (``train/checkpoint.py``).
+
+``scan_unroll`` is taken and unused, as in the JAX trainer under
+``gru_loop="unroll"``, the port's only GRU loop: the scanned loop
+(``gru_loop="scan"``) is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ from ..data import (
     val_transform,
 )
 from ..device import resolve_device
+from ..parallel import pad_batch_to, process_index
+from ..parallel import shard_params, shard_state_fsdp
+from ..parallel.fsdp import local_tensor
 from ..utils import AverageMeter, get_logger
 from .checkpoint import restore_checkpoint, restore_params
 from .optim import Amsgrad
@@ -64,18 +80,7 @@ _DEFAULT_LOSS = {
     "LowCNN_simple": "single",
 }
 
-
-def pad_batch_to(batch: dict, size: int) -> dict:
-    """Zero-pad every array's batch dimension to ``size`` (the JAX
-    package's ``parallel.pad_batch_to``)."""
-    out = {}
-    for k, v in batch.items():
-        if hasattr(v, "ndim") and v.shape[0] < size:
-            pad = [(0, size - v.shape[0])] + [(0, 0)] * (v.ndim - 1)
-            out[k] = np.pad(np.asarray(v), pad)
-        else:
-            out[k] = v
-    return out
+__all__ = ["DTYPE_NAMES", "DisparityTrainer", "pad_batch_to"]
 
 
 class DisparityTrainer:
@@ -107,15 +112,13 @@ class DisparityTrainer:
         filenames_dir: Optional[str] = None,
         gru_loop: str = "unroll",
         remat_update: bool = False,
+        scan_unroll: int = 1,
         freeze_bn: bool = False,
         data_cache: Optional[str] = None,
         device="cuda",
     ):
-        if mesh is not None or fsdp:
-            raise NotImplementedError(
-                "mesh and fsdp are not ported yet (data parallelism and "
-                "sharded state come in a later slice); the port trains on "
-                "one device")
+        if fsdp and mesh is None:
+            raise ValueError("fsdp shards the state over a mesh: pass mesh")
         if dtype not in DTYPE_NAMES:
             raise ValueError(
                 f"dtype={dtype!r} is not a training dtype; one of "
@@ -140,10 +143,13 @@ class DisparityTrainer:
         self.crop_size = crop_size
         self.num_workers = num_workers
         self.seed = seed
+        self.mesh = mesh
+        self.fsdp = fsdp
         self.remat = remat
         self.filenames_dir = filenames_dir
         self.color_aug = color_aug
         self.remat_update = remat_update
+        self.scan_unroll = scan_unroll
         self.freeze_bn = freeze_bn
         self.data_cache = data_cache
         self.scale_size = scale_size
@@ -151,8 +157,14 @@ class DisparityTrainer:
         self.device = resolve_device(device)
         self.current_lr = lr
         self.is_pretrain = False
+        # rank 0 logs and writes TensorBoard scalars
+        self.is_main = process_index() == 0
         # one dict per train_one_epoch (see there)
         self.history: list = []
+
+    def _info(self, *args):
+        if self.is_main:
+            logger.info(*args)
 
     # -- set-up --------------------------------------------------------------
 
@@ -182,16 +194,19 @@ class DisparityTrainer:
                 dataset_name=self.dataset, mode="val", **kw)
         crop, color = self.crop_size, self.color_aug
         pin = self.device.type == "cuda"
+        # each rank its rows of every global batch
+        shard = ((0, 1) if self.mesh is None
+                 else (self.mesh.get_local_rank(), self.mesh.size()))
         self.train_loader = DataLoader(
             self.train_set, self.batch_size, shuffle=True,
             num_workers=self.num_workers, seed=self.seed,
             transform_with_rng=lambda s, rng: train_transform(
                 s, rng, crop=crop, color=color),
-            pin_memory=pin)
+            pin_memory=pin, shard=shard)
         self.val_loader = DataLoader(
             self.val_set, self.test_batch, shuffle=False,
             num_workers=self.num_workers, drop_last=False, seed=self.seed,
-            transform_with_rng=lambda s, rng: val_transform(s))
+            transform_with_rng=lambda s, rng: val_transform(s), shard=shard)
         self.steps_per_epoch = max(len(self.train_loader), 1)
 
     def _build_net(self):
@@ -206,38 +221,59 @@ class DisparityTrainer:
                              max_disp=self.maxdisp, **kw)
         # from scratch: the JAX models' distributions, drawn from the seed
         self.net.load_state_dict(init_state_dict(self.net, seed=self.seed))
-        logger.info("Number of model parameters: %d",
-                    count_parameters(self.net))
+        self._info("Number of model parameters: %d",
+                   count_parameters(self.net))
 
     def _build_optimizer(self):
         schedule = make_step_schedule(self.lr, self.steps_per_epoch)
         self.tx = Amsgrad(schedule, b1=0.9, b2=0.999)
+        if self.mesh is not None:
+            # every rank starts from rank 0's weights
+            shard_params(self.net, self.mesh)
         self.state = TrainState.create(self.net, self.tx)
+        if self.fsdp:
+            self.state, _ = shard_state_fsdp(self.state, self.mesh)
+            opt = self.state.opt_state
+            held = [*self.net.parameters(), *opt.mu.values(),
+                    *opt.nu.values(), *opt.nu_max.values()]
+            self._info("FSDP over %d ranks: %d bytes of parameters and "
+                       "AMSGrad moments on rank 0", self.mesh.size(),
+                       sum(local_tensor(t).numel() * t.element_size()
+                           for t in held))
 
     def _make_train_step(self):
         return make_train_step(self.tx, self.loss_name, iters=self.train_iters,
                                weights=self.loss_weights, remat=self.remat,
-                               freeze_bn=self.freeze_bn)
+                               freeze_bn=self.freeze_bn, mesh=self.mesh)
 
     def initialize(self):
+        if self.mesh is not None:
+            n = self.mesh.size()
+            # padding train batches would feed made-up samples into the loss
+            # and the BatchNorm statistics: the batches must divide
+            if self.batch_size % n or self.test_batch % n:
+                raise ValueError(
+                    f"batch_size={self.batch_size} / test_batch="
+                    f"{self.test_batch} must be divisible by the {n}-rank "
+                    f"mesh")
         self._prepare_dataset()
         self._build_net()
         self._build_optimizer()
         self.train_step = self._make_train_step()
-        self.eval_step = make_eval_step(iters=self.eval_iters)
+        self.eval_step = make_eval_step(iters=self.eval_iters, mesh=self.mesh)
         if self.pretrain and self.pretrain != "none":
             try:
                 self.state = restore_checkpoint(self.pretrain, self.state)
                 self.is_pretrain = True
-                logger.info("Loaded pretrain checkpoint: %s", self.pretrain)
+                self._info("Loaded pretrain checkpoint: %s", self.pretrain)
             except Exception as e:
                 # parameters only, moments fresh: a checkpoint without
                 # optimizer state (a reference or port state_dict file)
                 try:
                     self.state = restore_params(self.pretrain, self.state)
                     self.is_pretrain = True
-                    logger.info("Loaded pretrain params (optimizer state "
-                                "fresh): %s", self.pretrain)
+                    self._info("Loaded pretrain params (optimizer state "
+                               "fresh): %s", self.pretrain)
                 except Exception:
                     logger.warning("Cannot load %s (%s); starting fresh",
                                    self.pretrain, e)
@@ -287,7 +323,7 @@ class DisparityTrainer:
             iterations += 1
             if i_batch % log_every == 0:
                 loss, epe = (float(x) for x in device_metrics[-1])
-                logger.info(
+                self._info(
                     "Epoch [%d][%d/%d] time %.3f (%.3f) data %.3f loss %.3f "
                     "EPE %.3f", epoch, i_batch, len(self.train_loader),
                     batch_time.val, batch_time.avg, data_time.avg, loss, epe)
@@ -303,7 +339,7 @@ class DisparityTrainer:
             "loss": float(losses_np.mean()), "epe": float(epes_np.mean()),
             "seconds": time.perf_counter() - t0, "data_s": data_time.sum,
             "first_data_s": first_wait})
-        if summary_writer is not None:
+        if summary_writer is not None and self.is_main:
             for i, (loss, epe) in enumerate(zip(losses_np, epes_np)):
                 summary_writer.add_scalar("total_loss", float(loss),
                                           start_iter + i)
@@ -314,14 +350,18 @@ class DisparityTrainer:
     def validate(self, summary_writer=None, epoch: int = 0):
         """EPE over the validation set (a last partial batch is padded to
         ``test_batch`` with samples of zero ground truth, which every
-        metric masks out)."""
+        metric masks out; on a mesh the loader pads it, and the padded rows
+        may all fall to one rank: the metrics' global denominators count
+        the valid pixels of all)."""
         epes_m, p1_m, inf_t = AverageMeter(), AverageMeter(), AverageMeter()
         logged_images = False
-        for batch in self.val_loader:
-            n = batch["img_left"].shape[0]     # the true sample count
+        summary_writer = summary_writer if self.is_main else None
+        for i, batch in enumerate(self.val_loader):
+            # the true sample count of the global batch
+            n = min(self.test_batch, len(self.val_set) - i * self.test_batch)
             arrays = {k: v for k, v in batch.items()
                       if isinstance(v, np.ndarray)}
-            if n < self.test_batch:
+            if self.mesh is None and n < self.test_batch:
                 arrays = pad_batch_to(arrays, self.test_batch)
             dev = {k: torch.from_numpy(v).to(self.device)
                    for k, v in arrays.items()}
@@ -345,8 +385,8 @@ class DisparityTrainer:
                 logged_images = True
         if summary_writer is not None:
             summary_writer.add_scalar("epe_on_val", epes_m.avg, epoch)
-        logger.info("Validate epoch %d: EPE %.4f P1 %.4f inference %.4fs/img",
-                    epoch, epes_m.avg, p1_m.avg, inf_t.avg)
+        self._info("Validate epoch %d: EPE %.4f P1 %.4f inference %.4fs/img",
+                   epoch, epes_m.avg, p1_m.avg, inf_t.avg)
         return epes_m.avg
 
     def get_model(self):

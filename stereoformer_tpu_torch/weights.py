@@ -17,6 +17,7 @@ import re
 import numpy as np
 import torch
 
+from .nn.conv import ConvTransposeSame
 from .train.optim import AmsgradState
 
 # the backbone's ResBlocks in the order the JAX models create them; Flax
@@ -363,6 +364,36 @@ def _split_zr(sd, z, r, node):
     for key, cut in ((z, slice(0, hidden)), (r, slice(hidden, None))):
         _conv(sd, key, {"kernel": np.asarray(node["kernel"])[..., cut],
                         "bias": np.asarray(node["bias"])[cut]})
+
+
+# the z and r gate convs (LowCNN's z and b) that the JAX modules keep as one
+# conv, their outputs side by side (``_split_zr``)
+_FUSED_GATES = re.compile(r"(.*\.)?(conv_[zb]|conv[zr]\d?)\.(weight|bias)")
+
+
+def jax_layout(model: torch.nn.Module, name: str) -> tuple:
+    """The layout of parameter ``name`` of ``model`` in the JAX package's
+    tree, by the maps above: ``(shape, axes)``, the shape of the JAX leaf
+    it lives in and, for each axis of that leaf, the parameter's axis that
+    holds it. A conv's [O, I, k...] is [k..., I, O] in JAX, a transposed
+    conv's [I, O, k...] likewise, a Dense kernel [out, in] is [in, out]; a
+    fused gate's half stands in a leaf of twice its outputs. A deformable
+    conv's weight is read as a conv's (JAX flattens it to [k·k·I, O])."""
+    p = model.get_parameter(name)
+    module = model.get_submodule(name.rpartition(".")[0])
+    shape, nd = tuple(p.shape), p.dim()
+    if nd == 2:
+        axes = (1, 0)
+    elif nd > 2:
+        transposed = isinstance(module, (ConvTransposeSame,
+                                         torch.nn.ConvTranspose2d))
+        axes = tuple(range(2, nd)) + ((0, 1) if transposed else (1, 0))
+    else:
+        axes = tuple(range(nd))
+    jshape = [shape[a] for a in axes]
+    if _FUSED_GATES.fullmatch(name) and nd != 2:
+        jshape[axes.index(0)] *= 2
+    return tuple(jshape), axes
 
 
 def module_state_dict_from_jax(module: torch.nn.Module, variables) -> dict:

@@ -103,13 +103,14 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
         assert json.load(f)["traceEvents"]
 
 
-@pytest.mark.parametrize("flags", [["--fsdp"], ["--dtype", "fp16"],
+@pytest.mark.parametrize("flags", [["--devices", "0,a"], ["--dtype", "fp16"],
                                    ["--gru_loop", "scan"]])
 def test_cli_unported_flags_raise(tmp_path, flags):
     """What the port does not take raises before a file is made: the JAX
-    CLI's flags that are not ported, and a --dtype other than f32,
-    float32, bf16 or bfloat16 (free text, as the JAX CLI's), named."""
-    error, match = ((ValueError, "'fp16'") if "--dtype" in flags
+    CLI's flag that is not ported (--gru_loop scan), a --dtype other than
+    f32, float32, bf16 or bfloat16 (free text, as the JAX CLI's), and a
+    --devices that is no list of indices, named."""
+    error, match = ((ValueError, f"'{flags[1]}'") if flags[0] != "--gru_loop"
                     else (NotImplementedError, "not ported"))
     with pytest.raises(error, match=match):
         main(_args(tmp_path) + ["--epochs", "1"] + flags)
@@ -140,8 +141,14 @@ def test_cli_dtype_bf16_still_raises_naming_the_training_slice(tmp_path):
 
 
 def test_cli_devices_takes_one_index(tmp_path):
-    with pytest.raises(ValueError, match="one index"):
-        main(_args(tmp_path, device="cuda") + ["--devices", "0,1"])
+    """--devices takes a list of indices; without a GPU, a list of cards
+    raises before any process starts or any file is made."""
+    with pytest.raises(ValueError, match="comma list"):
+        main(_args(tmp_path, device="cuda") + ["--devices", "one"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(_args(tmp_path, device="cuda") + ["--devices", "0,1"])
+    assert not os.path.exists(tmp_path / "models")
 
 
 def test_cli_without_a_gpu_raises_unless_cpu_is_asked_for(tmp_path):

@@ -229,6 +229,9 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.train.params",
             "stereoformer_tpu_torch.train.checkpoint",
             "stereoformer_tpu_torch.train.trainer",
+            "stereoformer_tpu_torch.parallel",
+            "stereoformer_tpu_torch.parallel.distributed",
+            "stereoformer_tpu_torch.parallel.fsdp",
             "stereoformer_tpu_torch.cli.train",
             "stereoformer_tpu_torch.cli.evaluate",
             "stereoformer_tpu_torch.cli.analysis",

@@ -139,6 +139,55 @@ def test_registry_takes_scan_unroll_as_jax_does(name):
         get_model(name, device="cpu", loop="scan", scan_unroll=1)
 
 
+@pytest.mark.parametrize("scan_unroll", [1, 2])
+def test_trainers_take_scan_unroll_as_jax_does(scan_unroll):
+    """Both trainers take scan_unroll under gru_loop="unroll" (JAX hands it
+    to the model under gru_loop="scan" only; the port's loop is always
+    unrolled)."""
+    from stereoformer_tpu.train import DisparityTrainer as JaxTrainer
+    from stereoformer_tpu_torch.train import DisparityTrainer
+
+    kw = dict(lr=1e-3, dataset="dummy", gru_loop="unroll",
+              scan_unroll=scan_unroll)
+    assert JaxTrainer(**kw).scan_unroll == scan_unroll
+    assert DisparityTrainer(**kw, device="cpu").scan_unroll == scan_unroll
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stop(*args, **kwargs):
+    raise _Stop
+
+
+@pytest.mark.parametrize("scan_unroll", ["1", "2"])
+def test_cli_warns_on_scan_unroll_as_jax_does(tmp_path, monkeypatch,
+                                               scan_unroll):
+    """--scan_unroll N under --gru_loop unroll: both CLIs warn for N != 1
+    and not for 1, before the trainer is built (stopped there)."""
+    import warnings
+
+    import stereoformer_tpu.train as jax_train
+    import stereoformer_tpu_torch.train as port_train
+    from stereoformer_tpu.cli.train import main as jax_main
+    from stereoformer_tpu_torch.cli.train import main as port_main
+
+    monkeypatch.setattr(jax_train, "DisparityTrainer", _stop)
+    monkeypatch.setattr(port_train, "DisparityTrainer", _stop)
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        argv = ["--dataset", "dummy", "--gru_loop", "unroll",
+                "--scan_unroll", scan_unroll, "--outf", str(tmp_path / "o"),
+                "--save_logdir", str(tmp_path / "l")] + extra
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with pytest.raises(_Stop):
+                main(argv)
+        said = [w for w in seen if "--scan_unroll" in str(w.message)]
+        assert len(said) == (scan_unroll != "1"), (main.__module__, seen)
+        assert all(w.category is UserWarning for w in said)
+
+
 def test_options_the_port_does_not_take_raise():
     with pytest.raises(ValueError, match="unknown refinement"):
         LowCNN(refinement="bogus")

@@ -408,6 +408,44 @@ def test_train_step_matches_jax(jax_steps):
                                    err_msg=k)
 
 
+def test_dp_step_in_two_ranks_matches_jax(jax_steps, tmp_path):
+    """The same step data parallel: two gloo ranks (tests/_torch_parallel_
+    worker.py), one row each, global BatchNorm statistics and losses, the
+    gradients summed; against JAX's step on both rows with the checks
+    above."""
+    import _torch_parallel_worker as worker
+
+    variables, batch, runs = jax_steps
+    (jstate, jm) = runs[0]
+    torch.save({"state_dict": lowcnn_state_dict_from_jax(variables),
+                "batch": batch}, tmp_path / "jax_rows.pt")
+    out = worker.run_ranks(["jax_rows"], str(tmp_path))
+    for r in (0, 1):
+        got = out[("jax_rows", r)]
+        assert got["step"] == got["count"] == 1
+        m = got["metrics"]
+        np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
+        np.testing.assert_allclose(m["epe"], jm["epe"], rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"],
+                                   rtol=3e-4)
+    model = LowCNN()
+    model.load_state_dict(out[("jax_rows", 0)]["state_dict"])
+    for k, p in model.named_parameters():
+        p.grad = out[("jax_rows", 0)]["grads"][k]
+    grads_port = _flat(_port_tree(model, grads=True)["params"])
+    grads_jax = _flat(jstate.opt_state[0])
+    _check_grads(grads_port, grads_jax)
+    tree = _port_tree(model)
+    _check_updated_params(_flat(tree["params"]), _flat(jstate.params),
+                          _flat(variables["params"]), grads_port, grads_jax)
+    got_stats, want_stats = _flat(tree["batch_stats"]), _flat(
+        jstate.batch_stats)
+    assert sorted(got_stats) == sorted(want_stats)
+    for k, w in want_stats.items():
+        np.testing.assert_allclose(got_stats[k], w, rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_amsgrad_state_from_jax_continues_a_jax_run(jax_steps):
     """JAX's state after one step (parameters, BatchNorm statistics, the
     AMSGrad moments and count) carried into the port; the second step on

@@ -18,6 +18,7 @@ package's, on the CPU, at 32x64, B=2, two GRU iterations.
 
 import os
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -477,9 +478,15 @@ def test_pretrain_falls_back_to_parameters_only(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    for kw in ({"mesh": object()}, {"fsdp": True}, {"gru_loop": "scan"}):
-        with pytest.raises(NotImplementedError):
-            train.DisparityTrainer(**TRAINER_KW, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        train.DisparityTrainer(**TRAINER_KW, device="cpu", gru_loop="scan")
+    # FSDP shards over a mesh; a mesh must divide both batches, as in JAX
+    with pytest.raises(ValueError, match="mesh"):
+        train.DisparityTrainer(**TRAINER_KW, device="cpu", fsdp=True)
+    three = types.SimpleNamespace(size=lambda: 3, get_local_rank=lambda: 0)
+    with pytest.raises(ValueError, match="divisible by the 3-rank mesh"):
+        train.DisparityTrainer(**TRAINER_KW, device="cpu",
+                               mesh=three).initialize()
     # dtype names the JAX trainer's dtypes; any other raises, naming it
     for dtype in ("fp16", "float16", "bf32"):
         with pytest.raises(ValueError, match=dtype):
