@@ -251,7 +251,20 @@ any failure exits nonzero and prints no result:
    launcher's environment, its checkpoint restored in this process. Each
    variant's ms/step and the state bytes a rank holds (two ranks on one
    card, or one rank, make no scaling figure);
-22. one JSON line with each kernel's numbers; the last line says the run
+22. the export entry point (stereoformer_tpu_torch/export.py): at 576x960,
+   12 GRU iterations, LowCNN_gru with a symbolic batch (run at B=8 and
+   B=2), RAFT_Stereo (B=2, test_mode), LowCNN_dynamic (B=8) and bf16
+   LowCNN_gru (B=8) exported with torch.export and saved: the live
+   model's launch counts (corr_band 1 and local_soft_argmin 12; 14
+   conv2d_fused; deform_sample 1; corr_band_bf16 1), the exported program
+   timed beside the live model in turns (ms/batch), the export seconds and
+   the artifact's bytes; then every artifact loaded and run in a process of
+   its own (this script with --serve) that blocks the import of the port's
+   models, nn and train: its load seconds, its launches per forward equal
+   to the live model's, none of those modules loaded, and its disparities
+   within 1e-2 px of the live model's (bit-equal or not, said);
+   cli.export --check once (LowCNN);
+23. one JSON line with each kernel's numbers; the last line says the run
    was ok and names the device.
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
@@ -537,12 +550,16 @@ def main() -> int:
     parser.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--dp-out", help=argparse.SUPPRESS)
+    # phase 22's serving process: this script, started by itself
+    parser.add_argument("--serve", help=argparse.SUPPRESS)
     opt = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if opt.dp_rank is not None:
         return dp_worker(opt.dp_rank, opt.dp_port, opt.dp_out)
+    if opt.serve is not None:
+        return serve_worker(opt.serve)
     # cuBLAS picks its workspace once per process: set it up for phase 14's
     # deterministic runs before any CUDA work
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -671,6 +688,8 @@ def main() -> int:
     launches.update(library_modules_phase(ops, rng, record))
     # 21. data parallelism and sharded state
     launches.update(parallel_phase(ops, record))
+    # 22. the export entry point
+    launches.update(export_phase(ops, record))
     add_option_site_times(rows, record)
     for path in launches:
         for row in rows:
@@ -1617,7 +1636,7 @@ def kernel_rows(ops, rng, err, launches, record) -> list:
         dvol, dcand = torch.empty_like(vol), torch.empty_like(cands)
 
         def launch():
-            # the kernel alone, as _LocalSoftArgmin.backward launches it (an
+            # the kernel alone, as the op local_soft_argmin_bwd launches it (an
             # autograd backward cannot be captured from a side stream)
             kernels.launch("local_soft_argmin_bwd", dev, vol.data_ptr(),
                            cands.data_ptr(), g.data_ptr(), dvol.data_ptr(),
@@ -4767,6 +4786,184 @@ def parallel_phase(ops, record) -> dict:
          torch.backends.cuda.matmul.allow_tf32) = saved
     out["seconds"] = time.perf_counter() - t_phase
     print(f"parallel phase: {out['seconds']:.1f} s", flush=True)
+    return launches
+
+
+# phase 22: the artifacts, at H x W and ITERS iterations: (label, registry
+# name, dtype, the batches each runs at, the launches of one forward). The
+# LowCNN_gru artifact has a symbolic batch and serves B=8 and B=2 from one
+# file
+EXPORT_CASES = [
+    ("LowCNN_gru", "LowCNN_gru", None, (B, 2),
+     {"corr_band": 1, "local_soft_argmin": ITERS}),
+    ("RAFT_Stereo", "RAFT_Stereo", None, (2,), {"conv2d_fused": 14}),
+    ("LowCNN_dynamic", "LowCNN_dynamic", None, (B,),
+     {"corr_band": 1, "local_soft_argmin": 1, "deform_sample": 1}),
+    ("LowCNN_gru bf16", "LowCNN_gru", torch.bfloat16, (B,),
+     {"corr_band_bf16": 1, "local_soft_argmin": ITERS}),
+]
+# an artifact against the live model, px (the JAX CLI's --check bound)
+EXPORT_TOL_PX = 1e-2
+# artifact and live forwards timed in turns, this many pairs a batch
+EXPORT_PAIRS = 5
+# what the serving process may not import: the model code
+SERVE_BLOCKED = ("stereoformer_tpu_torch.models", "stereoformer_tpu_torch.nn",
+                 "stereoformer_tpu_torch.train")
+
+
+def _serve_blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in SERVE_BLOCKED)
+
+
+def serve_worker(jobs_path: str) -> int:
+    """Phase 22's serving process: import the port's export module with
+    the model code blocked, then load and run each job's artifact on its
+    inputs, once per job: its outputs and launch counts go next to the
+    jobs file, and which blocked modules were loaded (none, or it fails)."""
+    import importlib.abc
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if _serve_blocked(name):
+                raise ImportError("the serving process imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    from stereoformer_tpu_torch import export as sfx, ops
+
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    results = []
+    loaded, load_s = {}, {}
+    for job in jobs:
+        if job["artifact"] not in loaded:
+            t0 = time.perf_counter()
+            loaded[job["artifact"]] = sfx.load_exported(job["artifact"])
+            load_s[job["label"]] = time.perf_counter() - t0
+        left, right = (t.cuda() for t in torch.load(job["inputs"]))
+        reset_counts(ops)
+        out = sfx.infer_exported(loaded[job["artifact"]], left, right)
+        counts = read_counts(ops)
+        torch.save(out.cpu(), job["output"])
+        results.append({"label": job["label"], "batch": job["batch"],
+                        "launches": counts})
+    found = sorted(m for m in sys.modules if _serve_blocked(m))
+    with open(jobs_path + ".out", "w") as f:
+        json.dump({"results": results, "load_s": load_s,
+                   "blocked_loaded": found}, f)
+    return 1 if found else 0
+
+
+def export_phase(ops, record) -> dict:
+    """Phase 22: export, save, load and serve the EXPORT_CASES artifacts;
+    returns the launch counts of each served forward."""
+    from stereoformer_tpu_torch import export as sfx
+    from stereoformer_tpu_torch.cli.export import main as export_main
+    from stereoformer_tpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    print(f"export phase: {H}x{W}, {ITERS} iterations:", flush=True)
+    out = record["export"] = {}
+    launches, wants, jobs = {}, {}, []
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        for label, name, dtype, batches, counts in EXPORT_CASES:
+            model = get_model(name, device="cuda", dtype=dtype)
+            infer = sfx.make_infer_fn(model, ITERS)
+            t0 = time.perf_counter()
+            exported = sfx.export_model(model, H, W, iters=ITERS)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(work, label.replace(" ", "_") + ".pt2")
+            nbytes = sfx.save_exported(exported, path)
+            rec = out[label] = {"export_s": export_s, "bytes": nbytes,
+                                "symbolic_batch": True}
+            print(f"  {label}: exported in {export_s:.1f} s, {nbytes} "
+                  f"bytes", flush=True)
+            for b in batches:
+                rng = np.random.default_rng(22 + b)
+                left, right = randn(rng, b, H, W, 3), randn(rng, b, H, W, 3)
+
+                def live(infer=infer, left=left, right=right):
+                    with torch.inference_mode():
+                        return infer(left, right)
+
+                # the program as saved; the serving process runs the file
+                def artifact(exported=exported, left=left, right=right):
+                    return sfx.infer_exported(exported, left, right)
+
+                reset_counts(ops)
+                want = live()
+                got_counts = read_counts(ops)
+                check_launches(f"{label} B={b} live forward", got_counts,
+                               **counts)
+                art_ms, live_ms = paired_ms(artifact, live, EXPORT_PAIRS)
+                key = f"{label} B={b}"
+                rec[f"B={b}"] = {"artifact_ms": art_ms, "live_ms": live_ms}
+                print(f"  {key}: artifact {np.median(art_ms):.2f} ms/batch, "
+                      f"live {np.median(live_ms):.2f} (medians of "
+                      f"{EXPORT_PAIRS} in turns)", flush=True)
+                stem = os.path.join(work, key.replace(" ", "_").replace(
+                    "=", ""))
+                torch.save((left.cpu(), right.cpu()), stem + "_in.pt")
+                wants[key] = want.cpu()
+                jobs.append({"label": label, "batch": b, "artifact": path,
+                             "inputs": stem + "_in.pt",
+                             "output": stem + "_out.pt", "counts": counts})
+            del model, infer, exported, want
+            torch.cuda.empty_cache()
+        # every artifact in a process without the model code
+        jobs_path = os.path.join(work, "jobs.json")
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve",
+             jobs_path], capture_output=True, text=True, timeout=600)
+        out["serve_s"] = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-3000:] + proc.stderr[-3000:], flush=True)
+            raise SmokeFailure(f"the serving process exited "
+                               f"{proc.returncode}")
+        with open(jobs_path + ".out") as f:
+            served = json.load(f)
+        if served["blocked_loaded"]:
+            raise SmokeFailure(f"serving loaded {served['blocked_loaded']}")
+        for label, seconds in served["load_s"].items():
+            out[label]["load_s"] = seconds
+        print(f"  serving process ({out['serve_s']:.1f} s): no module of "
+              f"{SERVE_BLOCKED} loaded; loads (s) {served['load_s']}",
+              flush=True)
+        for job, res in zip(jobs, served["results"]):
+            key = f"{job['label']} B={job['batch']}"
+            check_launches(f"{key} served", res["launches"],
+                           **job["counts"])
+            launches[f"export {key}"] = res["launches"]
+            got, want = torch.load(job["output"]), wants[key]
+            if got.shape != want.shape:
+                raise SmokeFailure(f"{key}: shape {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            out[job["label"]][f"B={job['batch']}"].update(
+                max_abs_err_px=err, bit_equal=equal,
+                launches=res["launches"])
+            print(f"  {key} served: max |artifact - live| {err:.3e} px "
+                  f"(tolerance {EXPORT_TOL_PX:g}), bit-equal {equal}; "
+                  f"launches {res['launches']}", flush=True)
+            if not (np.isfinite(err) and err < EXPORT_TOL_PX):
+                raise SmokeFailure(f"{key}: the artifact is {err} px off")
+        # the CLI, once, on a small graph (LowCNN: one refinement)
+        t0 = time.perf_counter()
+        cli, _ = run_cli(export_main, [
+            "--net", "LowCNN", "--height", str(H), "--width", str(W),
+            "--iters", str(ITERS), "--out", os.path.join(work, "cli.pt2"),
+            "--check"])
+        out["cli"] = dict(cli, seconds=time.perf_counter() - t0)
+        if not cli["check_max_err_px"] < EXPORT_TOL_PX:
+            raise SmokeFailure(f"cli.export --check: {cli}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"export phase: {out['seconds']:.1f} s", flush=True)
     return launches
 
 

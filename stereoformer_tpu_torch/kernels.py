@@ -10,6 +10,15 @@ library.
 ``build`` compiles every source that is not built yet in parallel, one
 ``nvcc`` per source; ``launch`` builds at first use. Nothing is built or
 loaded at import.
+
+Every kernel entry that a model's forward or backward reaches is a
+``torch.library`` custom op in the ``stereoformer`` namespace (``OPS``),
+registered by the op module that launches it (``ops/cost_volume.py``,
+``ops/local_volume.py``, ``ops/fused_conv.py``, ``ops/dw_conv.py``,
+``ops/deform.py``): its CUDA implementation is the launch, its CPU
+implementation the plain version, and a fake implementation gives the
+outputs' shapes, so that ``torch.export`` keeps each op as one node that an
+artifact calls by name.
 """
 
 from __future__ import annotations
@@ -55,6 +64,9 @@ def nvcc_flags(source: str) -> tuple:
         return NVCC_FLAGS + tiling_defines(DW_BF16_TILING)
     return NVCC_FLAGS
 
+
+# the torch.library namespace of the kernels' custom ops
+OPS = "stereoformer"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, C function, its argument types; the last is the stream)
@@ -231,6 +243,21 @@ def check_inputs(name: str, *tensors: torch.Tensor, dtype=None) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def plain_vjp(fn, tensors, grad, needs, *args) -> tuple:
+    """The gradient of ``fn(*tensors, *args)`` by autograd, recomputed from
+    detached copies of ``tensors`` (None for a tensor that is None or that
+    ``needs`` does not ask for): an op's gradient where it is autograd of
+    its plain version."""
+    want = [t is not None and n for t, n in zip(tensors, needs)]
+    leaves = [t.detach().requires_grad_(w) if t is not None else None
+              for t, w in zip(tensors, want)]
+    with torch.enable_grad():
+        out = fn(*leaves, *args)
+    wrt = [t for t, w in zip(leaves, want) if w]
+    got = iter(torch.autograd.grad(out, wrt, grad) if wrt else ())
+    return tuple(next(got) if w else None for w in want)
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -89,7 +89,12 @@ class FusedConv(Conv2d):
                 x = prologue_fma(x, s, t).to(dt)
             y = super().forward(x)
             return (y, None) if with_stats else y
-        if not x.is_contiguous(memory_format=torch.channels_last):
+        # torch.export's trace of a CUDA model (torch 2.11) gives a cuDNN
+        # conv of a channels_last input a contiguous output where the card
+        # gives channels_last: while exporting, the layout is checked where
+        # the kernel launches (kernels.check_inputs) instead
+        if (not x.is_contiguous(memory_format=torch.channels_last)
+                and not torch.compiler.is_exporting()):
             raise ValueError("FusedConv: a routed site takes channels_last x")
         w, b = self.weight, self.bias
         if dt is not None:

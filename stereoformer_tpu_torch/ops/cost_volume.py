@@ -8,15 +8,18 @@ Counterpart of ``stereoformer_tpu/ops/cost_volume.py``
 
     out[b,h,w,d] = mean_c left[b,h,w,c] * right[b,h,w-d,c],   0 where w < d.
 
-``correlation_volume`` takes the plain version for CPU tensors and launches
-the CUDA kernel ``csrc/corr_band.cu`` for CUDA tensors, counting launches in
+``correlation_volume`` calls the custom op ``stereoformer::corr_band``
+(``corr_band_op``): the plain version for CPU tensors, the CUDA kernel
+``csrc/corr_band.cu`` for CUDA tensors, counting launches in
 ``correlation_volume.launches``. Its gradient on the GPU is the shift form of
 ``ops/pallas/corr_band.py::_bwd``, which the JAX package leaves to XLA: D
-shifted products in plain torch ops (``correlation_volume_backward``).
+shifted products in plain torch ops (``correlation_volume_backward``); on
+the CPU autograd of the plain version.
 
 bf16 features give a bf16 volume, as ``correlation_volume_matmul`` gives
-it: the products summed in float32, divided by C and rounded once. CPU
-tensors take the plain version of that form; CUDA tensors launch the
+it: the products summed in float32, divided by C and rounded once, through
+the op ``stereoformer::corr_band_bf16``. CPU tensors take the plain version
+of that form; CUDA tensors launch the
 kernel's bf16 form (``corr_band_forward_bf16``, on the bf16 tensor cores:
 persistent blocks of 16-pixel warps over tasks (b, h, tile, span) on the
 grid ``corr_bf16_plan`` picks), counted in
@@ -149,7 +152,13 @@ def correlation_volume_backward(left: torch.Tensor, right: torch.Tensor,
     """The gradient of the correlation volume by shifts: with g = grad / C,
     dleft[w] = sum_d g[w, d] * right[w - d] and
     dright[v] = sum_d g[v + d, d] * left[v + d], over w >= d.
-    left, right [B, H, W, C], grad [B, H, W, D] -> (dleft, dright)."""
+    left, right [B, H, W, C], grad [B, H, W, D] -> (dleft, dright). bf16
+    features and cotangent are widened to float32 and dleft and dright
+    rounded to bf16 once, as the Pallas ``_bwd`` does."""
+    if left.dtype == torch.bfloat16:
+        dleft, dright = correlation_volume_backward(
+            left.float(), right.float(), grad.float())
+        return dleft.to(left.dtype), dright.to(right.dtype)
     W, C = left.shape[2], left.shape[3]
     g = grad / C
     dleft = torch.zeros_like(left)
@@ -161,57 +170,83 @@ def correlation_volume_backward(left: torch.Tensor, right: torch.Tensor,
     return dleft, dright
 
 
-class _CorrBand(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, left, right, max_disp):
-        bf16 = left.dtype == torch.bfloat16
-        name = "corr_band_bf16" if bf16 else "corr_band"
-        kernels.check_inputs(name, left, right)
-        if left.dim() != 4 or left.shape != right.shape:
-            raise ValueError(
-                f"corr_band: left and right must be [B, H, W, C] of one "
-                f"shape, got {tuple(left.shape)} and {tuple(right.shape)}")
-        B, H, W, C = left.shape
-        mult = 8 if bf16 else 4   # 16 bytes
-        if C % mult or not 0 < max_disp <= D_MAX:
-            raise ValueError(
-                f"{name}: the kernel takes C a multiple of {mult} and "
-                f"0 < max_disp <= {D_MAX}, got C={C}, max_disp={max_disp}")
-        out = torch.empty((B, H, W, max_disp), dtype=left.dtype,
-                          device=left.device)
-        args = (left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W,
-                C, max_disp)
-        if bf16:
-            sms = torch.cuda.get_device_properties(
-                left.device).multi_processor_count
-            plan = corr_bf16_plan(B, H, W, C, max_disp, sms)
-            kernels.launch(name, left.device, *args, plan["warps"],
-                           plan["span"], plan["blocks"])
-            correlation_volume.bf16_launches += 1
-        else:
-            kernels.launch(name, left.device, *args)
-            correlation_volume.launches += 1
-        ctx.save_for_backward(left, right)
-        return out
+def _launch(left: torch.Tensor, right: torch.Tensor,
+            max_disp: int) -> torch.Tensor:
+    """One launch of the kernel (its bf16 form for bf16 features)."""
+    bf16 = left.dtype == torch.bfloat16
+    name = "corr_band_bf16" if bf16 else "corr_band"
+    kernels.check_inputs(name, left, right)
+    if left.dim() != 4 or left.shape != right.shape:
+        raise ValueError(
+            f"corr_band: left and right must be [B, H, W, C] of one "
+            f"shape, got {tuple(left.shape)} and {tuple(right.shape)}")
+    B, H, W, C = left.shape
+    mult = 8 if bf16 else 4   # 16 bytes
+    if C % mult or not 0 < max_disp <= D_MAX:
+        raise ValueError(
+            f"{name}: the kernel takes C a multiple of {mult} and "
+            f"0 < max_disp <= {D_MAX}, got C={C}, max_disp={max_disp}")
+    out = torch.empty((B, H, W, max_disp), dtype=left.dtype,
+                      device=left.device)
+    args = (left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W,
+            C, max_disp)
+    if bf16:
+        sms = torch.cuda.get_device_properties(
+            left.device).multi_processor_count
+        plan = corr_bf16_plan(B, H, W, C, max_disp, sms)
+        kernels.launch(name, left.device, *args, plan["warps"],
+                       plan["span"], plan["blocks"])
+        correlation_volume.bf16_launches += 1
+    else:
+        kernels.launch(name, left.device, *args)
+        correlation_volume.launches += 1
+    return out
 
-    @staticmethod
-    def backward(ctx, grad):
-        left, right = ctx.saved_tensors
-        if left.dtype == torch.bfloat16:
-            dleft, dright = correlation_volume_backward(
-                left.float(), right.float(), grad.float())
-            return dleft.to(left.dtype), dright.to(right.dtype), None
-        return (*correlation_volume_backward(left, right, grad), None)
+
+# the kernel's two forms as custom ops: the launch on CUDA tensors, the
+# plain version on CPU tensors
+corr_band_op = torch.library.custom_op(
+    f"{kernels.OPS}::corr_band", _launch, mutates_args=(),
+    device_types="cuda")
+corr_band_bf16_op = torch.library.custom_op(
+    f"{kernels.OPS}::corr_band_bf16", _launch, mutates_args=(),
+    device_types="cuda")
+
+
+def _fake(left, right, max_disp):
+    return left.new_empty((*left.shape[:3], max_disp))
+
+
+def _setup(ctx, inputs, output):
+    left, right, ctx.max_disp = inputs
+    ctx.save_for_backward(left, right)
+
+
+def _backward(ctx, grad):
+    """On the card the shift form (``correlation_volume_backward``); on the
+    CPU autograd of the plain version."""
+    left, right = ctx.saved_tensors
+    if left.device.type == "cpu":
+        return (*kernels.plain_vjp(correlation_volume_plain, (left, right),
+                                   grad, ctx.needs_input_grad,
+                                   ctx.max_disp), None)
+    return (*correlation_volume_backward(left, right, grad), None)
+
+
+for _def in (corr_band_op, corr_band_bf16_op):
+    _def.register_kernel("cpu")(correlation_volume_plain)
+    _def.register_fake(_fake)
+    _def.register_autograd(_backward, setup_context=_setup)
 
 
 def correlation_volume(left: torch.Tensor, right: torch.Tensor,
                        max_disp: int) -> torch.Tensor:
     """Correlation volume of NHWC features left, right [B, H, W, C] ->
-    [B, H, W, max_disp]. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    if left.device.type == "cpu" and right.device.type == "cpu":
-        return correlation_volume_plain(left, right, max_disp)
-    return _CorrBand.apply(left, right, max_disp)
+    [B, H, W, max_disp], through the op ``stereoformer::corr_band`` (or
+    ``corr_band_bf16`` for bf16 features): CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    op = corr_band_bf16_op if left.dtype == torch.bfloat16 else corr_band_op
+    return op(left, right, max_disp)
 
 
 correlation_volume.launches = 0

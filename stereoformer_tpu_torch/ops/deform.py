@@ -18,7 +18,8 @@ at 0, as JAX's do, so at integer offsets (the zero-initialised offset conv
 gives exactly 0) the offset gradient is JAX's exactly, and at +-R the clamp
 passes half.
 
-``deform_conv_fused`` is the windowed form without bias: CPU tensors take
+``deform_conv_fused`` is the windowed form without bias, the custom op
+``stereoformer::deform_sample`` (``deform_sample_op``): CPU tensors take
 the plain windowed form; CUDA tensors launch the fused kernel
 ``csrc/deform_sample.cu`` (x, offsets, mask and weight in, out out, tiled
 by the kernel's C entry) or raise, counting launches in
@@ -166,31 +167,6 @@ def modulated_deform_conv_windowed(x: torch.Tensor, offsets: torch.Tensor,
     return out if bias is None else out + bias
 
 
-class _DeformConvFused(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, offsets, mask, weight, kernel_size, padding,
-                dilation, window):
-        ctx.conf = (kernel_size, padding, dilation, window)
-        ctx.save_for_backward(x, offsets, mask, weight)
-        if x.device.type == "cpu":
-            return _windowed(x, offsets, mask, weight, *ctx.conf)
-        return deform_sample_launch(x, offsets, mask, weight, *ctx.conf)
-
-    @staticmethod
-    def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        want = [t is not None and need
-                for t, need in zip(saved, ctx.needs_input_grad)]
-        leaves = [t.detach().requires_grad_(w) if t is not None else None
-                  for t, w in zip(saved, want)]
-        with torch.enable_grad():
-            out = _windowed(*leaves, *ctx.conf)
-        wrt = [t for t, w in zip(leaves, want) if w]
-        got = iter(torch.autograd.grad(out, wrt, grad) if wrt else ())
-        return (*(next(got) if w else None for w in want),
-                None, None, None, None)
-
-
 def _windowed(x, offsets, mask, weight, kernel_size, padding, dilation,
               window):
     return modulated_deform_conv_windowed(
@@ -247,17 +223,53 @@ def deform_sample_launch(x, offsets, mask, weight, kernel_size=3, padding=1,
     return out
 
 
+def _launch(x: torch.Tensor, offsets: torch.Tensor,
+            mask: Optional[torch.Tensor], weight: torch.Tensor,
+            kernel_size: int, padding: int, dilation: int,
+            window: int) -> torch.Tensor:
+    return deform_sample_launch(x, offsets, mask, weight, kernel_size,
+                                padding, dilation, window)
+
+
+# the kernel as a custom op: the launch on CUDA tensors, the plain windowed
+# form on CPU tensors
+deform_sample_op = torch.library.custom_op(
+    f"{kernels.OPS}::deform_sample", _launch, mutates_args=(),
+    device_types="cuda")
+deform_sample_op.register_kernel("cpu")(_windowed)
+
+
+@deform_sample_op.register_fake
+def _(x, offsets, mask, weight, kernel_size, padding, dilation, window):
+    return x.new_empty((*offsets.shape[:3], weight.shape[-1]))
+
+
+def _setup(ctx, inputs, output):
+    ctx.conf = inputs[4:]
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _backward(ctx, grad):
+    return (*kernels.plain_vjp(_windowed, ctx.saved_tensors, grad,
+                               ctx.needs_input_grad, *ctx.conf),
+            None, None, None, None)
+
+
+deform_sample_op.register_autograd(_backward, setup_context=_setup)
+
+
 def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
                       mask: Optional[torch.Tensor], weight: torch.Tensor,
                       kernel_size: int = 3, padding: int = 1,
                       dilation: int = 1, window: int = 2) -> torch.Tensor:
     """The windowed modulated deformable conv at stride 1, without bias:
     x [B, H, W, C], offsets [B, Ho, Wo, K, 2], mask [B, Ho, Wo, K] or None,
-    weight [K*C, Co] or [K, C, Co] -> [B, Ho, Wo, Co] float32. CPU tensors
-    take the plain windowed form, CUDA tensors the fused kernel; the
-    gradient is autograd of the plain windowed form."""
-    return _DeformConvFused.apply(x, offsets, mask, weight, kernel_size,
-                                  padding, dilation, window)
+    weight [K*C, Co] or [K, C, Co] -> [B, Ho, Wo, Co] float32, through the
+    op ``stereoformer::deform_sample``: CPU tensors take the plain windowed
+    form, CUDA tensors the fused kernel; the gradient is autograd of the
+    plain windowed form."""
+    return deform_sample_op(x, offsets, mask, weight, kernel_size, padding,
+                            dilation, int(window))
 
 
 deform_conv_fused.launches = 0

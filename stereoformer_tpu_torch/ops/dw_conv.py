@@ -8,7 +8,8 @@ fused conv's backward calls for its weight gradient:
     dw[di, dj, c, co] = sum_{b, h, w} xp[b, h + di, w + dj, c] * g[b, h, w, co]
 
 x [B, H, W, C] (the conv's input), g [B, H, W, Co] (its output's cotangent),
-xp the zero-padded x; dw [3, 3, C, Co], all float32. CPU tensors take the
+xp the zero-padded x; dw [3, 3, C, Co], all float32, through the custom
+op ``stereoformer::conv2d_dw`` (``conv2d_dw_op``). CPU tensors take the
 plain version (``conv2d_dw_plain``); CUDA tensors launch the kernel
 ``csrc/conv2d_dw.cu`` or raise, counting launches in ``conv2d_dw.launches``.
 The kernel takes Co = 64 or 96, the fused conv's output widths, and C a
@@ -18,8 +19,9 @@ site ``nn/blocks.py::kernel_routes`` sends to the fused conv, RAFT's
 
 bf16 x and g give a bf16 dw, as the fused conv's bf16 backward takes it
 (the Pallas kernel's float32 sums cast to the bf16 weight by ``_dw``): the
-products summed in float32, one rounding. CPU tensors take the plain
-version of that form; CUDA tensors launch the kernel's bf16 form
+products summed in float32, one rounding, through the op
+``stereoformer::conv2d_dw_bf16``. CPU tensors take the plain version of
+that form; CUDA tensors launch the kernel's bf16 form
 (``conv2d_dw_bf16``, the same source, on the bf16 tensor cores: a block
 takes a slice of input channels and all nine taps and walks strips of
 columns down runs of rows, each staged row read once), counted in
@@ -81,12 +83,7 @@ def conv2d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, C, g.shape[-1])
 
 
-def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dw [3, 3, C, Co] of a stride-1 3x3 SAME conv with input x and output
-    cotangent g, of their dtype (float32 or bf16): the plain version on CPU
-    tensors, the kernel on CUDA tensors."""
-    if x.device.type == "cpu" and g.device.type == "cpu":
-        return conv2d_dw_plain(x, g)
+def _launch_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     bf16 = x.dtype == torch.bfloat16
     name = "conv2d_dw_bf16" if bf16 else "conv2d_dw"
     kernels.check_inputs(name, x, g)
@@ -107,6 +104,29 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     else:
         conv2d_dw.launches += 1
     return dw
+
+
+# the kernel and its bf16 form as custom ops (no gradient: they are a
+# backward)
+conv2d_dw_op = torch.library.custom_op(
+    f"{kernels.OPS}::conv2d_dw", _launch_op, mutates_args=(),
+    device_types="cuda")
+conv2d_dw_bf16_op = torch.library.custom_op(
+    f"{kernels.OPS}::conv2d_dw_bf16", _launch_op, mutates_args=(),
+    device_types="cuda")
+for _def in (conv2d_dw_op, conv2d_dw_bf16_op):
+    _def.register_kernel("cpu")(conv2d_dw_plain)
+    _def.register_fake(
+        lambda x, g: x.new_empty((3, 3, x.shape[3], g.shape[3])))
+
+
+def conv2d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw [3, 3, C, Co] of a stride-1 3x3 SAME conv with input x and output
+    cotangent g, of their dtype (float32 or bf16), through the op
+    ``stereoformer::conv2d_dw`` (or ``conv2d_dw_bf16``): the plain version
+    on CPU tensors, the kernel on CUDA tensors."""
+    op = conv2d_dw_bf16_op if x.dtype == torch.bfloat16 else conv2d_dw_op
+    return op(x, g)
 
 
 def _launch(name: str, x: torch.Tensor, g: torch.Tensor,

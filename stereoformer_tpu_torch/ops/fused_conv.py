@@ -15,8 +15,9 @@ layouts:
 
 x [B, H, W, C], w [3, 3, C, Co], b [Co], s and t [B, C], residual
 [B, H, W, Co]. The padding is zero whatever the prologue. Every call is one
-``_FusedConv`` autograd node: its forward takes the plain version
-(``conv3x3_plain``) on CPU tensors and launches the kernel
+call of the custom op ``stereoformer::conv2d_fused`` (``conv2d_fused_op``;
+without moments its two moment outputs are empty): it takes the plain
+version (``conv3x3_plain``) on CPU tensors and launches the kernel
 ``csrc/conv2d_fused.cu`` on CUDA tensors or raises, counting launches in
 ``conv2d_fused.launches`` (one count for all four entry points: they are one
 kernel). Its backward is ``fused_conv_backward``, the Pallas VJPs ``_bwd``,
@@ -30,7 +31,7 @@ every entry point, the Pallas kernel's at ``out_dtype`` bf16: the products
 summed in float32, the bias and the residual added and the ReLU applied in
 float32, one rounding to bf16; the prologue's relu(x*s + t), x*s + t one
 FMA, rounded to bf16 before the conv; the moments float32, of the rounded
-outputs. CPU tensors
+outputs, through the op ``stereoformer::conv2d_fused_bf16``. CPU tensors
 take its plain version; CUDA tensors launch ``conv2d_fused_forward_bf16``
 (the same source, its own mainloop on the bf16 tensor cores), counted in
 ``conv2d_fused.bf16_launches``. Its backward rounds where the Pallas VJPs
@@ -185,13 +186,11 @@ def _launch(x, w, b, residual, s, t, relu, with_stats):
 
 def _dx_conv(g, w_rot, zero):
     """The dx conv of the backward: the fused conv of the cotangent with
-    the flipped, io-transposed weights and no bias, plain on CPU tensors;
-    on CUDA tensors a launch of the kernel, its bf16 form counted also in
-    ``conv2d_fused.bf16_dx_launches``."""
-    if g.device.type == "cpu":
-        return conv3x3_plain(g, w_rot, zero)
-    y = _launch(g, w_rot, zero, None, None, None, False, False)
-    if g.dtype == torch.bfloat16:
+    the flipped, io-transposed weights and no bias, through the op (plain
+    on CPU tensors, a launch of the kernel on CUDA tensors, its bf16 form
+    counted also in ``conv2d_fused.bf16_dx_launches``)."""
+    y = _op(g.dtype)(g, w_rot, zero, None, None, None, False, False)[0]
+    if g.device.type != "cpu" and g.dtype == torch.bfloat16:
         conv2d_fused.bf16_dx_launches += 1
     return y
 
@@ -251,33 +250,78 @@ def fused_conv_backward(x, w, y, gy, gs1=None, gs2=None, s=None, t=None,
     return dx, dw, db, dres, ds, dt
 
 
-class _FusedConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b, residual, s, t, relu, with_stats):
-        if all(a.device.type == "cpu" for a in (x, w, b)):
-            out = conv3x3_plain(x, w, b, residual, relu, s, t, with_stats)
-        else:
-            out = _launch(x, w, b, residual, s, t, relu, with_stats)
-        y = out[0] if with_stats else out
-        ctx.relu, ctx.has_residual = relu, residual is not None
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, w, s, t, y if relu or with_stats else None)
-        return out
+def _plain(x, w, b, residual, s, t, relu, with_stats):
+    out = conv3x3_plain(x, w, b, residual, relu, s, t, with_stats)
+    return out if with_stats else (out, *_no_stats(x))
 
-    @staticmethod
-    def backward(ctx, gy, gs1=None, gs2=None):
-        x, w, s, t, y = ctx.saved_tensors
-        grads = fused_conv_backward(x, w, y, gy, gs1, gs2, s, t, ctx.relu,
-                                    ctx.has_residual, ctx.needs_input_grad[:6])
-        return (*grads, None, None)
+
+def _no_stats(x):
+    """The moments' outputs of a call without moments: two empty tensors
+    (an op returns a fixed number of tensors)."""
+    return tuple(x.new_empty((0,), dtype=torch.float32) for _ in range(2))
+
+
+def _launch_op(x, w, b, residual, s, t, relu, with_stats):
+    out = _launch(x, w, b, residual, s, t, relu, with_stats)
+    return out if with_stats else (out, *_no_stats(x))
+
+
+_SIGNATURE = dict(mutates_args=(), device_types="cuda",
+                  schema="(Tensor x, Tensor w, Tensor b, Tensor? residual, "
+                         "Tensor? s, Tensor? t, bool relu, bool with_stats) "
+                         "-> (Tensor, Tensor, Tensor)")
+conv2d_fused_op = torch.library.custom_op(
+    f"{kernels.OPS}::conv2d_fused", _launch_op, **_SIGNATURE)
+conv2d_fused_bf16_op = torch.library.custom_op(
+    f"{kernels.OPS}::conv2d_fused_bf16", _launch_op, **_SIGNATURE)
+
+
+def _op(dtype):
+    """The op of a conv of ``dtype``."""
+    return conv2d_fused_bf16_op if dtype == torch.bfloat16 else conv2d_fused_op
+
+
+def _fake(x, w, b, residual, s, t, relu, with_stats):
+    y = x.new_empty((*x.shape[:3], w.shape[3]))
+    if not with_stats:
+        return (y, *_no_stats(x))
+    return (y, *(x.new_empty((x.shape[0], w.shape[3]), dtype=torch.float32)
+                 for _ in range(2)))
+
+
+def _setup(ctx, inputs, output):
+    x, w, b, residual, s, t, relu, with_stats = inputs
+    ctx.relu, ctx.has_residual = relu, residual is not None
+    ctx.with_stats = with_stats
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, w, s, t,
+                          output[0] if relu or with_stats else None)
+
+
+def _backward(ctx, gy, gs1, gs2):
+    x, w, s, t, y = ctx.saved_tensors
+    if not ctx.with_stats:
+        gs1 = gs2 = None   # the empty moments' outputs
+    grads = fused_conv_backward(x, w, y, gy, gs1, gs2, s, t, ctx.relu,
+                                ctx.has_residual, ctx.needs_input_grad[:6])
+    return (*grads, None, None)
+
+
+for _def in (conv2d_fused_op, conv2d_fused_bf16_op):
+    _def.register_kernel("cpu")(_plain)
+    _def.register_fake(_fake)
+    _def.register_autograd(_backward, setup_context=_setup)
 
 
 def conv3x3_fused(x, w, b, residual=None, relu=False, s=None, t=None,
                   with_stats=False):
     """Every entry point in one differentiable call, with ``conv3x3_plain``'s
-    arguments: the plain version on CPU tensors, the kernel on CUDA
-    tensors; the backward is ``fused_conv_backward`` on either."""
-    return _FusedConv.apply(x, w, b, residual, s, t, relu, with_stats)
+    arguments, through the op ``stereoformer::conv2d_fused`` (or
+    ``conv2d_fused_bf16`` for a bf16 x): the plain version on CPU tensors,
+    the kernel on CUDA tensors; the backward is ``fused_conv_backward`` on
+    either."""
+    y, s1, s2 = _op(x.dtype)(x, w, b, residual, s, t, relu, with_stats)
+    return (y, s1, s2) if with_stats else y
 
 
 def conv2d_fused(x, w, b, residual=None, relu: bool = True):

@@ -6,13 +6,16 @@ Counterpart of ``stereoformer_tpu/ops/local_volume.py`` (``make_candidates``,
 ``variance_local_cost_volume``) and of its Pallas kernel
 ``ops/pallas/local_refine.py::fused_local_soft_argmin``.
 
-``local_soft_argmin`` takes the plain version for CPU tensors, whose autograd
-gives the same gradient as JAX's (the clip's tie at a bound meets a hat
-derivative of 0 there, so no tie mask is needed). For CUDA tensors it
-launches the CUDA kernel ``csrc/local_soft_argmin.cu`` and, for the gradient,
-``csrc/local_soft_argmin_bwd.cu`` (the Pallas ``_backward``), counting
-launches in ``local_soft_argmin.launches`` and
-``local_soft_argmin.backward_launches``.
+``local_soft_argmin`` calls the custom op ``stereoformer::local_soft_argmin``
+(``local_soft_argmin_op``): the plain version for CPU tensors, whose
+autograd is its gradient there and gives the same gradient as JAX's (the
+clip's tie at a bound meets a hat derivative of 0 there, so no tie mask is
+needed). For CUDA tensors it launches the CUDA kernel
+``csrc/local_soft_argmin.cu`` and, for the gradient, the op
+``stereoformer::local_soft_argmin_bwd``, the kernel
+``csrc/local_soft_argmin_bwd.cu`` (the Pallas ``_backward``; on CPU tensors
+its closed form ``local_soft_argmin_backward_plain``), counting launches in
+``local_soft_argmin.launches`` and ``local_soft_argmin.backward_launches``.
 """
 
 from __future__ import annotations
@@ -106,56 +109,94 @@ def local_soft_argmin_backward_plain(volume: torch.Tensor,
     return dvolume, g * score + dc * cg
 
 
-class _LocalSoftArgmin(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, volume, candidates):
-        kernels.check_inputs("local_soft_argmin", volume, candidates)
-        if (volume.dim() != 4 or candidates.dim() != 4
-                or volume.shape[:3] != candidates.shape[:3]):
-            raise ValueError(
-                f"local_soft_argmin: volume [B, H, W, D] and candidates "
-                f"[B, H, W, S] must share B, H, W, got {tuple(volume.shape)} "
-                f"and {tuple(candidates.shape)}")
-        B, H, W, D = volume.shape
-        S = candidates.shape[-1]
-        if S > S_MAX or D > D_MAX:
-            raise ValueError(
-                f"local_soft_argmin: the kernel takes S <= {S_MAX} and "
-                f"D <= {D_MAX}, got S={S}, D={D}")
-        out = torch.empty((B, H, W, 1), dtype=torch.float32,
-                          device=volume.device)
-        kernels.launch("local_soft_argmin", volume.device, volume.data_ptr(),
-                       candidates.data_ptr(), out.data_ptr(), B * H * W, D, S)
-        local_soft_argmin.launches += 1
-        ctx.save_for_backward(volume, candidates)
-        return out
+def _launch(volume: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel ``local_soft_argmin``."""
+    kernels.check_inputs("local_soft_argmin", volume, candidates)
+    if (volume.dim() != 4 or candidates.dim() != 4
+            or volume.shape[:3] != candidates.shape[:3]):
+        raise ValueError(
+            f"local_soft_argmin: volume [B, H, W, D] and candidates "
+            f"[B, H, W, S] must share B, H, W, got {tuple(volume.shape)} "
+            f"and {tuple(candidates.shape)}")
+    B, H, W, D = volume.shape
+    S = candidates.shape[-1]
+    if S > S_MAX or D > D_MAX:
+        raise ValueError(
+            f"local_soft_argmin: the kernel takes S <= {S_MAX} and "
+            f"D <= {D_MAX}, got S={S}, D={D}")
+    out = torch.empty((B, H, W, 1), dtype=torch.float32,
+                      device=volume.device)
+    kernels.launch("local_soft_argmin", volume.device, volume.data_ptr(),
+                   candidates.data_ptr(), out.data_ptr(), B * H * W, D, S)
+    local_soft_argmin.launches += 1
+    return out
 
-    @staticmethod
-    def backward(ctx, grad):
-        volume, candidates = ctx.saved_tensors
-        g = grad.contiguous()
-        kernels.check_inputs("local_soft_argmin_bwd", volume,
-                             candidates, g)
-        dvolume = torch.empty_like(volume)
-        dcandidates = torch.empty_like(candidates)
-        B, H, W, D = volume.shape
-        kernels.launch("local_soft_argmin_bwd", volume.device,
-                       volume.data_ptr(), candidates.data_ptr(), g.data_ptr(),
-                       dvolume.data_ptr(), dcandidates.data_ptr(), B * H * W,
-                       D, candidates.shape[-1])
-        local_soft_argmin.backward_launches += 1
-        return dvolume, dcandidates
+
+def _launch_bwd(volume: torch.Tensor, candidates: torch.Tensor,
+                g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel ``local_soft_argmin_bwd``: (dvolume,
+    dcandidates) from the output's cotangent g [B, H, W, 1]."""
+    kernels.check_inputs("local_soft_argmin_bwd", volume, candidates, g)
+    dvolume = torch.empty_like(volume)
+    dcandidates = torch.empty_like(candidates)
+    B, H, W, D = volume.shape
+    kernels.launch("local_soft_argmin_bwd", volume.device,
+                   volume.data_ptr(), candidates.data_ptr(), g.data_ptr(),
+                   dvolume.data_ptr(), dcandidates.data_ptr(), B * H * W,
+                   D, candidates.shape[-1])
+    local_soft_argmin.backward_launches += 1
+    return dvolume, dcandidates
+
+
+# the kernels as custom ops: the launch on CUDA tensors, the plain version
+# on CPU tensors
+local_soft_argmin_op = torch.library.custom_op(
+    f"{kernels.OPS}::local_soft_argmin", _launch, mutates_args=(),
+    device_types="cuda")
+local_soft_argmin_bwd_op = torch.library.custom_op(
+    f"{kernels.OPS}::local_soft_argmin_bwd", _launch_bwd, mutates_args=(),
+    device_types="cuda")
+local_soft_argmin_op.register_kernel("cpu")(local_soft_argmin_plain)
+local_soft_argmin_bwd_op.register_kernel("cpu")(
+    local_soft_argmin_backward_plain)
+
+
+@local_soft_argmin_op.register_fake
+def _(volume, candidates):
+    return volume.new_empty((*volume.shape[:3], 1))
+
+
+@local_soft_argmin_bwd_op.register_fake
+def _(volume, candidates, g):
+    return torch.empty_like(volume), torch.empty_like(candidates)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad):
+    """On the card the backward kernel; on the CPU autograd of the plain
+    version."""
+    volume, candidates = ctx.saved_tensors
+    if volume.device.type == "cpu":
+        return kernels.plain_vjp(local_soft_argmin_plain,
+                                 (volume, candidates), grad,
+                                 ctx.needs_input_grad)
+    return local_soft_argmin_bwd_op(volume, candidates, grad.contiguous())
+
+
+local_soft_argmin_op.register_autograd(_backward, setup_context=_setup)
 
 
 def local_soft_argmin(volume: torch.Tensor,
                       candidates: torch.Tensor) -> torch.Tensor:
     """Re-sample + softmax + expectation over the candidates: volume
-    [B, H, W, D], candidates [B, H, W, S] -> disparity [B, H, W, 1]. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (and the
-    backward kernel for the gradient) or raise."""
-    if volume.device.type == "cpu" and candidates.device.type == "cpu":
-        return local_soft_argmin_plain(volume, candidates)
-    return _LocalSoftArgmin.apply(volume, candidates)
+    [B, H, W, D], candidates [B, H, W, S] -> disparity [B, H, W, 1], through
+    the op ``stereoformer::local_soft_argmin``: CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and the backward kernel for the
+    gradient) or raise."""
+    return local_soft_argmin_op(volume, candidates)
 
 
 local_soft_argmin.launches = 0

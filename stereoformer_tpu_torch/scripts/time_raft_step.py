@@ -1,4 +1,5 @@
-"""Time the RAFT_Stereo train step on the card, for checkouts side by side.
+"""Time the RAFT_Stereo train step on the card, for checkouts side by side,
+and beside it RAFT_Stereo's eval and the LowCNN_gru train step.
 
     python3 stereoformer_tpu_torch/scripts/time_raft_step.py [ROOT ...]
 
@@ -10,10 +11,14 @@ lr 2e-4, one batch from seed 4), with random weights from torch seed 0.
 Every root runs this one protocol, so an older checkout is timed on the
 same work. One step warms up and builds the kernels; then ms per step by
 CUDA events (``chip_smoke.time_ms``) over 6 steps with cuDNN's TF32 on and
-over 3 with it off. Prints one JSON line per root. To compare two versions
-on one card, give their roots as parent, change, change, parent. Run it by
-path, not with ``-m``, so that each process imports the checkout it is
-given.
+over 3 with it off. Then, with TF32 convs, RAFT's eval forward at 576x960,
+B=2, 12 iterations, test_mode (ms per batch over 20 forwards) and the
+LowCNN_gru train step at 320x640, B=4, 12 iterations, sequence loss,
+AMSGrad lr 1e-3 (ms per step over 20 steps): the paths whose host work
+is the kernels' dispatch. Prints one JSON line per root. To compare two
+versions on one card, give their roots as parent, change, change, parent.
+Run it by path, not with ``-m``, so that each process imports the checkout
+it is given.
 """
 
 from __future__ import annotations
@@ -48,7 +53,43 @@ def time_root(root: str) -> dict:
         torch.backends.cudnn.allow_tf32 = tf32
         key = "tf32_convs_ms" if tf32 else "strict_f32_ms"
         out[key] = smoke.time_ms(lambda: step(state, data), reps, warmup=1)
+    torch.backends.cudnn.allow_tf32 = True
+    del state, step, data
+    out["raft_eval_b2_ms"] = _raft_eval_ms(smoke)
+    out["lowcnn_gru_step_b4_ms"] = _lowcnn_step_ms(smoke)
     return out
+
+
+def _raft_eval_ms(smoke) -> float:
+    import torch
+
+    from stereoformer_tpu_torch.models import get_model
+
+    model = get_model("RAFT_Stereo", device="cuda")
+    rng = smoke.np.random.default_rng(0)
+    left, right = (smoke.randn(rng, 2, smoke.H, smoke.W, 3)
+                   for _ in range(2))
+
+    def forward():
+        with torch.inference_mode():
+            model(left, right, iters=smoke.ITERS, test_mode=True)
+
+    return smoke.time_ms(forward, 20, warmup=2)
+
+
+def _lowcnn_step_ms(smoke) -> float:
+    from stereoformer_tpu_torch.models import get_model
+    from stereoformer_tpu_torch.train import (
+        Amsgrad,
+        TrainState,
+        make_train_step,
+    )
+
+    tx = Amsgrad(smoke.LR)
+    state = TrainState.create(get_model("LowCNN_gru", device="cuda"), tx)
+    step = make_train_step(tx, "sequence", iters=smoke.ITERS)
+    data = smoke.train_batch(3, 4, smoke.TRAIN_H, smoke.TRAIN_W)
+    return smoke.time_ms(lambda: step(state, data), 20, warmup=2)
 
 
 def main(argv=None) -> int:

@@ -169,19 +169,17 @@ def test_corr_band_plain_bf16_within_one_ulp_of_jax(shape, D):
 
 
 def test_corr_band_bf16_backward_raises():
-    """The bf16 backward no longer raises: the kernel's autograd node (the
-    card's backward) on a bf16 cotangent takes the shift sums in float32 on
-    the widened features and rounds dleft and dright to bf16 once; the
-    plain version's autograd (the CPU's) gives the same bits. Against the
-    Pallas VJP in ``test_torch_bf16_train_ops.py``."""
+    """The bf16 backward no longer raises: the card's backward
+    (``correlation_volume_backward``) on a bf16 cotangent takes the shift
+    sums in float32 on the widened features and rounds dleft and dright to
+    bf16 once; the plain version's autograd (the CPU's) gives the same
+    bits. Against the Pallas VJP in ``test_torch_bf16_train_ops.py``."""
     rng = np.random.default_rng(3)
     left, right = (_t(rng.standard_normal((1, 2, 16, 8))).to(BF)
                    for _ in range(2))
     grad = _t(rng.standard_normal((1, 2, 16, 4))).to(BF)
-    from stereoformer_tpu_torch.ops.cost_volume import _CorrBand
-    dl, dr, none = _CorrBand.backward(
-        type("Ctx", (), {"saved_tensors": (left, right)}), grad)
-    assert none is None and dl.dtype == dr.dtype == BF
+    dl, dr = ops.correlation_volume_backward(left, right, grad)
+    assert dl.dtype == dr.dtype == BF
     want = ops.correlation_volume_backward(left.float(), right.float(),
                                            grad.float())
     assert torch.equal(dl, want[0].to(BF)) and torch.equal(dr, want[1].to(BF))

@@ -9,7 +9,7 @@ The float32 gradients (the prologue's s and t) are held to the same bound.
 - ``corr_band``: the VJP of the interpreted Pallas ``corr_band`` on bf16
   features (its ``_bwd``: the cotangent widened and divided by C, the
   shift sums in float32, dleft and dright each cast once), against the
-  port's autograd node ``_CorrBand.backward``, the one the card runs, and
+  port's ``correlation_volume_backward``, the backward the card runs, and
   against autograd of the plain version, the one the CPU runs.
 - ``conv2d_fused``: every entry's VJP (plain, residual + ReLU, prologue
   with and without ReLU, the moments, the prologue with the moments) of the
@@ -46,7 +46,6 @@ from stereoformer_tpu.ops.pallas.corr_band import corr_band  # noqa: E402
 from stereoformer_tpu.ops.pallas.dw_conv import conv2d_dw_pallas  # noqa: E402
 from stereoformer_tpu_torch import ops  # noqa: E402
 from stereoformer_tpu_torch.nn import bf16  # noqa: E402
-from stereoformer_tpu_torch.ops.cost_volume import _CorrBand  # noqa: E402
 from stereoformer_tpu_torch.ops.fused_conv import (  # noqa: E402
     conv3x3_fused,
     fused_conv_backward,
@@ -77,11 +76,6 @@ def _within_one_ulp_of_largest(got, want, label):
 
 # --- corr_band --------------------------------------------------------------
 
-class _Ctx:
-    def __init__(self, *saved):
-        self.saved_tensors = saved
-
-
 @pytest.mark.parametrize("shape,D", [((2, 5, 40, 64), 24),
                                      ((1, 3, 70, 16), 50)])
 def test_corr_band_bf16_backward_matches_pallas_vjp(shape, D):
@@ -95,8 +89,7 @@ def test_corr_band_bf16_backward_matches_pallas_vjp(shape, D):
     assert all(w.dtype == jnp.bfloat16 for w in want)
 
     lt, rt, gt = (torch.from_numpy(a).to(BF) for a in (left, right, g))
-    node = _CorrBand.backward(_Ctx(lt, rt), gt)
-    assert node[2] is None
+    node = ops.correlation_volume_backward(lt, rt, gt)
     lp, rp = (t.clone().requires_grad_(True) for t in (lt, rt))
     ops.correlation_volume(lp, rp, D).backward(gt)
     for got, label in ((node[:2], "node"), ((lp.grad, rp.grad), "plain")):

@@ -1362,3 +1362,120 @@ def test_bf16_train_steps_launch_the_bf16_forms(cuda_device):
         assert np.isfinite(float(m["loss"]))
         for k, p in model.named_parameters():
             assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), k
+
+
+# --- the kernels as custom ops, and the export ------------------------------
+
+# each op's opcheck case: the op's entry form, built on the card by
+# ``_op_case`` (the device is known only inside the test)
+OP_CASES = ["corr_band", "corr_band_bf16", "local_soft_argmin",
+            "local_soft_argmin_bwd", "conv2d_dw", "conv2d_dw_bf16",
+            "deform_sample", "deform_sample-no-mask"] + [
+    f"conv2d_fused{bf}-{v}" for bf in ("", "_bf16")
+    for v in ("bare", "res-relu", "prologue", "stats", "prologue-stats")]
+
+
+def _op_case(case, rng, device):
+    """(op, args) of an opcheck case, at widths the kernels take."""
+    from stereoformer_tpu_torch.ops import (
+        cost_volume, deform, dw_conv, fused_conv, local_volume)
+
+    def t(*shape, dtype=torch.float32, grad=False):
+        return _randn(rng, shape, device).to(dtype).requires_grad_(grad)
+
+    bf = torch.bfloat16
+    if case.startswith("corr_band"):
+        dt = bf if case.endswith("bf16") else torch.float32
+        op = (cost_volume.corr_band_bf16_op if dt == bf
+              else cost_volume.corr_band_op)
+        return op, (t(2, 3, 40, 16, dtype=dt, grad=True),
+                    t(2, 3, 40, 16, dtype=dt, grad=True), 24)
+    if case.startswith("local_soft_argmin"):
+        vol = t(2, 5, 40, 24, grad=True)
+        cands = _edge_candidates(rng, (2, 5, 40, 21), device)
+        if case.endswith("bwd"):
+            return local_volume.local_soft_argmin_bwd_op, (
+                vol.detach(), cands, t(2, 5, 40, 1))
+        return local_volume.local_soft_argmin_op, (
+            vol, cands.requires_grad_(True))
+    if case.startswith("conv2d_dw"):
+        dt = bf if case.endswith("bf16") else torch.float32
+        op = dw_conv.conv2d_dw_bf16_op if dt == bf else dw_conv.conv2d_dw_op
+        return op, (t(2, 9, 40, 64, dtype=dt), t(2, 9, 40, 64, dtype=dt))
+    if case.startswith("deform_sample"):
+        x, off, mask, w = _deform_inputs(rng, (2, 12, 40, 16, 16), 1.8,
+                                         device)
+        mask = None if case.endswith("no-mask") else mask.requires_grad_(True)
+        return deform.deform_sample_op, (
+            x.requires_grad_(True), off.requires_grad_(True), mask,
+            w.requires_grad_(True), 3, 1, 1, 2)
+    dt = bf if "_bf16" in case else torch.float32
+    variant = case.split("-", 1)[1]
+    x, w, b, s, t_, r = (a.to(dt) if a.dim() != 2 else a for a in
+                         _conv_inputs(rng, (2, 9, 40, 64, 64), device))
+    residual = r if variant == "res-relu" else None
+    pro = variant.startswith("prologue")
+    args = [x, w, b, residual, s if pro else None, t_ if pro else None,
+            variant == "res-relu", variant.endswith("stats")]
+    return fused_conv._op(dt), tuple(
+        a.requires_grad_(True) if isinstance(a, torch.Tensor) else a
+        for a in args)
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_opcheck_on_the_card(cuda_device, case):
+    """torch.library.opcheck of each op on CUDA tensors: the schema, the
+    autograd registration, the fake outputs against the kernel's (shapes,
+    dtypes, strides) and the op traced with dynamic shapes through its
+    forward and backward, which launch the kernels."""
+    op, args = _op_case(case, np.random.default_rng(40), cuda_device)
+    torch.library.opcheck(op, args)
+
+
+def _kernel_counts():
+    return {"corr_band": ops.correlation_volume.launches,
+            "corr_band_bf16": ops.correlation_volume.bf16_launches,
+            "local_soft_argmin": ops.local_soft_argmin.launches,
+            "conv2d_fused": ops.conv2d_fused.launches,
+            "deform_sample": ops.deform_conv_fused.launches}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("LowCNN_gru", {"corr_band": 1, "local_soft_argmin": 2}),
+    ("RAFT_Stereo", {"conv2d_fused": 14}),
+    ("LowCNN_dynamic", {"corr_band": 1, "local_soft_argmin": 1,
+                        "deform_sample": 1})])
+def test_exported_model_is_the_live_model_on_the_card(cuda_device, name,
+                                                      want, tmp_path):
+    """An artifact exported on the card with a symbolic batch, saved and
+    loaded, runs at B=1 and B=3 bit-equal to the live model, launches the
+    same kernels, as many times, and dispatches the same aten ops (no
+    layout copy added; ``test_torch_export.OpCounts``)."""
+    from stereoformer_tpu_torch import export as sfx
+    from stereoformer_tpu_torch.models import get_model
+    from test_torch_export import OpCounts
+
+    H_, W_, iters = 64, 128, 2
+    model = get_model(name, device=cuda_device)
+    path = str(tmp_path / "a.pt2")
+    sfx.save_exported(sfx.export_model(model, H_, W_, iters=iters), path)
+    loaded = sfx.load_exported(path)
+    want = dict(dict.fromkeys(_kernel_counts(), 0), **want)
+    rng = np.random.default_rng(41)
+    for b in (1, 3):
+        left = _randn(rng, (b, H_, W_, 3), cuda_device)
+        right = _randn(rng, (b, H_, W_, 3), cuda_device)
+        runs = []
+        for run in (lambda: sfx.make_infer_fn(model, iters)(left, right),
+                    lambda: sfx.infer_exported(loaded, left, right)):
+            before = _kernel_counts()
+            with torch.inference_mode(), OpCounts() as aten:
+                out = run()
+            torch.cuda.synchronize()
+            runs.append((out, {k: v - before[k]
+                               for k, v in _kernel_counts().items()},
+                         aten.counts))
+        (live, live_n, live_ops), (got, got_n, got_ops) = runs
+        assert live_n == got_n == want, (b, live_n, got_n)
+        assert got_ops == live_ops, b
+        assert got.shape == (b, H_, W_, 1) and torch.equal(got, live)

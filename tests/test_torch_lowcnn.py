@@ -247,7 +247,9 @@ for mod in ("stereoformer_tpu_torch", "stereoformer_tpu_torch.ops",
             "stereoformer_tpu_torch.nn.conv",
             "stereoformer_tpu_torch.nn.deform",
             "stereoformer_tpu_torch.nn.gru",
-            "stereoformer_tpu_torch.nn.residual"):
+            "stereoformer_tpu_torch.nn.residual",
+            "stereoformer_tpu_torch.export",
+            "stereoformer_tpu_torch.cli.export"):
     importlib.import_module(mod)
 left = sorted(m for m in sys.modules if blocked(m))
 assert not left, left
