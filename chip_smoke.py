@@ -17,7 +17,9 @@ any failure exits nonzero and prints no result:
    in {50, 96, 256}, with W below D and W that no 32-pixel tile divides),
    corr_band's backward (torch ops) against autograd of its plain version,
    conv2d_fused in every variant, conv2d_dw against float64 sums at RAFT's
-   four training shapes (and bit-equal to itself on a second call), the
+   four training shapes (and bit-equal to itself on a second call), both
+   also at Co = 128 (RAFT's 96 -> 128 layer3 entry at downsample=0, a
+   128 -> 128 site of auto_max_c=128, ragged edges), the
    fused conv's backward (conv2d_fused for dx, conv2d_dw for dw, torch ops
    for the rest) in all six variants against autograd of its plain version,
    deform_sample (the fused kernel: x, offsets, mask and weight in) against
@@ -154,8 +156,10 @@ any failure exits nonzero and prints no result:
    at edge shapes (W below D, ragged W, C = 72 and 8, D in spans: 1024,
    256, 200; W one pixel past a 64- and a 128-pixel tile; its registers and
    its plan beside its times) and every conv2d_fused entry at RAFT's four
-   eval sites and at edge shapes (H and W off its tile, C = 72, Co 64 and
-   96 from C 64, 72 or 96), each timed at the main path's shapes by graph
+   eval sites, at the Co = 128 sites (RAFT's 96 -> 128 layer3 entry at
+   downsample=0, a 128 -> 128 site of auto_max_c=128) and at edge shapes
+   (H and W off its tile, C = 72, Co 64, 96 and 128 from C 64, 72 or 96),
+   each timed at the main path's shapes by graph
    replay beside its bound (bytes at the HBM rate or operations at the bf16
    tensor-core rate), its plain version and the library (cuDNN's F.conv2d
    with bias in bf16, and the kernel/cuDNN ratio; none for corr_band);
@@ -175,7 +179,9 @@ any failure exits nonzero and prints no result:
    bf16 form of conv2d_dw) against the plain version on float64 copies of
    the same bf16 inputs, rounded once, and the bf16 backward's dx conv
    (conv2d_fused_bf16 on the flipped weights) against its plain version
-   (TF32 off), at RAFT's four train sites and at edge shapes, each within
+   (TF32 off), at RAFT's four train sites, at the Co = 128 sites (the
+   96 -> 128 entry at downsample=0, a 128 -> 128 site of auto_max_c=128)
+   and at edge shapes, each within
    one bf16 ulp per output (or near 0 the float32 sums' own error) and
    bit-equal to itself on a second call; the bf16 train step at bench.py's
    widths: LowCNN_gru at 320x640, B=4 and B=8, RAFT_Stereo at 320x720,
@@ -213,12 +219,18 @@ any failure exits nonzero and prints no result:
    conv2d_fused_bf16, 14 of them dx, and 14 conv2d_dw_bf16); downsample=1
    eval at 576x960, B=2 (16 launches: its 64 -> 96 layer2 entry routed
    too) and its float32 train step at B=1 (32 conv2d_fused and 16
-   conv2d_dw launches); both sets' eval and the downsample=3 train step on
-   the card against the CPU port at 64x128 with moderate weights, TF32 off
-   (phase 13's bounds); conv2d_fused, its dx and conv2d_dw at the sites the
-   sets move (1/2 and 1/4 at downsample=3, layer2 and its 64 -> 96 entry at
-   full resolution at downsample=1), each timed beside its bounds and
-   cuDNN;
+   conv2d_dw launches); downsample=0 eval at 576x960, B=2, in float32 and
+   bf16 (18 launches: layer3's 96 -> 128 entry routed too) and its train
+   step at B=1 in both dtypes (36 conv2d_fused and 18 conv2d_dw launches,
+   or 36 conv2d_fused_bf16, 18 of them dx, and 18 conv2d_dw_bf16), peak
+   memory beside each step; the three sets' eval and the downsample=3
+   train step on the card against the CPU port at 64x128 with moderate
+   weights, TF32 off (phase 13's bounds); conv2d_fused, its dx and
+   conv2d_dw at the sites the sets move (1/2 and 1/4 at downsample=3,
+   layer2 and its 64 -> 96 entry at full resolution at downsample=1, the
+   96 -> 128 layer3 entry at downsample=0) and at the 128 -> 128 layer3
+   sites that auto_max_c=128 would route, in both forms, each timed
+   beside its bounds and cuDNN;
 20. the library modules no model calls, at full width, each on the card
    against the CPU port on the same inputs (TF32 off; the CPU on the first
    samples where the module runs each sample alone) and timed:
@@ -269,9 +281,11 @@ any failure exits nonzero and prints no result:
 
 Phase 3 holds conv2d_fused against its plain version (TF32 off) in all four
 variants (plain, prologue, moments, prologue and moments) and with residual
-and ReLU, at the four shapes RAFT eval at B=2 gives it and at edge shapes (H
-and W tails, odd widths, C=64 and C=96), and the moments of an output whose
-variance is 0 (a prologue that zeroes every input).
+and ReLU, at the four shapes RAFT eval at B=2 gives it, at the Co = 96 and
+Co = 128 entries of downsample 1 and 0, at a 128 -> 128 site and at edge
+shapes (H and W tails, odd widths, C=64, 72 and 96, Co 64, 96 and 128), and
+the moments of an output whose variance is 0 (a prologue that zeroes every
+input).
 
 With --json, everything measured (and the profiles' top kernels) is also
 written to PATH.
@@ -864,8 +878,12 @@ def check_conv_kernel(ops, rng) -> float:
     # and the variance S2/n - (S1/n)^2 the norm takes, relative to itself
     m_rtol, var_rtol = 1e-5, 1e-4
     shapes = [(B_, H_, W_, C_, C_) for B_, H_, W_, C_ in RAFT_CONVS.values()]
-    # and RAFT's 64 -> 96 layer2 entry at downsample=1 (the context net's)
-    shapes.append(RAFT_DS1_CONVS["cnet layer2 entry"])
+    # and RAFT's 64 -> 96 layer2 entry at downsample=1, its 96 -> 128
+    # layer3 entry at downsample=0 and a 128 -> 128 site of auto_max_c=128
+    # (the context net's)
+    shapes += [RAFT_DS1_CONVS["cnet layer2 entry"],
+               RAFT_DS0_CONVS["cnet layer3 entry"],
+               AUTO128_CONVS["cnet layer3"]]
     worst = 0.0
     print("conv2d_fused vs plain (TF32 off):", flush=True)
     for shape in shapes + EDGE_CONVS:
@@ -911,7 +929,7 @@ def check_conv_kernel(ops, rng) -> float:
 
 
 EDGE_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 64, 64), (1, 17, 45, 64, 64),
-              (1, 9, 33, 96, 96)]
+              (1, 9, 33, 96, 96), (1, 37, 53, 96, 128), (1, 17, 45, 72, 128)]
 
 
 def check_dw_kernel(ops, rng) -> float:
@@ -923,8 +941,12 @@ def check_dw_kernel(ops, rng) -> float:
     # partials added in float64: relative to the largest |dw|
     rtol = 2e-5
     shapes = [(*v, v[3]) for v in RAFT_TRAIN_CONVS.values()]
-    # and RAFT's 64 -> 96 layer2 entry at downsample=1 (the context net's)
-    shapes.append(RAFT_DS1_TRAIN_CONVS["cnet layer2 entry"])
+    # and RAFT's 64 -> 96 layer2 entry at downsample=1, its 96 -> 128
+    # layer3 entry at downsample=0 (the context net's) and a 128 -> 128 site
+    # of auto_max_c=128
+    shapes += [RAFT_DS1_TRAIN_CONVS["cnet layer2 entry"],
+               RAFT_DS0_TRAIN_CONVS["cnet layer3 entry"],
+               AUTO128_TRAIN_CONVS["fnet layer3"]]
     worst = 0.0
     print("conv2d_dw vs float64 sums:", flush=True)
     for shape in shapes + EDGE_CONVS:
@@ -989,7 +1011,7 @@ def check_conv_backward(ops, rng) -> dict:
     worst: dict = {}
     print("fused conv backward vs autograd of conv3x3_plain in float64:",
           flush=True)
-    for shape in shapes + EDGE_CONVS[:2]:
+    for shape in shapes + EDGE_CONVS[:2] + EDGE_CONVS[4:5]:
         B_, H_, W_, C, Co = shape
         x, w, b, s, t, r = conv_inputs(rng, *shape)
         cy = randn(rng, B_, H_, W_, Co)
@@ -1754,12 +1776,12 @@ def conv_row(ops, rng, err, launches, record) -> dict:
 
 
 def fused_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
-               Co: int = None) -> dict:
+               Co: int = None, variant: str = None) -> dict:
     """conv2d_fused at one site [B_, H_, W_, C] -> Co (C where not given),
-    TF32 off: the device time of the variant the encoder runs there (the
-    feature net's prologue+stats, the context net's prologue), its plain
-    version's, cuDNN's F.conv2d with bias (TF32 off and on), and the bounds
-    (``conv_row``)."""
+    TF32 off: the device time of ``variant`` (``conv_calls``), by default
+    the one the encoder runs there most (the feature net's prologue+stats,
+    the context net's prologue), its plain version's, cuDNN's F.conv2d
+    with bias (TF32 off and on), and the bounds (``conv_row``)."""
     import torch.nn.functional as F
 
     from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
@@ -1767,7 +1789,8 @@ def fused_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
     Co = C if Co is None else Co
     torch.backends.cudnn.allow_tf32 = False
     x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, Co)
-    variant = "prologue+stats" if where.startswith("fnet") else "prologue"
+    variant = variant or ("prologue+stats" if where.startswith("fnet")
+                          else "prologue")
     kern, kw = conv_calls(ops, x, w, b, s, t, r)[variant]
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -1786,7 +1809,7 @@ def fused_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
            "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
            "bound_tf32_ms": max(t_bytes,
                                 nops / TF32_FLOPS_PER_S * 1e3),
-           "blocks": fused_blocks(B_, H_, W_, Co)}
+           "blocks": fused_blocks(B_, H_, W_, C, Co)}
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         key = "library_tf32_ms" if tf32 else "library_ms"
@@ -1808,10 +1831,12 @@ def dx_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
             Co: int = None) -> dict:
     """conv2d_fused as the backward's dx conv of a C -> Co conv (Co = C
     where not given) at [B_, H_, W_]: the cotangent [.., Co] with the
-    flipped, io-transposed weights and no bias, -> [.., C]. Its device
-    time, the plain version's, cuDNN's conv2d_input for the same gradient
-    (TF32 off and on), and the bounds (float32, 3xTF32 and one TF32 pass,
-    as in ``conv_row``)."""
+    flipped, io-transposed weights and no bias, -> [.., C]. Held against
+    the plain version (cuDNN, TF32 off) at check_conv_kernel's tolerance
+    and bit-equal to itself on a second call; its device time, the plain
+    version's, cuDNN's conv2d_input for the same gradient (TF32 off and
+    on), and the bounds (float32, 3xTF32 and one TF32 pass, as in
+    ``conv_row``)."""
     from torch.nn.grad import conv2d_input
 
     from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
@@ -1831,7 +1856,16 @@ def dx_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
     def kern():
         return ops.conv2d_fused(g, w_rot, zero, None, False)
 
+    torch.backends.cudnn.allow_tf32 = False
+    got, want = kern(), ops.conv3x3_plain(g, w_rot, zero)
+    label = f"conv2d_fused as dx {where} {[B_, H_, W_, C, Co]}"
+    # 3xTF32 sums in another order than cuDNN's: relative to the largest |dx|
+    err = compare(label, got, want, 1e-5 * want.abs().max().item())
+    if not torch.equal(kern(), got):
+        raise SmokeFailure(f"{label}: two calls differ")
+    del got, want
     row = {"shape": [B_, H_, W_, C, Co], "gflop": nops / 1e9,
+           "max_abs_err": err,
            "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
            "call_ms": time_ms(kern, 10),
            "plain_ms": graph_ms(
@@ -1840,7 +1874,7 @@ def dx_site(ops, rng, where: str, B_: int, H_: int, W_: int, C: int,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bound_tf32x3_ms": tf32x3_bound_ms(nbytes, nops),
            "bound_tf32_ms": max(t_bytes, nops / TF32_FLOPS_PER_S * 1e3),
-           "blocks": fused_blocks(B_, H_, W_, C)}
+           "blocks": fused_blocks(B_, H_, W_, Co, C)}
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         key = "library_tf32_ms" if tf32 else "library_ms"
@@ -3006,11 +3040,13 @@ def bf16_close(label: str, got: torch.Tensor, want: torch.Tensor,
 
 # the bf16 fused conv's edge shapes (B, H, W, C, Co): H and W no multiple
 # of its 4 x 32 tile; C = 72, a 32-channel chunk with 24 zero-filled
-# channels; Co 64 (one 64-channel block a tile) and 96 (two of 48) from
-# either C
+# channels; Co 64 (one 64-channel block a tile), 96 (two of 48) and 128
+# (two of 64) from either C; C = 128, past 96: blocks of 32 channels with
+# folded sums
 EDGE_BF16_CONVS = [(1, 37, 53, 96, 96), (2, 19, 40, 72, 64),
                    (1, 17, 45, 72, 96), (1, 9, 33, 64, 96),
-                   (2, 35, 70, 96, 64)]
+                   (2, 35, 70, 96, 64), (1, 37, 53, 96, 128),
+                   (1, 17, 45, 72, 128), (1, 37, 53, 128, 96)]
 
 
 # corr_band_bf16's edge shapes ((B, H, W, C), D): W below D; ragged W at
@@ -3043,6 +3079,10 @@ def check_bf16_kernels(ops, rng) -> dict:
     moment_rtol = 1e-5
     shapes = [(where, (B_, H_, W_, C, C))
               for where, (B_, H_, W_, C) in RAFT_CONVS.items()]
+    # the Co = 128 sites: RAFT's 96 -> 128 layer3 entry at downsample=0
+    # and a 128 -> 128 site of auto_max_c=128 (the context net's)
+    shapes += [("ds0 cnet layer3 entry", RAFT_DS0_CONVS["cnet layer3 entry"]),
+               ("auto128 cnet layer3", AUTO128_CONVS["cnet layer3"])]
     shapes += [("edge", shape) for shape in EDGE_BF16_CONVS]
     for where, shape in shapes:
         x, w, b, s, t, r = conv_inputs(rng, *shape)
@@ -3178,11 +3218,8 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
     path's shapes, beside their bounds (bytes at the HBM rate or
     operations at the bf16 tensor-core rate, the card's dense bf16 rate
     whatever the design), the plain versions and the library."""
-    import torch.nn.functional as F
-
     from stereoformer_tpu_torch import kernels
     from stereoformer_tpu_torch.ops.cost_volume import corr_bf16_plan
-    from stereoformer_tpu_torch.ops.fused_conv import fused_blocks
 
     rows, times = [], {"corr_band_bf16": {}, "conv2d_fused_bf16": {}}
     C = 256
@@ -3219,41 +3256,9 @@ def bf16_kernel_rows(ops, rng, err, launches, record) -> list:
               f"{t['plain_ms'] * 1e3:.1f} us; no library call; "
               f"{plan['blocks']} blocks of {plan['warps']} warps, "
               f"{plan['tasks']} tasks", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
     for where, (B_, H_, W_, C_) in RAFT_CONVS.items():
-        x, w, b, s, t_, r = conv_inputs(rng, B_, H_, W_, C_, C_)
-        x, w, b, r = (a.bfloat16() for a in (x, w, b, r))
-        variant = "prologue+stats" if where.startswith("fnet") else "prologue"
-        kern, kw = conv_calls(ops, x, w, b, s, t_, r)[variant]
-        xc = x.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        nbytes = (2 * B_ * H_ * W_ * C_ + 9 * C_ * C_ + C_) * 2
-        nops = 2 * 9 * C_ * C_ * B_ * H_ * W_
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / BF16_FLOPS_PER_S * 1e3
-        row = {"variant": variant, "shape": [B_, H_, W_, C_, C_],
-               "gflop": nops / 1e9, "mb": nbytes / 1e6,
-               "ms": graph_ms(kern, 10),
-               "plain_ms": graph_ms(
-                   lambda: ops.conv3x3_plain(x, w, b, **kw), 3),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "blocks": fused_blocks(B_, H_, W_, C_, torch.bfloat16),
-               "library_ms": graph_ms(
-                   lambda: F.conv2d(xc, wc, b, padding=1), 10)}
-        row["kernel_vs_library"] = row["ms"] / row["library_ms"]
-        times["conv2d_fused_bf16"][where] = row
-        print(f"  conv2d_fused_bf16 {variant} {where} {row['shape']}: "
-              f"{row['ms']:.4f} ms on the device "
-              f"({nops / row['ms'] / 1e9:.1f} TFLOP/s, {row['blocks']} "
-              f"blocks); bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.0f}% "
-              f"of it); plain {row['plain_ms']:.4f} ms; cuDNN F.conv2d+bias "
-              f"bf16 {row['library_ms']:.4f} ms; kernel/cuDNN "
-              f"{row['kernel_vs_library']:.2f} ("
-              f"{'beats' if row['kernel_vs_library'] < 1 else 'loses to'} "
-              f"cuDNN)", flush=True)
-        del x, w, b, s, t_, r, xc, wc
+        times["conv2d_fused_bf16"][where] = bf16_site(
+            ops, rng, "fused", where, B_, H_, W_, C_, C_)
     torch.backends.cudnn.allow_tf32 = True
     record["kernel_times"].update(times)
     for name, main_key, path in (
@@ -3375,6 +3380,34 @@ def check_bf16_train_kernels(ops, rng) -> dict:
         err["conv2d_fused_bf16_dx"] = max(
             err["conv2d_fused_bf16_dx"],
             bf16_close(f"conv2d_fused_bf16 as dx {where} {list(shape)}", got,
+                       ops.conv3x3_plain(g, w_rot, zero)))
+        if not torch.equal(_dx_conv(g, w_rot, zero), got):
+            raise SmokeFailure(f"bf16 dx {shape}: two calls differ")
+        del x, g, got, w, w_rot
+    # C other than Co, and Co = 128: RAFT's 96 -> 128 layer3 entry at
+    # downsample=0 (the context net's), a 128 -> 128 site of
+    # auto_max_c=128, and edges (the dx conv of a C -> Co conv is a
+    # Co -> C conv, so C is a kernel width too)
+    for where, (B_, H_, W_, C, Co) in (
+            ("ds0 cnet layer3 entry", RAFT_DS0_TRAIN_CONVS["cnet layer3 entry"]),
+            ("auto128 fnet layer3", AUTO128_TRAIN_CONVS["fnet layer3"]),
+            ("edge", (1, 37, 53, 96, 128)), ("edge", (1, 17, 45, 128, 128))):
+        shape = [B_, H_, W_, C, Co]
+        x = randn(rng, B_, H_, W_, C).bfloat16()
+        g = randn(rng, B_, H_, W_, Co).bfloat16()
+        got = ops.conv2d_dw(x, g)
+        err["conv2d_dw_bf16"] = max(err["conv2d_dw_bf16"], bf16_close(
+            f"conv2d_dw_bf16 {where} {shape}", got,
+            ops.conv2d_dw_plain(x.double(), g.double()), DW_BF16_RTOL))
+        if not torch.equal(ops.conv2d_dw(x, g), got):
+            raise SmokeFailure(f"conv2d_dw_bf16 {shape}: two calls differ")
+        w = (randn(rng, 3, 3, C, Co) / np.sqrt(9 * C)).bfloat16()
+        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+        zero = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
+        got = _dx_conv(g, w_rot, zero)
+        err["conv2d_fused_bf16_dx"] = max(
+            err["conv2d_fused_bf16_dx"],
+            bf16_close(f"conv2d_fused_bf16 as dx {where} {shape}", got,
                        ops.conv3x3_plain(g, w_rot, zero)))
         if not torch.equal(_dx_conv(g, w_rot, zero), got):
             raise SmokeFailure(f"bf16 dx {shape}: two calls differ")
@@ -3577,7 +3610,7 @@ def bf16_train_kernel_rows(ops, rng, err, launches, record) -> list:
                    "library_ms": graph_ms(lib, 10),
                    "f32_form_ms": graph_ms(f32, 10)}
             if name == "conv2d_fused_bf16_dx":
-                row["blocks"] = fused_blocks(B_, H_, W_, C, torch.bfloat16)
+                row["blocks"] = fused_blocks(B_, H_, W_, C, C, torch.bfloat16)
             row["kernel_vs_library"] = row["ms"] / row["library_ms"]
             row["bound_share"] = row["bound_ms"] / row["ms"]
             times[name][where] = row
@@ -3868,7 +3901,7 @@ def bf16_cli_phase(ops, record) -> dict:
 # options that the JAX model has (n_downsample 3, n_gru_layers 2; its
 # README's "Faster Implementation" runs 7 iterations), and features at 1/2
 RAFT_OPTION_SETS = {"ds3_gru2": {"downsample": 3, "n_gru_layers": 2},
-                    "ds1": {"downsample": 1}}
+                    "ds1": {"downsample": 1}, "ds0": {"downsample": 0}}
 RAFT_FAST_ITERS = 7
 # conv2d_fused's and conv2d_dw's sites at the option sets that move them:
 # at downsample=3 layer1 and layer2 run at 1/2 and 1/4 (eval B=2 at
@@ -3893,6 +3926,26 @@ RAFT_DS1_TRAIN_CONVS = {"fnet layer2 entry": (8, 320, 720, 64, 96),
 # resolution, four times the default's pixels, so a smaller batch keeps it
 # within the card's memory; it checks the launches and is timed alone
 RAFT_DS1_TRAIN_B = 1
+# at downsample=0 layer3 runs at full resolution too, and its 96 -> 128
+# entry is routed (18 sites a forward): the entry at eval (B=2 at
+# 576x960; the feature net's with its moments, the context net's plain)
+# and in the train protocol (B=4 at 320x720: conv2d_dw's and the dx conv's
+# sites). name -> (B, H, W, C, Co)
+RAFT_DS0_CONVS = {"fnet layer3 entry": (4, 576, 960, 96, 128),
+                  "cnet layer3 entry": (2, 576, 960, 96, 128)}
+RAFT_DS0_VARIANTS = {"fnet layer3 entry": "stats",
+                     "cnet layer3 entry": "plain"}
+RAFT_DS0_TRAIN_CONVS = {"fnet layer3 entry": (8, 320, 720, 96, 128),
+                        "cnet layer3 entry": (4, 320, 720, 96, 128)}
+# its train step's batch: features at full resolution, four times
+# downsample=1's pixels
+RAFT_DS0_TRAIN_B = 1
+# the 128 -> 128 convs that FusedConv(auto_max_c=128) would route at the
+# default downsample, layer3 at 1/4: eval (B=2 at 576x960) and the train
+# protocol (B=4 at 320x720)
+AUTO128_CONVS = {"fnet layer3": (4, 144, 240, 128, 128),
+                 "cnet layer3": (2, 144, 240, 128, 128)}
+AUTO128_TRAIN_CONVS = {"fnet layer3": (8, 80, 180, 128, 128)}
 
 
 def raft_options_phase(ops, rng, record) -> dict:
@@ -3961,7 +4014,20 @@ def raft_options_phase(ops, rng, record) -> dict:
     print(f"  float32 eval, downsample=1: {ms:.2f} ms/batch (16 "
           f"conv2d_fused launches a forward: layer2's 64 -> 96 entry in "
           f"both encoders too)", flush=True)
-    del model, left, right
+    del model
+    for dtype, key, name in ((None, "conv2d_fused", "f32"),
+                             (torch.bfloat16, "conv2d_fused_bf16", "bf16")):
+        model, counts, ms = eval_case(f"ds0 {name}", dtype,
+                                      **RAFT_OPTION_SETS["ds0"])
+        check_launches(f"RAFT ds0 {name} eval", counts, **{key: 18})
+        launches[f"raft_ds0_{name}_eval"] = counts
+        rec[f"eval_{name}"]["ds0"] = {"ms_per_batch": ms,
+                                      "pairs_per_s": 2 / ms * 1e3}
+        print(f"  {name} eval, downsample=0: {ms:.2f} ms/batch (18 {key} "
+              f"launches a forward: layer3's 96 -> 128 entry in both "
+              f"encoders too)", flush=True)
+        del model
+    del left, right
 
     print(f"  train step {RAFT_TRAIN_H}x{RAFT_TRAIN_W} B={RAFT_TRAIN_B} "
           f"iters={ITERS} sequence loss AMSGrad lr {RAFT_LR:g}, "
@@ -3977,9 +4043,15 @@ def raft_options_phase(ops, rng, record) -> dict:
              {"conv2d_fused_bf16": 28, "conv2d_fused_bf16_dx": 14,
               "conv2d_dw_bf16": 14}, RAFT_TRAIN_B),
             ("ds1", None, RAFT_OPTION_SETS["ds1"],
-             {"conv2d_fused": 32, "conv2d_dw": 16}, RAFT_DS1_TRAIN_B)):
+             {"conv2d_fused": 32, "conv2d_dw": 16}, RAFT_DS1_TRAIN_B),
+            ("ds0", None, RAFT_OPTION_SETS["ds0"],
+             {"conv2d_fused": 36, "conv2d_dw": 18}, RAFT_DS0_TRAIN_B),
+            ("ds0_bf16", torch.bfloat16, RAFT_OPTION_SETS["ds0"],
+             {"conv2d_fused_bf16": 36, "conv2d_fused_bf16_dx": 18,
+              "conv2d_dw_bf16": 18}, RAFT_DS0_TRAIN_B)):
         model, tx, state, step, data = raft_train_setup(dtype, batch,
                                                         **options)
+        torch.cuda.reset_peak_memory_stats()
         reset_counts(ops)
         state, m = step(state, data)
         counts = read_counts(ops)
@@ -3994,12 +4066,15 @@ def raft_options_phase(ops, rng, record) -> dict:
                 or not grads_finite):
             raise SmokeFailure(f"RAFT {label} train: loss {curve}, finite "
                                f"gradients {grads_finite}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         ms = time_ms(lambda: step(state, data), reps=3, warmup=1)
         steps[label] = {"ms_per_step": ms, "loss_curve": curve,
-                        "batch": batch, "pairs_per_s": batch / ms * 1e3}
+                        "batch": batch, "pairs_per_s": batch / ms * 1e3,
+                        "peak_gb": peak_gb}
         if label != "default":
             launches[f"raft_{label}_train_step"] = counts
-        print(f"    {label} (B={batch}): {ms:.2f} ms/step, loss over 4 steps "
+        print(f"    {label} (B={batch}): {ms:.2f} ms/step, peak "
+              f"{peak_gb:.2f} GB, loss over 4 steps "
               f"{', '.join(f'{x:.4f}' for x in curve)}; launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         del model, tx, state, step, data
@@ -4035,12 +4110,108 @@ def raft_options_phase(ops, rng, record) -> dict:
                               for w, shape in RAFT_DS3_TRAIN_CONVS.items()}
     times["conv2d_dw_ds1"] = {w: dw_site(ops, rng, w, *shape)
                               for w, shape in RAFT_DS1_TRAIN_CONVS.items()}
+    print("  the Co = 128 sites: RAFT's 96 -> 128 layer3 entry at "
+          "downsample=0 and auto_max_c=128's 128 -> 128 layer3 (TF32 off):",
+          flush=True)
+    times["conv2d_fused_ds0"] = {
+        w: fused_site(ops, rng, w, *shape, variant=RAFT_DS0_VARIANTS[w])
+        for w, shape in RAFT_DS0_CONVS.items()}
+    times["conv2d_fused_auto128"] = {w: fused_site(ops, rng, w, *shape)
+                                     for w, shape in AUTO128_CONVS.items()}
+    for key, sites in (("ds0", RAFT_DS0_TRAIN_CONVS),
+                       ("auto128", AUTO128_TRAIN_CONVS)):
+        times[f"conv2d_fused_dx_{key}"] = {
+            w: dx_site(ops, rng, w, *shape) for w, shape in sites.items()}
+        times[f"conv2d_dw_{key}"] = {w: dw_site(ops, rng, w, *shape)
+                                     for w, shape in sites.items()}
+    for key, sites, train_sites in (
+            ("ds0", RAFT_DS0_CONVS, RAFT_DS0_TRAIN_CONVS),
+            ("auto128", AUTO128_CONVS, AUTO128_TRAIN_CONVS)):
+        times[f"conv2d_fused_bf16_{key}"] = {
+            w: bf16_site(ops, rng, "fused", w, *shape,
+                         variant=RAFT_DS0_VARIANTS.get(w))
+            for w, shape in sites.items()}
+        for kind in ("dx", "dw"):
+            name = "conv2d_fused_bf16_dx" if kind == "dx" else "conv2d_dw_bf16"
+            times[f"{name}_{key}"] = {
+                w: bf16_site(ops, rng, kind, w, *shape)
+                for w, shape in train_sites.items()}
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     rec["seconds"] = time.perf_counter() - t0
     record["raft_options"] = rec
     print(f"phase 19: {rec['seconds']:.1f} s", flush=True)
     return launches
+
+
+def bf16_site(ops, rng, kind: str, where: str, B_: int, H_: int, W_: int,
+              C: int, Co: int, variant: str = None) -> dict:
+    """A bf16 form at one site of a C -> Co conv at [B_, H_, W_], TF32 off:
+    conv2d_fused_bf16 (``kind`` "fused", ``variant`` as ``fused_site``'s),
+    its dx conv ("dx": the cotangent's Co channels to C) or conv2d_dw_bf16
+    ("dw"). Its device time by graph replay, the plain version's, cuDNN's
+    bf16 call for the same function (F.conv2d with bias, conv2d_input,
+    conv2d_weight), and the bound: bytes at the HBM rate or operations at
+    the bf16 tensor-core rate."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from stereoformer_tpu_torch.ops.fused_conv import _dx_conv, fused_blocks
+
+    torch.backends.cudnn.allow_tf32 = False
+    bf = torch.bfloat16
+    x, w, b, s, t, r = conv_inputs(rng, B_, H_, W_, C, Co)
+    x, w, b, r = (a.to(bf) for a in (x, w, b, r))
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    nbytes = (B_ * H_ * W_ * (C + Co) + 9 * C * Co) * 2
+    if kind == "fused":
+        variant = variant or ("prologue+stats" if where.startswith("fnet")
+                              else "prologue")
+        kern, kw = conv_calls(ops, x, w, b, s, t, r)[variant]
+        xc = x.permute(0, 3, 1, 2)
+        plain = lambda: ops.conv3x3_plain(x, w, b, **kw)  # noqa: E731
+        lib = lambda: F.conv2d(xc, wc, b, padding=1)  # noqa: E731
+        blocks = fused_blocks(B_, H_, W_, C, Co, bf)
+        nbytes += Co * 2
+    elif kind == "dx":
+        g = r
+        w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+        zero = torch.zeros(C, device="cuda", dtype=bf)
+        gc = g.permute(0, 3, 1, 2)
+        kern = lambda: _dx_conv(g, w_rot, zero)  # noqa: E731
+        plain = lambda: ops.conv3x3_plain(g, w_rot, zero)  # noqa: E731
+        lib = lambda: conv2d_input((B_, C, H_, W_), wc, gc,  # noqa: E731
+                                   padding=1)
+        blocks = fused_blocks(B_, H_, W_, Co, C, bf)
+    else:
+        g, xc, gc = r, x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)
+        kern = lambda: ops.conv2d_dw(x, g)  # noqa: E731
+        plain = lambda: ops.conv2d_dw_plain(x, g)  # noqa: E731
+        lib = lambda: conv2d_weight(xc, (Co, C, 3, 3), gc,  # noqa: E731
+                                    padding=1)
+        blocks = None
+    nops = 2 * 9 * C * Co * B_ * H_ * W_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / BF16_FLOPS_PER_S * 1e3
+    row = {"shape": [B_, H_, W_, C, Co], "gflop": nops / 1e9,
+           "mb": nbytes / 1e6, "ms": graph_ms(kern, 10),
+           "plain_ms": graph_ms(plain, 3),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": graph_ms(lib, 10), "blocks": blocks}
+    if kind == "fused":
+        row["variant"] = variant
+    row["kernel_vs_library"] = row["ms"] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    name = {"fused": f"conv2d_fused_bf16 {variant}",
+            "dx": "conv2d_fused_bf16 as dx", "dw": "conv2d_dw_bf16"}[kind]
+    print(f"  {name} {where} {row['shape']}: {row['ms']:.4f} ms on the "
+          f"device ({nops / row['ms'] / 1e9:.1f} TFLOP/s); bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({100 * row['bound_share']:.0f}% of it); plain "
+          f"{row['plain_ms']:.4f} ms; cuDNN bf16 {row['library_ms']:.4f} ms "
+          f"(kernel/cuDNN {row['kernel_vs_library']:.2f})", flush=True)
+    return row
 
 
 def raft_option_parity(label: str, options: dict) -> dict:
@@ -4326,18 +4497,32 @@ def library_modules_phase(ops, rng, record) -> dict:
 
 
 def add_option_site_times(rows: list, record) -> None:
-    """Rows 4, 6 and 7 (conv2d_fused, conv2d_dw, deform_sample) gain the
-    option sets' and the residual head's shapes, each site's time beside
-    its bounds."""
+    """Rows 4, 6 and 7 (conv2d_fused, conv2d_dw, deform_sample, and the
+    bf16 forms of the first two) gain the option sets', auto_max_c=128's
+    and the residual head's shapes, each site's time beside its bounds."""
     times = record["kernel_times"]
     keep = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_tf32x3_ms", "library_ms", "plan")
     new = {"conv2d_fused": {
                "raft_downsample3": times["conv2d_fused_ds3"],
                "raft_downsample1": times["conv2d_fused_ds1"],
-               "raft_downsample1_dx": times["conv2d_fused_dx_ds1"]},
+               "raft_downsample1_dx": times["conv2d_fused_dx_ds1"],
+               "raft_downsample0": times["conv2d_fused_ds0"],
+               "raft_downsample0_dx": times["conv2d_fused_dx_ds0"],
+               "auto_max_c128": times["conv2d_fused_auto128"],
+               "auto_max_c128_dx": times["conv2d_fused_dx_auto128"]},
            "conv2d_dw": {"raft_downsample3_train": times["conv2d_dw_ds3"],
-                         "raft_downsample1_train": times["conv2d_dw_ds1"]},
+                         "raft_downsample1_train": times["conv2d_dw_ds1"],
+                         "raft_downsample0_train": times["conv2d_dw_ds0"],
+                         "auto_max_c128_train": times["conv2d_dw_auto128"]},
+           "conv2d_fused_bf16": {
+               "raft_downsample0": times["conv2d_fused_bf16_ds0"],
+               "raft_downsample0_dx": times["conv2d_fused_bf16_dx_ds0"],
+               "auto_max_c128": times["conv2d_fused_bf16_auto128"],
+               "auto_max_c128_dx": times["conv2d_fused_bf16_dx_auto128"]},
+           "conv2d_dw_bf16": {
+               "raft_downsample0_train": times["conv2d_dw_bf16_ds0"],
+               "auto_max_c128_train": times["conv2d_dw_bf16_auto128"]},
            "deform_sample": {"res_attention_c256": {
                "bottleneck": record["library_modules"]["deform_sample_c256"]}}}
     for row in rows:

@@ -26,8 +26,8 @@
 // k's MMAs run), the 2 x 42 x-halo of its 32 channels (rows h + di - 1,
 // zeros outside the image; 40 floats a pixel, so the A-fragment loads hit
 // 32 banks) and the 2 x 40 x Co tile of g (zeros past the image; Co + 8
-// floats a pixel, likewise). Warps are 2 (M) x Co/32 (N); a warp owns 48
-// rows x 32 columns of dW: three m16 tiles (one dj and 16 channels each)
+// floats a pixel, likewise). Warps are 2 (M) x Co/32 (N), 4, 6 or 8 for
+// Co = 64, 96, 128; a warp owns 48 rows x 32 columns of dW: three m16 tiles (one dj and 16 channels each)
 // and four n8 tiles, so each element it loads and splits feeds three or
 // four MMAs. A k-step is 8 pixels of one row: the A fragment is x at
 // those pixels shifted by dj, the B fragment g at them, split to big and
@@ -72,6 +72,15 @@
 //    taps; the B fragments of the last three g rows rotate through
 //    registers, so a g row is read from shared memory once and an x
 //    fragment feeds 3 x 3 MMAs.
+//  - Co = 128 (WG 0): the Co = 64 form's wgmma at n128 (m64n128k16) would
+//    hold a 64 x 128 tile for each of a warpgroup's three tap rows, 192
+//    float32 accumulators a thread: 73,728 registers for the block's 384
+//    threads, more than the SM's 65,536. So it takes the Co = 96 mainloop:
+//    32-channel slices, 8 warps of 16 channels by 32 outputs, 16-column
+//    strips, a ring of four stages. A thread holds 144 accumulators (nine
+//    taps by four n8 tiles) and 24 registers of g fragments; at 32 columns
+//    the ring of g fragments would be 48 (the Co = 96 form, 108 + 36,
+//    takes 217 registers in all), past the 255 a thread can have.
 // The tensor core's truncating sums are folded into float32 totals in
 // shared memory every FOLD_K k-steps (tests/test_torch_tf32x3.py emulates
 // the sum at RAFT's largest site: it holds the tolerance folded, not
@@ -117,9 +126,12 @@ struct Shape {
   static constexpr int SMEM = 2 * STAGE * (int)sizeof(float);
   static constexpr int WN = CO / 32;         // warps along N
   static constexpr int NT = 32 * 2 * WN;     // threads: 128 or 192
-  // resident blocks per SM, 12 warps either way (ops/dw_conv.py:
-  // _BLOCKS_PER_SM); registers and shared memory allow no more
-  static constexpr int MINB = CO == 64 ? 3 : 2;
+  // resident blocks per SM (ops/dw_conv.py: _BLOCKS_PER_SM): 12 warps at
+  // Co = 64 and 96, which registers and shared memory allow no more than;
+  // at Co = 128 one block of 8 warps, since a warp's tile, and so its
+  // ~160 registers a thread, is the same at every Co, and two blocks of
+  // 256 threads would have 128 a thread and spill
+  static constexpr int MINB = CO == 64 ? 3 : CO == 96 ? 2 : 1;
   static_assert(NT == 2 * CO, "stage: a thread copies one quad of g");
 };
 
@@ -323,7 +335,7 @@ using bf16 = __nv_bfloat16;
 // outputs. The values come as -D defines DW<CO>_<name> from the one table
 // of them, kernels.py's DW_BF16_TILING, by which ops/dw_conv.py also plans
 // the grid.
-#if !defined(DW64_KC) || !defined(DW96_KC)
+#if !defined(DW64_KC) || !defined(DW96_KC) || !defined(DW128_KC)
 #error "build with the bf16 tiling's defines (kernels.py: nvcc_flags)"
 #endif
 template <int CO>
@@ -337,6 +349,12 @@ template <>
 struct Cfg<96> {
   static constexpr int KC = DW96_KC, WN8 = DW96_WN8, TW = DW96_TW,
                        STAGES = DW96_STAGES, MINB = DW96_MINB, WG = DW96_WG;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int KC = DW128_KC, WN8 = DW128_WN8, TW = DW128_TW,
+                       STAGES = DW128_STAGES, MINB = DW128_MINB,
+                       WG = DW128_WG;
 };
 
 constexpr int RS = 3;        // x rows a stage: the g fragments' rotation
@@ -888,9 +906,9 @@ int launch(const bf16* x, const bf16* g, float* part, bf16* dw, int B, int H,
 
 // x [B,H,W,C], g [B,H,W,Co], dw [3,3,C,Co]: float32, contiguous, 16-byte
 // aligned; part: scratch of nsplit * 9 * C * Co floats. C a multiple of 8
-// (the last 32-channel chunk zero-filled past C), Co 64 or 96 (the fused
-// conv's output widths); nsplit >= 1 blocks share the pixels of each (tap
-// row, channel chunk).
+// (the last 32-channel chunk zero-filled past C), Co 64, 96 or 128 (the
+// fused conv's output widths); nsplit >= 1 blocks share the pixels of each
+// (tap row, channel chunk).
 // Returns cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int conv2d_dw(const float* x, const float* g, float* part,
                          float* dw, int B, int H, int W, int C, int Co,
@@ -901,6 +919,7 @@ extern "C" int conv2d_dw(const float* x, const float* g, float* part,
   switch (Co) {
     case 64: return launch<64>(x, g, part, dw, B, H, W, C, nsplit, st);
     case 96: return launch<96>(x, g, part, dw, B, H, W, C, nsplit, st);
+    case 128: return launch<128>(x, g, part, dw, B, H, W, C, nsplit, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -921,6 +940,8 @@ extern "C" int conv2d_dw_bf16(const void* x, const void* g, float* part,
   switch (Co) {
     case 64: return bfd::launch<64>(xb, gb, part, out, B, H, W, C, nsplit, st);
     case 96: return bfd::launch<96>(xb, gb, part, out, B, H, W, C, nsplit, st);
+    case 128:
+      return bfd::launch<128>(xb, gb, part, out, B, H, W, C, nsplit, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,8 +19,8 @@
 // mma.sync m16n8k8 in 3xTF32, the mainloop of conv2d_s2.cu at stride 1. A
 // block takes 4 x 32 output pixels of one image and 32 output channels (at
 // each of RAFT's eight sites at least 5760 blocks for the 132 SMs; a tile's
-// 2 or 3 channel blocks are neighbours in the grid) and walks C in chunks
-// of 8. Per chunk it stages, double-buffered with cp.async, the
+// 2, 3 or 4 channel blocks, Co = 64, 96 or 128, are neighbours in the grid)
+// and walks C in chunks of 8. Per chunk it stages, double-buffered with cp.async, the
 // 6 x 34 input window of its pixels and the chunk's 9 x 8 x 32 weights. Each
 // window pixel holds its 8 channels, the two float4 halves swapped on every
 // other 4-pixel group (`xq`), so the A-fragment loads (8 consecutive pixels
@@ -74,9 +74,11 @@
 // thirds of its time, and with one output row a warp (the weights staged
 // twice as often) it is 1.4x slower (scripts/fused_bf16_probe.py). So a
 // block takes 8 x 32 output pixels (4 warps, each two output rows: 4 m16
-// tiles) and all 64 output channels at Co = 64, half of them (48) at
-// Co = 96: the weights are staged once per 256 pixels and each input
-// window once or twice. C is walked in chunks through a cp.async ring (one
+// tiles) and all 64 output channels at Co = 64, half of them at Co = 96
+// (48) and Co = 128 (64, the Co = 64 template): the weights are staged once
+// per 256 pixels and each input window once or twice. A tile's two channel
+// blocks restage its window: at Co = 96 that makes the form slower than
+// cuDNN's bf16 conv (PERF.md), and Co = 128 is left so too. C is walked in chunks through a cp.async ring (one
 // barrier a chunk), 3 x 16 channels at Co = 64 and 2 x 32 at Co = 96, as
 // deep as two blocks an SM leave room for. A window pixel's chunk is
 // 16-byte units, swizzled (`xunit`) so that the 8 consecutive pixels an
@@ -86,11 +88,16 @@
 // the A fragments come by ldmatrix.x4 from the window at that tap (each
 // lane gives its own pixel's row, so the tap shift is a per-lane offset),
 // the B fragments by ldmatrix.x4.trans from the weight rows: 32 MMAs per
-// warp for 8 ldmatrix. Each output's float32 fragment sums all of C (36 or
-// 54 MMAs at C = 64 or 96) without a fold: the tensor core's truncating
-// adds then stay within one bf16 ulp of float32 sums
+// warp for 8 ldmatrix. Up to C = 96 each output's float32 fragment sums
+// all of C (36 or 54 MMAs at C = 64 or 96) without a fold: the tensor
+// core's truncating adds then stay within one bf16 ulp of float32 sums
 // (tests/test_torch_tf32x3.py emulates them), and the registers a fold
-// would take hold the second output row. C is any multiple of 8: the units
+// would take hold the second output row. Past C = 96 they do not: at
+// C = 128 (72 MMAs) an output that a residual nearly cancels came 1.08
+// ulps from the plain version on an H100. So where C > 96 a block takes
+// 32 output channels (2, 3 or 4 blocks a tile) and folds each chunk's
+// fragments into float32 totals (tf32x3.cuh, `fold`), in the registers
+// the other 32 channels freed. C is any multiple of 8: the units
 // and weight rows past C are zero-filled. The prologue rewrites, once a
 // chunk has landed, the 16-byte units each thread copied itself (one FMA,
 // ReLU and one rounding per value, padding left at 0). The epilogue adds
@@ -105,6 +112,12 @@
 
 #include "bf16mma.cuh"
 #include "tf32x3.cuh"
+
+// the bf16 form's widest unfolded C (96), a -D define from kernels.py's
+// BF16_FOLD_C, by which ops/fused_conv.py also plans the grid
+#ifndef BF16_FOLD_C
+#error "build with -DBF16_FOLD_C (kernels.py: nvcc_flags)"
+#endif
 
 namespace {
 
@@ -373,7 +386,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 // The bf16 form: 4 warps, each RW output rows of 32 columns (2 RW m16
 // tiles) and all NB output channels of the block (N8 = NB / 8 n8 tiles):
-// NB = 64 (all of Co = 64) or 48 (half of Co = 96). C in chunks of KC
+// NB = 64 (all of Co = 64, half of Co = 128) or 48 (half of Co = 96)
+// where C <= 96, and NB = 32, each chunk folded, where C > 96. C in chunks of KC
 // channels through a cp.async ring of STAGES. scripts/fused_bf16_probe.py
 // builds it with other constants.
 namespace bfk {
@@ -389,9 +403,11 @@ struct Cfg {
   // input channels per staged chunk and stages of the ring, as two blocks
   // an SM leave room for (113 KB each): 3 x 16 channels at NB = 64, whose
   // weight rows are the wider, and 2 x 32 at NB = 48 (the fastest of the
-  // depths scripts/fused_bf16_probe.py tries, on an H100)
-  static constexpr int KC = NB == 64 ? 16 : 32;
-  static constexpr int STAGES = NB == 64 ? 3 : 2;
+  // depths scripts/fused_bf16_probe.py tries, on an H100); 4 x 16 at
+  // NB = 32, whose chunk of 9 MMAs a fragment is folded
+  static constexpr int KC = NB == 48 ? 32 : 16;
+  static constexpr int STAGES = NB == 64 ? 3 : NB == 48 ? 2 : 4;
+  static constexpr bool FOLD = NB == 32;
   static constexpr int UP = KC / 8;         // 16-byte units of a pixel
   static constexpr int XB = BNP * 16 * UP;  // bytes of a staged window
   // a staged weight row (tap, input channel), and a pixel of the staged
@@ -539,7 +555,8 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   constexpr int N8 = NB / 8, MT = 2 * RW;   // n8 and m16 tiles of a warp
   extern __shared__ __align__(16) unsigned char sm[];
 
-  // the channel blocks of a tile (2 at Co = 96) are neighbours in the grid
+  // the channel blocks of a tile (2 at Co = 96 and 128) are neighbours in
+  // the grid
   const int ncb = Co / NB;
   const int cb0 = (blockIdx.x % ncb) * NB;
   const int tile = blockIdx.x / ncb;
@@ -554,14 +571,15 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // so its prologue needs no barrier
   const int q = threadIdx.x % UP;
 
-  // [m16 tile h][n8 tile j]: the sums over all of C
-  float acc[MT][N8][4];
+  // [m16 tile h][n8 tile j]: the sums over all of C, or (FOLD) over a
+  // chunk, folded into the float32 totals tot
+  float acc[MT][N8][4], tot[MT][N8][4];
 #pragma unroll
   for (int h = 0; h < MT; ++h)
 #pragma unroll
     for (int j = 0; j < N8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[h][j][e] = tot[h][j][e] = 0.f;
 
   const bf16* xb = x + img * C;
   // offsets[p]: where window pixel p starts in xb, or -1 outside the image
@@ -687,11 +705,12 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         }
       }
     }
+    if constexpr (K::FOLD) tf32x3::fold(tot, acc);
   }
   __syncthreads();   // the stages are consumed: the epilogue reuses them
 
-  bfk::epilogue<NB>(acc, bias, res, y, part, sm, img, b, tile, tiles, oy0,
-                    ox0, cb0, H, W, Co, relu);
+  bfk::epilogue<NB>(K::FOLD ? tot : acc, bias, res, y, part, sm, img, b,
+                    tile, tiles, oy0, ox0, cb0, H, W, Co, relu);
 }
 
 // Sum each sample's per-block partials [B][tiles][2*Co] in double, in a
@@ -724,7 +743,8 @@ __global__ void moments_kernel(const float* __restrict__ part,
 int check(int B, int H, int W, int C, int Co, const void* s, const void* t,
           const float* part, const float* s1, const float* s2) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || C % 8 ||
-      (Co != 64 && Co != 96) || (long long)H * W * C > 0x7fffffffLL ||
+      (Co != 64 && Co != 96 && Co != 128) ||
+      (long long)H * W * C > 0x7fffffffLL ||
       (s == nullptr) != (t == nullptr) ||
       (part != nullptr && (s1 == nullptr || s2 == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -787,7 +807,7 @@ int launch_bf16(const bf16* x, const bf16* w, const bf16* bias,
 // [B,C] (the prologue), res [B,H,W,Co] (the residual) and part, s1, s2 (the
 // moments: scratch of B * ceil(H/4) * ceil(W/32) * 2 * Co floats, and S1,
 // S2 [B,Co]) may each be null to leave that part out. C a multiple of 8; Co
-// 64 or 96 (RAFT's routed sites).
+// 64, 96 or 128 (the widths of the sites nn/blocks.py routes).
 // Returns cudaGetLastError() after the launches (0 when they were accepted).
 extern "C" int conv2d_fused_forward(const float* x, const float* w,
                                     const float* bias, const float* s,
@@ -812,7 +832,11 @@ extern "C" int conv2d_fused_forward_bf16(const void* x, const void* w,
                                          void* stream) {
   const int err = check(B, H, W, C, Co, s, t, part, s1, s2);
   if (err) return err;
-  auto* go = Co == 64 ? &launch_bf16<64> : &launch_bf16<48>;
+  // blocks of 32 channels with folded sums past C = BF16_FOLD_C (96); else
+  // of 48 at Co = 96, of 64 at Co = 64 and 128
+  auto* go = C > BF16_FOLD_C ? &launch_bf16<32>
+             : Co == 96      ? &launch_bf16<48>
+                             : &launch_bf16<64>;
   return go(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
             static_cast<const bf16*>(bias), s, t,
             static_cast<const bf16*>(res), static_cast<bf16*>(y), part, s1,

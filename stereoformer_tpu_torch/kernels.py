@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the bf16 weight gradient's tiling by C = Co (csrc/conv2d_dw.cu, bfd::Cfg):
+# the bf16 weight gradient's tiling by Co (csrc/conv2d_dw.cu, bfd::Cfg):
 # input channels a block (KC), n8 tiles of outputs a warp (WN8), strip width
 # (TW), ring depth in stages (STAGES), resident blocks an SM (MINB), and
 # warpgroup MMAs or warp MMAs (WG 1 or 0). The source is built with it as
@@ -48,7 +48,13 @@ NVCC_FLAGS = (
 DW_BF16_TILING = {
     64: {"KC": 64, "WN8": 8, "TW": 16, "STAGES": 6, "MINB": 1, "WG": 1},
     96: {"KC": 32, "WN8": 3, "TW": 32, "STAGES": 3, "MINB": 1, "WG": 0},
+    128: {"KC": 32, "WN8": 4, "TW": 16, "STAGES": 4, "MINB": 1, "WG": 0},
 }
+# the bf16 fused conv's widest C whose sums a block keeps unfolded
+# (csrc/conv2d_fused.cu, built with -DBF16_FOLD_C); past it a block takes 32
+# output channels and folds each chunk's sums into float32 totals, and
+# ops/fused_conv.py plans its grid by it
+BF16_FOLD_C = 96
 
 
 def tiling_defines(tiling: dict) -> tuple:
@@ -62,6 +68,8 @@ def nvcc_flags(source: str) -> tuple:
     """nvcc's flags for ``source``: NVCC_FLAGS and the source's defines."""
     if source == "conv2d_dw.cu":
         return NVCC_FLAGS + tiling_defines(DW_BF16_TILING)
+    if source == "conv2d_fused.cu":
+        return NVCC_FLAGS + (f"-DBF16_FOLD_C={BF16_FOLD_C}",)
     return NVCC_FLAGS
 
 

@@ -27,20 +27,27 @@ from .conv import Conv, Conv2d, check_dtype
 from .norm import BatchNorm2d
 
 
-# the TPU's routing ceiling: 3x3 sites with 64 <= C_in <= 96 take the
-# fused conv (JAX FusedConv.auto_max_c)
+# the TPU's default routing ceiling: 3x3 sites with 64 <= C_in <= 96 take
+# the fused conv (JAX FusedConv.auto_max_c)
 FUSED_MAX_C = 96
+# FusedConv's routes (JAX FusedConv.impl)
+IMPLS = ("auto", "pallas", "xla")
 
 
-def kernel_routes(in_channels: int, out_channels: int) -> bool:
-    """Whether a ``FusedConv`` of these widths takes the fused conv: JAX's
-    rule, 64 <= C_in <= ``FUSED_MAX_C``, where the kernel has the widths:
-    C_in a multiple of 8 and an output width in ``KERNEL_CO`` (its weight
-    gradient ``conv2d_dw`` takes the same). A site in JAX's range whose
-    output width the kernel lacks (RAFT's layer3 entry 96 -> 128 at
-    ``downsample=0``) is a plain conv, cuDNN on the GPU."""
-    return (64 <= in_channels <= FUSED_MAX_C and in_channels % 8 == 0
-            and out_channels in KERNEL_CO)
+def kernel_routes(in_channels: int, out_channels: int, impl: str = "auto",
+                  auto_max_c: int = FUSED_MAX_C) -> bool:
+    """Whether a ``FusedConv`` of these widths takes the fused conv where
+    JAX's takes its Pallas kernel: ``impl="auto"`` 64 <= C_in <=
+    ``auto_max_c``, ``"pallas"`` every width, ``"xla"`` none; and only
+    where the kernels can run and train it: C_in and Co both in
+    ``KERNEL_CO``, since the forward has Co outputs, its dx conv C_in and
+    its weight gradient ``conv2d_dw`` Co from C_in inputs."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "xla" or (impl == "auto"
+                         and not 64 <= in_channels <= auto_max_c):
+        return False
+    return in_channels in KERNEL_CO and out_channels in KERNEL_CO
 
 
 def prologue_fma(x, s, t):
@@ -55,9 +62,12 @@ def prologue_fma(x, s, t):
 class FusedConv(Conv2d):
     """A 3x3 stride-1 conv padded by 1, with bias, that routes to the fused
     conv (``ops/fused_conv.py``) where the JAX package routes to its Pallas
-    kernel, 64 <= C_in <= ``FUSED_MAX_C``, and the kernels have its widths
-    (``kernel_routes``). Other sites are a plain ``F.conv2d`` (cuDNN on the
-    GPU), as JAX leaves them to XLA.
+    kernel and the kernels have its widths (``kernel_routes``): with
+    ``impl="auto"`` (the default) 64 <= C_in <= ``auto_max_c`` (96 by
+    default), with ``impl="pallas"`` at any width, with ``impl="xla"``
+    nowhere. Other sites are a plain ``F.conv2d`` (cuDNN on the GPU), as
+    JAX leaves them to XLA. ``impl="pallas"`` at widths the kernels lack
+    (C_in or Co not in ``KERNEL_CO``) raises ``ValueError``.
 
     ``forward(x, prologue=None, with_stats=False)``: x NCHW; at a routed
     site x must be ``channels_last`` (its NHWC view is what the kernel
@@ -74,10 +84,17 @@ class FusedConv(Conv2d):
     takes the fused conv's bf16 form (float32 sums, one rounding); a site
     that is not routed is the JAX XLA route, ``Conv2d``'s two roundings."""
 
-    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+    def __init__(self, in_channels: int, out_channels: int, dtype=None,
+                 impl: str = "auto", auto_max_c: int = FUSED_MAX_C):
         super().__init__(in_channels, out_channels, 3, padding=1,
                          dtype=dtype)
-        self.routed = kernel_routes(in_channels, out_channels)
+        self.routed = kernel_routes(in_channels, out_channels, impl,
+                                    auto_max_c)
+        if impl == "pallas" and not self.routed:
+            raise ValueError(
+                f"FusedConv(impl='pallas'): the fused conv and its dx conv "
+                f"take C_in and Co in {KERNEL_CO}, got {in_channels} -> "
+                f"{out_channels}")
 
     def forward(self, x, prologue=None, with_stats=False):
         s, t = prologue or (None, None)

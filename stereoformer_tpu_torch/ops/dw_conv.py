@@ -12,10 +12,11 @@ xp the zero-padded x; dw [3, 3, C, Co], all float32, through the custom
 op ``stereoformer::conv2d_dw`` (``conv2d_dw_op``). CPU tensors take the
 plain version (``conv2d_dw_plain``); CUDA tensors launch the kernel
 ``csrc/conv2d_dw.cu`` or raise, counting launches in ``conv2d_dw.launches``.
-The kernel takes Co = 64 or 96, the fused conv's output widths, and C a
-multiple of 8 (in 32-channel chunks, the last zero-filled past C): every
+The kernel takes Co = 64, 96 or 128, the fused conv's output widths, and C
+a multiple of 8 (in 32-channel chunks, the last zero-filled past C): every
 site ``nn/blocks.py::kernel_routes`` sends to the fused conv, RAFT's
-64 -> 96 entry at ``downsample=1`` among them.
+64 -> 96 entry at ``downsample`` 1 and 0 and its 96 -> 128 entry at
+``downsample=0`` among them.
 
 bf16 x and g give a bf16 dw, as the fused conv's bf16 backward takes it
 (the Pallas kernel's float32 sums cast to the bf16 weight by ``_dw``): the
@@ -38,11 +39,11 @@ import torch.nn.functional as F
 from .. import kernels
 
 # the output widths the kernel has templates for (csrc/conv2d_dw.cu)
-KERNEL_CO = (64, 96)
+KERNEL_CO = (64, 96, 128)
 # input channels per block (csrc/conv2d_dw.cu: KC)
 _CHUNK = 32
 # blocks of each template resident on one SM (csrc/conv2d_dw.cu: MINB)
-_BLOCKS_PER_SM = {64: 3, 96: 2}
+_BLOCKS_PER_SM = {64: 3, 96: 2, 128: 1}
 
 
 def whole_waves(slots: int, per_split: int) -> tuple:

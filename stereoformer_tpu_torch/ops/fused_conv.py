@@ -65,15 +65,16 @@ from .. import kernels
 from .dw_conv import conv2d_dw
 
 # the kernel's blocks (csrc/conv2d_fused.cu): output rows and columns of
-# a tile, and output channels of a block by Co; the 3xTF32 form's 4 x 32
-# tiles and 32-channel blocks (TH, TW, CB), the bf16 form's 8 x 32 tiles
-# and blocks of all 64 or half of 96 channels (bfk::BTH, TW and the NB of
-# conv3x3_bf16_kernel); one moment partial per tile and output channel,
-# written by the tile's channel blocks
+# a tile, and output channels of a block; the 3xTF32 form's 4 x 32 tiles
+# and 32-channel blocks (TH, TW, CB), the bf16 form's 8 x 32 tiles (bfk::
+# BTH, TW) and blocks (the NB of conv3x3_bf16_kernel) of all 64 or half of
+# 96 or 128 channels where C <= kernels.BF16_FOLD_C, of 32 channels, each
+# chunk's sums folded, where C is more; one moment partial per tile and
+# output channel, written by the tile's channel blocks
 _TILE = {torch.float32: (4, 32), torch.bfloat16: (8, 32)}
-_CB = {torch.float32: {64: 32, 96: 32}, torch.bfloat16: {64: 64, 96: 48}}
+_BF16_CB = {64: 64, 96: 48, 128: 64}
 # the output widths the kernel has templates for
-KERNEL_CO = (64, 96)
+KERNEL_CO = (64, 96, 128)
 
 
 def fused_tiles(H: int, W: int, dtype: torch.dtype = torch.float32) -> int:
@@ -83,11 +84,13 @@ def fused_tiles(H: int, W: int, dtype: torch.dtype = torch.float32) -> int:
     return -(-H // th) * -(-W // tw)
 
 
-def fused_blocks(B: int, H: int, W: int, Co: int,
+def fused_blocks(B: int, H: int, W: int, C: int, Co: int,
                  dtype: torch.dtype = torch.float32) -> int:
-    """The blocks of the fused conv's grid for y [B, H, W, Co] of
-    ``dtype``."""
-    return B * fused_tiles(H, W, dtype) * (Co // _CB[dtype][Co])
+    """The blocks of the fused conv's grid for x [B, H, W, C] and y
+    [B, H, W, Co] of ``dtype``."""
+    cb = (32 if dtype == torch.float32 or C > kernels.BF16_FOLD_C
+          else _BF16_CB[Co])
+    return B * fused_tiles(H, W, dtype) * (Co // cb)
 
 
 def _prologue(x, s, t):

@@ -43,8 +43,8 @@ from ..ops.fused_conv import fused_tiles
 OUT = kernels.BUILD_DIR.parent / "probe_bf16"
 SOURCES = ("conv2d_fused.cu", "tf32x3.cuh", "bf16mma.cuh")
 _RW = "constexpr int RW = 2;               // output rows per warp"
-_KC = "static constexpr int KC = NB == 64 ? 16 : 32;"
-_ST = "static constexpr int STAGES = NB == 64 ? 3 : 2;"
+_KC = "static constexpr int KC = NB == 48 ? 32 : 16;"
+_ST = "static constexpr int STAGES = NB == 64 ? 3 : NB == 48 ? 2 : 4;"
 _WINDOW_COPY = "tf32x3::cp_async16(dst + bfk::xunit<UP>(p, q)"
 _NO_COMPUTE = ("#pragma unroll\n    for (int tap = 0; tap < 9; ++tap) {\n"
                "      const int ky = tap / 3, kx = tap % 3;\n"
@@ -111,8 +111,8 @@ def build_variants(names) -> dict:
             (d / f).write_text(text)
         lib = d / "conv2d_fused.so"
         procs[name] = (lib, subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
-             str(d / "conv2d_fused.cu")],
+            [kernels._nvcc(), *kernels.nvcc_flags("conv2d_fused.cu"), "-o",
+             str(lib), str(d / "conv2d_fused.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (lib, proc) in procs.items():

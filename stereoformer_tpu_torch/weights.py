@@ -36,12 +36,13 @@ def _tensor(x) -> torch.Tensor:
 
 def _conv(sd, key, node, bias=True):
     """A Flax conv of any rank: kernel [k..., C_in, C_out] -> [C_out, C_in,
-    k...]."""
+    k...]; ``key`` "" for a conv that is the module itself."""
     k = np.asarray(node["kernel"])
     n = k.ndim - 2
-    sd[key + ".weight"] = _tensor(np.transpose(k, (n + 1, n, *range(n))))
+    key = key + "." if key else ""
+    sd[key + "weight"] = _tensor(np.transpose(k, (n + 1, n, *range(n))))
     if bias:
-        sd[key + ".bias"] = _tensor(node["bias"])
+        sd[key + "bias"] = _tensor(node["bias"])
 
 
 def _at(tree, *path):
@@ -401,15 +402,19 @@ def module_state_dict_from_jax(module: torch.nn.Module, variables) -> dict:
     the JAX counterpart of ``module`` -> ``module``'s ``state_dict``, for
     the modules no registry model holds: ``nn.deform``'s six,
     ``SepConvGRU``, ``ConvBn3D``, ``Hourglass3D``, ``SAModule``,
-    ``ResSubmoduleAttention`` and RAFT's ``BottleneckBlock`` (``Conv_0``-
+    ``ResSubmoduleAttention``, RAFT's ``BottleneckBlock`` (``Conv_0``-
     ``Conv_2`` to ``conv1``-``conv3``, ``_Norm_0``-``_Norm_3`` to
-    ``norm1``-``norm4``, ``downsample`` to ``downsample.0``)."""
+    ``norm1``-``norm4``, ``downsample`` to ``downsample.0``) and
+    ``FusedConv`` (``kernel`` and ``bias``)."""
     from .nn import aggregation, deform, gru, residual
+    from .nn.blocks import FusedConv
     from .nn.raft import BottleneckBlock
 
     p, s = variables["params"], variables.get("batch_stats")
     sd: dict = {}
-    if isinstance(module, deform.DeformRoIPooling):
+    if isinstance(module, FusedConv):
+        _conv(sd, "", p)
+    elif isinstance(module, deform.DeformRoIPooling):
         if isinstance(module, deform.DeformRoIPoolingPack):
             for key, name in (("0", "Dense_0"), ("2", "Dense_1"),
                               ("4", "offset_mask_fc")):

@@ -42,9 +42,11 @@ GRAD_ATOL = 5e-6
 # dw over B H W = 456 products per element, float32 in other orders
 DW_RTOL = 1e-5
 
-# the third: RAFT's 64 -> 96 layer2 entry at downsample 1 and 0 (C != Co)
-SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96), (1, 11, 21, 64, 96)]
-SHAPE_IDS = ["C64-H-tail", "C96-odd-W", "C64-Co96"]
+# the third: RAFT's 64 -> 96 layer2 entry at downsample 1 and 0 (C != Co);
+# the fourth: its 96 -> 128 layer3 entry at downsample=0
+SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96), (1, 11, 21, 64, 96),
+          (1, 12, 21, 96, 128)]
+SHAPE_IDS = ["C64-H-tail", "C96-odd-W", "C64-Co96", "C96-Co128"]
 # variant -> (residual, prologue, moments, relu)
 VARIANTS = {
     "bare": (False, False, False, False),

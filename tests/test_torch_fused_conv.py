@@ -32,8 +32,9 @@ Y_RTOL = 1e-5
 # float64), relative to each moment's magnitude
 MOMENT_RTOL = 1e-4
 
-SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96)]
-SHAPE_IDS = ["C64-H-tail", "C96-odd-W"]
+# the third: RAFT's 96 -> 128 layer3 entry at downsample=0
+SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96), (1, 12, 21, 96, 128)]
+SHAPE_IDS = ["C64-H-tail", "C96-odd-W", "C96-Co128"]
 
 
 def _inputs(B, H, W, C, Co, seed=0):

@@ -342,11 +342,19 @@ def _conv_inputs(rng, shape, device):
     return x, w, b, s, t, r
 
 
+# Co = 128: RAFT's 96 -> 128 layer3 entry at downsample=0 (the feature
+# net's, eval B=2 at 576x960), a 128 -> 128 conv that auto_max_c=128 routes
+# (layer3 at the default downsample), and a ragged shape
 @pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 37, 53, 96, 96),
                                    (2, 19, 40, 64, 64), (1, 9, 33, 96, 96),
-                                   (1, 35, 70, 64, 64)],
+                                   (1, 35, 70, 64, 64),
+                                   (4, 576, 960, 96, 128),
+                                   (4, 144, 240, 128, 128),
+                                   (1, 37, 53, 96, 128)],
                          ids=["main-width", "edge-C96", "H-tail-C64",
-                              "tails-C96", "tails-4x32-C64"])
+                              "tails-C96", "tails-4x32-C64",
+                              "ds0-fnet-layer3-entry", "auto128-fnet-layer3",
+                              "edge-C96-Co128"])
 @pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
                                      "stats", "prologue-stats"])
 def test_conv2d_fused_matches_plain(cuda_device, shape, variant):
@@ -441,11 +449,17 @@ DW_RTOL = 1e-5
                                    (2, 19, 40, 64, 64), (1, 9, 33, 96, 96),
                                    (4, 160, 360, 96, 96),
                                    (4, 320, 720, 64, 96), (1, 37, 53, 96, 64),
-                                   (2, 19, 40, 72, 64), (1, 9, 33, 88, 96)],
+                                   (2, 19, 40, 72, 64), (1, 9, 33, 88, 96),
+                                   (8, 320, 720, 96, 128),
+                                   (8, 80, 180, 128, 128),
+                                   (1, 37, 53, 96, 128), (1, 9, 33, 72, 128)],
                          ids=["main-width", "edge-C96", "H-tail-C64",
                               "tails-C96", "raft-cnet-layer2",
                               "raft-ds1-cnet-layer2-entry", "C96-Co64",
-                              "C72-Co64", "C88-Co96"])
+                              "C72-Co64", "C88-Co96",
+                              "raft-ds0-fnet-layer3-entry",
+                              "auto128-fnet-layer3", "edge-C96-Co128",
+                              "C72-Co128"])
 def test_conv2d_dw_matches_plain(cuda_device, shape):
     B, H, W, C, Co = shape
     rng = np.random.default_rng(9)
@@ -465,9 +479,9 @@ def test_conv2d_dw_is_deterministic(cuda_device):
     """The partials are summed in a fixed order: two calls on the same
     inputs give the same bits."""
     rng = np.random.default_rng(10)
-    for C in (64, 96):
+    for C, Co in ((64, 64), (96, 96), (96, 128), (128, 128)):
         x = _randn(rng, (2, 40, 90, C), cuda_device)
-        g = _randn(rng, (2, 40, 90, C), cuda_device)
+        g = _randn(rng, (2, 40, 90, Co), cuda_device)
         first = ops.conv2d_dw(x, g)
         second = ops.conv2d_dw(x, g)
         torch.cuda.synchronize()
@@ -490,8 +504,10 @@ _BWD_VARIANTS = {"bare": (False, False, False, False),
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 120, 64, 64), (1, 19, 53, 96, 96),
-                                   (1, 19, 53, 64, 96)],
-                         ids=["main-width", "tails-C96", "C64-Co96"])
+                                   (1, 19, 53, 64, 96), (1, 19, 53, 96, 128),
+                                   (1, 19, 53, 128, 128)],
+                         ids=["main-width", "tails-C96", "C64-Co96",
+                              "C96-Co128", "C128-Co128"])
 @pytest.mark.parametrize("variant", list(_BWD_VARIANTS))
 def test_conv2d_fused_backward_matches_plain_autograd(cuda_device, shape,
                                                       variant):
@@ -1048,11 +1064,20 @@ def test_corr_band_bf16_is_deterministic(cuda_device):
                                    (1, 37, 53, 96, 96), (2, 19, 40, 64, 64),
                                    (1, 35, 70, 64, 64), (2, 19, 40, 72, 64),
                                    (1, 17, 45, 72, 96), (1, 9, 33, 64, 96),
-                                   (2, 35, 70, 96, 64)],
+                                   (2, 35, 70, 96, 64),
+                                   (4, 576, 960, 96, 128),
+                                   (4, 144, 240, 128, 128),
+                                   (1, 37, 53, 96, 128),
+                                   (1, 17, 45, 72, 128),
+                                   (2, 19, 40, 128, 64),
+                                   (1, 37, 53, 128, 96)],
                          ids=["fnet-layer1", "cnet-layer2", "edge-C96",
                               "H-tail-C64", "tails-4x32-C64",
                               "C72-tail-chunk-Co64", "C72-tail-chunk-Co96",
-                              "C64-Co96", "C96-Co64"])
+                              "C64-Co96", "C96-Co64",
+                              "ds0-fnet-layer3-entry", "auto128-fnet-layer3",
+                              "edge-C96-Co128", "C72-tail-chunk-Co128",
+                              "folded-C128-Co64", "folded-edge-C128-Co96"])
 @pytest.mark.parametrize("variant", ["res-relu", "bare", "prologue",
                                      "stats", "prologue-stats"])
 def test_conv2d_fused_bf16_matches_plain(cuda_device, shape, variant):
@@ -1160,15 +1185,19 @@ def test_bf16_models_launch_the_bf16_forms(cuda_device):
 # The bf16 dw walks 16-column strips down runs of rows: W off the strip
 # (53, 33, 50, 21) and under it (5, 7), images of 1 and 2 rows (the ring's
 # first and last rows at once), and runs that end inside an image (3 x 97
-# rows of 4 strips, 2 x 150 of 3, over the 132 or 44 splits of the grid)
+# rows of 4 strips, 2 x 150 of 3, over the 132 or 44 splits of the grid);
+# at C = 128 (the 128 -> 128 sites auto_max_c=128 routes) 16-column strips
+# over 33 splits
 BF16_TRAIN_SHAPES = [(8, 320, 720, 64), (4, 160, 360, 96), (1, 37, 53, 96),
                      (2, 19, 40, 64), (1, 9, 33, 96), (2, 3, 5, 64),
                      (1, 1, 40, 64), (1, 2, 21, 96), (1, 11, 7, 96),
-                     (3, 97, 50, 64), (2, 150, 48, 96)]
+                     (3, 97, 50, 64), (2, 150, 48, 96), (8, 80, 180, 128),
+                     (1, 37, 53, 128), (1, 2, 21, 128), (2, 150, 48, 128)]
 BF16_TRAIN_IDS = ["fnet-layer1", "cnet-layer2", "edge-C96", "H-tail-C64",
                   "tails-C96", "tiny-C64", "H1-C64", "H2-C96",
                   "W-under-strip-C96", "runs-end-inside-C64",
-                  "runs-end-inside-C96"]
+                  "runs-end-inside-C96", "auto128-fnet-layer3", "edge-C128",
+                  "H2-C128", "runs-end-inside-C128"]
 
 
 @pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)
@@ -1195,12 +1224,16 @@ def test_conv2d_dw_bf16_matches_plain(cuda_device, shape):
 # the 64-channel slices of Co = 64, the second half zero-filled), C no
 # multiple of a slice, and C = 32 under one
 BF16_DW_C_CO = [(4, 320, 720, 64, 96), (1, 37, 53, 96, 64),
-                (2, 19, 40, 72, 64), (1, 9, 33, 88, 96), (2, 3, 5, 32, 64)]
+                (2, 19, 40, 72, 64), (1, 9, 33, 88, 96), (2, 3, 5, 32, 64),
+                (8, 320, 720, 96, 128), (1, 37, 53, 96, 128),
+                (2, 19, 40, 72, 128)]
 
 
 @pytest.mark.parametrize("shape", BF16_DW_C_CO,
                          ids=["raft-ds1-cnet-layer2-entry", "C96-Co64",
-                              "C72-Co64", "C88-Co96", "C32-Co64"])
+                              "C72-Co64", "C88-Co96", "C32-Co64",
+                              "raft-ds0-fnet-layer3-entry", "edge-C96-Co128",
+                              "C72-Co128"])
 def test_conv2d_dw_bf16_takes_c_other_than_co(cuda_device, shape):
     """The bf16 dw where C differs from Co: within one bf16 ulp of the
     float64 sum (test_conv2d_dw_bf16_matches_plain's bound), one bf16
@@ -1250,6 +1283,106 @@ def test_raft_downsample1_runs_the_kernels_at_its_16_sites(cuda_device):
         torch.cuda.synchronize()
         assert (getattr(*fused) - n[0], getattr(*dw) - n[1]) == (32, 16)
         assert np.isfinite(float(m["loss"]))
+
+
+def test_raft_downsample0_runs_the_kernels_at_its_18_sites(cuda_device):
+    """RAFT_Stereo(downsample=0) routes layer3's 96 -> 128 entry as well:
+    18 fused-conv launches an eval forward, and a train step's 36 (18 of
+    them dx) and 18 dw launches, in float32 and in bf16."""
+    from stereoformer_tpu_torch import train
+    from stereoformer_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(31)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = get_model("RAFT_Stereo", device=cuda_device, dtype=dtype,
+                          downsample=0)
+        bf = dtype == torch.bfloat16
+        fused = (ops.conv2d_fused, "bf16_launches" if bf else "launches")
+        dw = (ops.conv2d_dw, "bf16_launches" if bf else "launches")
+        left = _randn(rng, (1, 32, 64, 3), cuda_device)
+        right = _randn(rng, (1, 32, 64, 3), cuda_device)
+        n = getattr(*fused)
+        with torch.inference_mode():
+            out = model(left, right, iters=2)
+        torch.cuda.synchronize()
+        assert getattr(*fused) - n == 18
+        assert torch.isfinite(out["disparities"][-1]).all()
+        tx = train.Amsgrad(1e-3)
+        state = train.TrainState.create(model, tx)
+        batch = {"img_left": left, "img_right": right,
+                 "gt_disp": 4 + _randn(rng, (1, 32, 64, 1), cuda_device)}
+        n = getattr(*fused), getattr(*dw), ops.conv2d_fused.bf16_dx_launches
+        state, m = train.make_train_step(tx, "sequence", iters=2)(state,
+                                                                  batch)
+        torch.cuda.synchronize()
+        assert (getattr(*fused) - n[0], getattr(*dw) - n[1]) == (36, 18)
+        if bf:
+            assert ops.conv2d_fused.bf16_dx_launches - n[2] == 18
+        assert np.isfinite(float(m["loss"]))
+
+
+# the dx conv at the Co = 128 sites (B, H, W, C, Co of the forward): RAFT's
+# 96 -> 128 layer3 entry at downsample=0 (the train step's, B=4 at
+# 320x720: the cotangent's 128 channels to 96), a 128 -> 128 site of
+# auto_max_c=128, and a ragged one
+CO128_DX = [(8, 320, 720, 96, 128), (8, 80, 180, 128, 128),
+            (1, 37, 53, 96, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CO128_DX,
+                         ids=["raft-ds0-fnet-layer3-entry",
+                              "auto128-fnet-layer3", "edge-C96-Co128"])
+def test_conv2d_fused_dx_at_co128_sites_matches_plain(cuda_device, shape,
+                                                      dtype):
+    """The backward's dx conv (the fused conv of the cotangent with the
+    flipped, io-transposed weights, no bias) where the forward has 128
+    outputs: against the plain version (CONV_RTOL in float32, one bf16 ulp
+    in bf16), one launch, the same bits on a second call."""
+    from stereoformer_tpu_torch.ops.fused_conv import _dx_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(32)
+    B, H, W, C, Co = shape
+    g = _randn(rng, (B, H, W, Co), cuda_device).to(dtype)
+    w = (_randn(rng, (3, 3, C, Co), cuda_device) / np.sqrt(9 * C)).to(dtype)
+    w_rot = w.flip((0, 1)).transpose(2, 3).contiguous()
+    zero = torch.zeros(C, device=cuda_device, dtype=dtype)
+    bf = dtype == torch.bfloat16
+    count = (ops.conv2d_fused, "bf16_launches" if bf else "launches")
+    n = getattr(*count)
+    got = _dx_conv(g, w_rot, zero)
+    torch.cuda.synchronize()
+    assert getattr(*count) == n + 1
+    assert got.shape == (B, H, W, C) and got.dtype == dtype
+    want = ops.conv3x3_plain(g, w_rot, zero)
+    if bf:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=CONV_RTOL * want.abs().max().item())
+    assert torch.equal(_dx_conv(g, w_rot, zero), got)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 576, 960, 96, 128),
+                                   (1, 37, 53, 128, 128)],
+                         ids=["ds0-cnet-layer3-entry", "edge-C128-Co128"])
+def test_conv2d_fused_at_co128_is_deterministic(cuda_device, shape, dtype):
+    """Both forms at Co = 128, with the prologue and the moments: two calls
+    on the same inputs give the same bits in y, S1 and S2."""
+    rng = np.random.default_rng(33)
+    x, w, b, s, t, _ = _conv_inputs(rng, shape, cuda_device)
+    x, w, b = (a.to(dtype) for a in (x, w, b))
+    first = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+    second = ops.conv2d_fused_prologue_stats(x, w, b, s, t)
+    torch.cuda.synchronize()
+    assert first[0].dtype == dtype
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES, ids=BF16_TRAIN_IDS)
@@ -1451,12 +1584,24 @@ def test_exported_model_is_the_live_model_on_the_card(cuda_device, name,
     loaded, runs at B=1 and B=3 bit-equal to the live model, launches the
     same kernels, as many times, and dispatches the same aten ops (no
     layout copy added; ``test_torch_export.OpCounts``)."""
+    _check_export(cuda_device, name, want, tmp_path)
+
+
+def test_exported_raft_downsample0_launches_18(cuda_device, tmp_path):
+    """RAFT_Stereo(downsample=0) exported: the custom ops take the Co = 128
+    entry through their fakes, and the artifact launches the fused conv 18
+    times a forward, as the live model does."""
+    _check_export(cuda_device, "RAFT_Stereo", {"conv2d_fused": 18},
+                  tmp_path, downsample=0)
+
+
+def _check_export(cuda_device, name, want, tmp_path, **options):
     from stereoformer_tpu_torch import export as sfx
     from stereoformer_tpu_torch.models import get_model
     from test_torch_export import OpCounts
 
     H_, W_, iters = 64, 128, 2
-    model = get_model(name, device=cuda_device)
+    model = get_model(name, device=cuda_device, **options)
     path = str(tmp_path / "a.pt2")
     sfx.save_exported(sfx.export_model(model, H_, W_, iters=iters), path)
     loaded = sfx.load_exported(path)

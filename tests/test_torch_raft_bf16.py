@@ -127,8 +127,9 @@ def _close_moments(got, want, slack=0.0):
     assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
-CONV_SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96)]
-CONV_IDS = ["C64-H-tail", "C96-odd-W"]
+# the third: RAFT's 96 -> 128 layer3 entry at downsample=0
+CONV_SHAPES = [(2, 19, 24, 64, 64), (1, 12, 37, 96, 96), (1, 12, 21, 96, 128)]
+CONV_IDS = ["C64-H-tail", "C96-odd-W", "C96-Co128"]
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES, ids=CONV_IDS)

@@ -152,23 +152,24 @@ def test_reference_files_of_option_sets_load(tmp_path, option_set):
 
 
 # routed FusedConv sites a forward (both encoders) by option set: layer2's
-# 64 -> 96 entry runs at stride 1 where downsample < 2, and JAX routes it
-ROUTED_SITES = {"ds1": 16, "ds0": 16}
+# 64 -> 96 entry runs at stride 1 where downsample < 2, and layer3's
+# 96 -> 128 entry where downsample = 0; JAX routes both
+ROUTED_SITES = {"ds1": 16, "ds0": 18}
 
 
 def test_fused_conv_routing_at_every_option_set():
-    """JAX's rule (64 <= C_in <= 96) where the kernel has the widths (C_in a
-    multiple of 8, Co 64 or 96, forward and weight gradient alike): 7
-    routed sites an encoder at most sets, 14 a forward; at ``downsample``
-    1 and 0 layer2's 64 -> 96 entry is routed too, 16 a forward; the
-    96 -> 128 entry of layer3 at ``downsample=0`` is a plain conv (no
-    kernel template has Co = 128)."""
-    for cin, cout in ((64, 64), (96, 96), (64, 96), (96, 64), (72, 64),
-                      (88, 96)):
+    """JAX's rule (64 <= C_in <= 96) where the kernels can run and train
+    the widths (C_in and Co 64, 96 or 128: the forward and the weight
+    gradient have Co outputs, the dx conv C_in): 7 routed sites an encoder
+    at most sets, 14 a forward; at ``downsample`` 1 and 0 layer2's
+    64 -> 96 entry is routed too, 16 a forward, and at ``downsample=0``
+    layer3's 96 -> 128 entry as well, 18 a forward."""
+    for cin, cout in ((64, 64), (96, 96), (64, 96), (96, 64), (96, 128),
+                      (64, 128)):
         assert kernel_routes(cin, cout), (cin, cout)
         assert FusedConv(cin, cout).routed
-    for cin, cout in ((96, 128), (128, 128), (32, 32), (80, 80), (68, 64),
-                      (104, 96), (56, 64)):
+    for cin, cout in ((128, 128), (96, 160), (32, 32), (80, 80), (68, 64),
+                      (104, 96), (56, 64), (72, 64), (88, 96), (72, 128)):
         assert not kernel_routes(cin, cout), (cin, cout)
         assert not FusedConv(cin, cout).routed
     for name, opts in (*OPTION_SETS.items(), ("ds0", dict(downsample=0))):
@@ -186,16 +187,19 @@ def test_fused_conv_routing_at_every_option_set():
         assert model.cnet.layer2[0].conv1.routed
     with torch.device("meta"):
         ds0 = RAFTStereo(downsample=0)
-    assert isinstance(ds0.fnet.layer3[0].conv1, FusedConv)
-    assert not ds0.fnet.layer3[0].conv1.routed
+    for net in (ds0.fnet, ds0.cnet):
+        assert isinstance(net.layer3[0].conv1, FusedConv)
+        assert net.layer3[0].conv1.routed
+        assert not net.layer3[0].conv2.routed
 
 
 def test_fused_conv_unrouted_site_matches_plain_conv():
-    """A site the kernel lacks (Co = 128) is the plain conv, its gradients
-    autograd's, and launches nothing."""
+    """A site outside JAX's default range (C_in = 128 > auto_max_c) is the
+    plain conv, its gradients autograd's, and launches nothing."""
     torch.manual_seed(0)
-    conv = FusedConv(96, 128)
-    x = torch.randn(2, 96, 6, 10).requires_grad_(True)
+    conv = FusedConv(128, 128)
+    assert not conv.routed
+    x = torch.randn(2, 128, 6, 10).requires_grad_(True)
     n = ops.conv2d_fused.launches
     y, sums = conv(x, with_stats=True)
     assert sums is None and ops.conv2d_fused.launches == n

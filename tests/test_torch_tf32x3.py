@@ -55,6 +55,15 @@ RAFT_DW_SITES = [(8, 320, 720, 64), (4, 320, 720, 64), (8, 160, 360, 96),
 # B=2, 576x960, and the backward's dx at the train step, B=4, 320x720
 RAFT_FUSED_SITES = [(4, 576, 960, 64), (2, 576, 960, 64), (4, 288, 480, 96),
                     (2, 288, 480, 96)] + RAFT_DW_SITES
+# the sites of Co = 128 (B, H, W, C, Co of the kernel's call): RAFT's
+# 96 -> 128 layer3 entry at downsample=0 (eval B=2 at 576x960; its dx at
+# the train step, B=4 at 320x720, a conv of 128 channels to 96), and the
+# 128 -> 128 convs that auto_max_c=128 routes at the default downsample
+# (eval and train)
+CO128_FUSED_SITES = [(4, 576, 960, 96, 128), (2, 576, 960, 96, 128),
+                     (8, 320, 720, 128, 96), (4, 320, 720, 128, 96),
+                     (4, 144, 240, 128, 128), (2, 144, 240, 128, 128),
+                     (8, 80, 180, 128, 128), (4, 80, 180, 128, 128)]
 H100_SMS = 132
 
 
@@ -209,15 +218,16 @@ def test_dw_plan_fills_the_card_in_whole_waves(site):
     assert blocks % slots == 0
 
 
-@pytest.mark.parametrize("C,Co", [(64, 96), (96, 64), (72, 64), (88, 96)])
+@pytest.mark.parametrize("C,Co", [(64, 96), (96, 64), (72, 64), (88, 96),
+                                  (96, 128), (128, 128), (72, 128)])
 def test_dw_plan_takes_c_other_than_co(C, Co):
-    """Where C differs from Co (RAFT's 64 -> 96 layer2 entry, and C no
-    multiple of a chunk): the template is Co's, a split's blocks cover C in
-    whole chunks (the last zero-filled), and the grid fills the card in
-    whole waves, in both forms."""
+    """Where C differs from Co (RAFT's 64 -> 96 layer2 entry and 96 -> 128
+    layer3 entry, and C no multiple of a chunk): the template is Co's, a
+    split's blocks cover C in whole chunks (the last zero-filled), and the
+    grid fills the card in whole waves, in both forms."""
     nsplit, blocks = dw_plan(C, H100_SMS, Co=Co)
     assert blocks == nsplit * 3 * -(-C // 32)
-    assert blocks % (H100_SMS * {64: 3, 96: 2}[Co]) == 0
+    assert blocks % (H100_SMS * {64: 3, 96: 2, 128: 1}[Co]) == 0
     tiling = kernels.DW_BF16_TILING[Co]
     nsplit, blocks = dw_plan(C, H100_SMS, torch.bfloat16, Co)
     assert blocks == nsplit * -(-C // tiling["KC"])
@@ -249,12 +259,13 @@ def test_dw_bf16_tiling_is_built_from_one_table(monkeypatch):
     another library and another plan."""
     import re
 
-    read = set(re.findall(r"\b(DW(?:64|96)_[A-Z0-9]+)\b",
+    read = set(re.findall(r"\b(DW(?:64|96|128)_[A-Z0-9]+)\b",
                           (kernels.CSRC / "conv2d_dw.cu").read_text()))
     flags = kernels.nvcc_flags("conv2d_dw.cu")
     passed = {f[2:].split("=")[0] for f in flags if f.startswith("-D")}
-    assert read == passed and len(passed) == 12
-    assert kernels.nvcc_flags("conv2d_fused.cu") == kernels.NVCC_FLAGS
+    assert read == passed and len(passed) == 18
+    assert not any(f.startswith("-DDW")
+                   for f in kernels.nvcc_flags("conv2d_fused.cu"))
     before = kernels._library_path("conv2d_dw_bf16")
     tiling = {C: dict(t) for C, t in kernels.DW_BF16_TILING.items()}
     tiling[96]["MINB"] = 2
@@ -262,6 +273,29 @@ def test_dw_bf16_tiling_is_built_from_one_table(monkeypatch):
     assert kernels._library_path("conv2d_dw_bf16") != before
     assert dw_plan(96, H100_SMS, torch.bfloat16) == dw_conv.whole_waves(
         2 * H100_SMS, 96 // tiling[96]["KC"])
+
+
+def test_bf16_fold_threshold_is_built_from_one_constant(monkeypatch):
+    """csrc/conv2d_fused.cu reads the bf16 form's widest unfolded C from
+    -DBF16_FOLD_C, which the build passes from kernels.BF16_FOLD_C, the
+    constant fused_blocks plans the grid by: a change of it names another
+    library and another grid."""
+    import re
+
+    code = "\n".join(line.split("//")[0] for line in
+                     (kernels.CSRC / "conv2d_fused.cu").read_text().split("\n"))
+    assert "C > BF16_FOLD_C" in code
+    assert not re.search(r"\bC\s*[<>]=?\s*96\b", code)
+    flags = kernels.nvcc_flags("conv2d_fused.cu")
+    assert flags == kernels.NVCC_FLAGS + (
+        f"-DBF16_FOLD_C={kernels.BF16_FOLD_C}",)
+    before = kernels._library_path("conv2d_fused_bf16")
+    folded = fused_blocks(1, 64, 64, 128, 128, torch.bfloat16)
+    f32 = fused_blocks(1, 64, 64, 128, 128)
+    monkeypatch.setattr(kernels, "BF16_FOLD_C", 128)
+    assert kernels._library_path("conv2d_fused_bf16") != before
+    assert fused_blocks(1, 64, 64, 128, 128, torch.bfloat16) == folded // 2
+    assert fused_blocks(1, 64, 64, 128, 128) == f32
 
 
 def _fused_gemm_operands(z, w, kc=8):
@@ -281,8 +315,9 @@ def _fused_gemm_operands(z, w, kc=8):
     return xcol.reshape(H * W, 9 * Cp), wk.reshape(9 * Cp, -1)
 
 
-@pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 96, 96)],
-                         ids=["19x40-C64", "9x33-C96"])
+@pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 96, 96),
+                                   (9, 33, 96, 128)],
+                         ids=["19x40-C64", "9x33-C96", "9x33-C96-Co128"])
 def test_fused_conv_in_three_tf32_products_holds_the_float32_tolerance(shape):
     """y = conv3x3(relu(x s + t), w) + b for one image, as the kernel sums
     it: the prologue in float32, 3xTF32 k-steps of 8 channels with
@@ -345,21 +380,26 @@ def to_bf16(a) -> np.ndarray:
 
 # the bf16 form's chunk by Co and its tile (csrc/conv2d_fused.cu,
 # bfk::Cfg::KC, bfk::BTH and TW): 16 input channels (one k-step a tap) in
-# the blocks of Co = 64, 32 (two) in those of Co = 96; 8 x 32 pixels
-BF16_KC = {64: 16, 96: 32}
+# the 64-channel blocks of Co = 64 and 128, 32 (two) in the 48-channel
+# blocks of Co = 96; past C = 96, 16 in 32-channel blocks, each chunk's 9
+# k-steps folded; 8 x 32 pixels
+BF16_KC = {64: 16, 96: 32, 128: 16}
 BF16_TILE = (8, 32)
 
 
 @pytest.mark.parametrize("shape", [(19, 40, 64, 64), (9, 33, 72, 96),
-                                   (9, 33, 96, 96)],
-                         ids=["19x40-C64", "9x33-C72-tail-96", "9x33-C96"])
+                                   (9, 33, 96, 96), (9, 33, 96, 128),
+                                   (9, 33, 128, 128)],
+                         ids=["19x40-C64", "9x33-C72-tail-96", "9x33-C96",
+                              "9x33-C96-Co128", "9x33-C128-Co128"])
 def test_fused_conv_bf16_mma_holds_one_bf16_ulp(shape):
     """The bf16 form as its mainloop sums it, for one image: the prologue
     bf16(relu(x s + t)), k-steps of 16 channels (a tap's) in chunks of 16
-    (Co = 64) or 32 channels (Co = 96), the channels past C zero (C = 72:
-    a tail chunk of 8), exact
+    (Co = 64, 128) or 32 channels (Co = 96), the channels past C zero
+    (C = 72: a tail chunk of 8), exact
     products and one truncating add per MMA into one float32 fragment over
-    all of C (36 to 54 MMAs: the kernel does not fold), then the bias and
+    all of C (36 to 54 MMAs: the kernel does not fold up to C = 96; past
+    it, chunks of 16 whose 9 MMAs are folded), then the bias and
     one rounding to bf16. Every output is within one bf16 ulp of the plain
     version (float32 sums, one rounding), or near 0 within 2^-20 of the
     largest output, as chip_smoke.py's bf16_close holds the card; the
@@ -380,8 +420,10 @@ def test_fused_conv_bf16_mma_holds_one_bf16_ulp(shape):
     # the prologue's FMA (the float64 product is exact), rounded to bf16
     z = to_bf16(np.maximum(
         (x[0].astype(np.float64) * s[0] + t[0]).astype(np.float32), 0))
-    xcol, wk = _fused_gemm_operands(z, w, BF16_KC[Co])
-    y = to_bf16((mma_sum_bf16(xcol, wk, fold_every=0) + b).reshape(H, W, Co))
+    folded = C > kernels.BF16_FOLD_C
+    xcol, wk = _fused_gemm_operands(z, w, 16 if folded else BF16_KC[Co])
+    y = to_bf16((mma_sum_bf16(xcol, wk, fold_every=9 if folded else 0)
+                 + b).reshape(H, W, Co))
     big = np.maximum(np.abs(y), np.abs(want)).clip(1e-30)
     ulp = 2.0 ** -7 * np.exp2(np.floor(np.log2(big)))
     tol = np.maximum(ulp, 2.0 ** -20 * np.abs(want).max())
@@ -544,7 +586,7 @@ def dw_bf16_walk(x: np.ndarray, g: np.ndarray, nsplit: int, kc: int,
 # the items), and the plan's own nsplit
 WALK_CASES = [(2, 7, 37, 64, 5), (1, 1, 5, 64, 3), (1, 2, 9, 96, 4),
               (2, 19, 40, 64, 7), (1, 9, 33, 96, None), (2, 3, 5, 64, 1),
-              (3, 4, 16, 64, None)]
+              (3, 4, 16, 64, None), (1, 5, 37, 128, 3)]
 
 
 @pytest.mark.parametrize("mainloop", [0, 1], ids=["mma", "wgmma"])
@@ -587,7 +629,9 @@ def test_dw_bf16_plan_fills_the_card_in_whole_waves(site):
     pytest.param((2, 19, 40, 64), torch.float32, id="f32-C64"),
     pytest.param((1, 9, 33, 96), torch.float32, id="f32-C96"),
     pytest.param((2, 19, 40, 64), torch.bfloat16, id="bf16-C64"),
-    pytest.param((1, 9, 33, 96), torch.bfloat16, id="bf16-C96")])
+    pytest.param((1, 9, 33, 96), torch.bfloat16, id="bf16-C96"),
+    pytest.param((1, 9, 33, 128), torch.float32, id="f32-C128"),
+    pytest.param((1, 9, 33, 128), torch.bfloat16, id="bf16-C128")])
 def test_dw_scratch_is_what_the_grid_writes(shape, dtype, monkeypatch):
     """The wrapper sizes the partials' scratch [nsplit, 9, C, Co] by the
     form's plan and passes the kernel that nsplit, the grid's splits, each
@@ -619,30 +663,38 @@ def _site_id(s):
 
 # the float32 form at every site, the bf16 form at every site (the eval's
 # forward; the train sites are the bf16 dx's shapes)
-FUSED_FORMS = [pytest.param(s, torch.float32, id=_site_id(s))
-               for s in RAFT_FUSED_SITES] + [
-    pytest.param(s, torch.bfloat16, id="bf16-" + _site_id(s))
-    for s in RAFT_FUSED_SITES]
-# output rows and columns of a tile, and output channels of a block by Co:
-# 4 x 32 and 32 in the 3xTF32 form; 8 x 32 and all of Co = 64, half of
-# Co = 96 in the bf16 form
+FUSED_SITES = [(*s, s[3]) for s in RAFT_FUSED_SITES] + CO128_FUSED_SITES
+FUSED_FORMS = [pytest.param(s, torch.float32, id=_site_id(s[:4]))
+               for s in FUSED_SITES] + [
+    pytest.param(s, torch.bfloat16, id="bf16-" + _site_id(s[:4]))
+    for s in FUSED_SITES]
+# output rows and columns of a tile: 4 x 32 in the 3xTF32 form, 8 x 32 in
+# the bf16 form
 FUSED_TILE = {torch.float32: (4, 32), torch.bfloat16: (8, 32)}
-FUSED_CB = {torch.float32: {64: 32, 96: 32},
-            torch.bfloat16: {64: 64, 96: 48}}
+
+
+def fused_cb(dtype, C, Co):
+    """Output channels of a block: 32 in the 3xTF32 form; in the bf16 form
+    all of Co = 64, half of Co = 96 and of Co = 128, and 32 where C > 96
+    (each chunk's sums folded)."""
+    if dtype == torch.float32 or C > kernels.BF16_FOLD_C:
+        return 32
+    return {64: 64, 96: 48, 128: 64}[Co]
 
 
 @pytest.mark.parametrize("site,dtype", FUSED_FORMS)
 def test_fused_grid_puts_a_block_on_every_sm(site, dtype):
-    B, H, W, Co = site
-    blocks = fused_blocks(B, H, W, Co, dtype)
+    B, H, W, C, Co = site
+    blocks = fused_blocks(B, H, W, C, Co, dtype)
     th, tw = FUSED_TILE[dtype]
-    cb = FUSED_CB[dtype][Co]
-    assert blocks == B * -(-H // th) * -(-W // tw) * (Co // cb)
+    assert blocks == (B * -(-H // th) * -(-W // tw)
+                      * (Co // fused_cb(dtype, C, Co)))
     assert blocks >= H100_SMS
 
 
 SCRATCH_SHAPES = [(2, 19, 40, 64, 96), (1, 37, 53, 96, 64),
-                  (1, 17, 45, 72, 96), (2, 9, 33, 96, 96)]
+                  (1, 17, 45, 72, 96), (2, 9, 33, 96, 96),
+                  (1, 37, 53, 96, 128), (1, 17, 45, 128, 96)]
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -651,7 +703,10 @@ SCRATCH_SHAPES = [(2, 19, 40, 64, 96), (1, 37, 53, 96, 64),
     pytest.param(SCRATCH_SHAPES[0], torch.bfloat16, id="bf16-H-tail-C64-96"),
     pytest.param(SCRATCH_SHAPES[1], torch.bfloat16, id="bf16-tails-C96-64"),
     pytest.param(SCRATCH_SHAPES[2], torch.bfloat16, id="bf16-C72-96"),
-    pytest.param(SCRATCH_SHAPES[3], torch.bfloat16, id="bf16-C96-96")])
+    pytest.param(SCRATCH_SHAPES[3], torch.bfloat16, id="bf16-C96-96"),
+    pytest.param(SCRATCH_SHAPES[4], torch.float32, id="tails-C96-128"),
+    pytest.param(SCRATCH_SHAPES[4], torch.bfloat16, id="bf16-tails-C96-128"),
+    pytest.param(SCRATCH_SHAPES[5], torch.bfloat16, id="bf16-C128-96-folded")])
 def test_fused_moment_scratch_has_one_partial_per_block(shape, dtype,
                                                         monkeypatch):
     """The wrapper sizes the moments' scratch [B, tiles, 2, Co] by the
@@ -681,5 +736,5 @@ def test_fused_moment_scratch_has_one_partial_per_block(shape, dtype,
     assert len(part) == 1 and part[0][0] == B and part[0][3] == Co
     th, tw = FUSED_TILE[dtype]
     assert part[0][1] == -(-H // th) * -(-W // tw)
-    assert (B * part[0][1] * (Co // FUSED_CB[dtype][Co])
-            == fused_blocks(B, H, W, Co, dtype))
+    assert (B * part[0][1] * (Co // fused_cb(dtype, C, Co))
+            == fused_blocks(B, H, W, C, Co, dtype))
